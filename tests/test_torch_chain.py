@@ -1,0 +1,224 @@
+"""yagi_tpu_torch's config[0] receive chain against yagi_tpu's.
+
+* fused_chain_reference (the kernel's plain torch version) against the
+  Pallas kernel in interpret mode: the same banded fp32 formulation, so only
+  the summation order differs (relative error below 1e-5);
+* RxChain against yagi_tpu's RxChain (atol 1e-5);
+* FusedRxChain against yagi_tpu's FusedRxChain and against the port's
+  RxChain: the combined taps are built in float64, so the fused and staged
+  chains agree within 1e-4 relative error (tests/test_fused_chain.py);
+* streaming state, the ConfigError contract, and the device dispatch.
+
+The CUDA kernel itself runs only on a GPU; chip_smoke.py holds it against
+fused_chain_reference there.
+"""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yagi_tpu.chains import FusedRxChain as JFused
+from yagi_tpu.chains import RxChain as JRx
+from yagi_tpu.kernels.chain import fused_chain_apply as j_apply
+from yagi_tpu_torch._src.struct import load_state
+from yagi_tpu_torch.chains import FusedRxChain, RxChain
+from yagi_tpu_torch.errors import ConfigError
+from yagi_tpu_torch.filter import FirFilter, Resamp
+from yagi_tpu_torch.kernels import _build
+from yagi_tpu_torch.kernels.chain import _route, fused_chain_apply, fused_chain_reference
+from yagi_tpu_torch.nco import Osc
+
+torch.set_num_threads(1)
+
+C, T = 3, 2048
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _cplx(rng, shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float((np.abs(a - b) / (np.abs(a) + 1e-3)).max())
+
+
+def _jfused(mix_freq, c=C):
+    return JFused.create(mix_freq=mix_freq, batch_shape=(c,), r=4).replace(interpret=True)
+
+
+@pytest.mark.parametrize("mix_freq", [0.0, 0.35])
+def test_reference_matches_pallas_kernel(mix_freq):
+    rng = np.random.default_rng(21)
+    chain = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,))
+    xr, xi = (rng.standard_normal((C, T)).astype(np.float32) for _ in range(2))
+    hr, hi = (rng.standard_normal((C, 128)).astype(np.float32) for _ in range(2))
+    theta0 = np.uint32(0x9E3779B9)
+    jr, ji = j_apply(
+        jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(chain.g.numpy()), jnp.asarray(hr),
+        jnp.asarray(hi), theta0, np.uint32(int(chain.d_theta)), p=2, r=4, interpret=True,
+    )
+    tr, ti = fused_chain_reference(
+        torch.from_numpy(xr), torch.from_numpy(xi), chain.g, torch.from_numpy(hr),
+        torch.from_numpy(hi), torch.tensor(int(theta0)), chain.d_theta, p=2,
+    )
+    want = np.asarray(jr) + 1j * np.asarray(ji)
+    got = tr.numpy() + 1j * ti.numpy()
+    assert _rel(want, got) < 1e-5
+
+
+def test_rxchain_matches_yagi_tpu():
+    rng = np.random.default_rng(22)
+    j = JRx.create(batch_shape=(C,))
+    t = RxChain.create(batch_shape=(C,))
+    for _ in range(3):
+        x = _cplx(rng, (C, T))
+        yj, kj, j = j.step(jnp.asarray(x))
+        yt, kt, t = t.step(torch.from_numpy(x))
+        assert int(kt) == int(np.asarray(kj)) == 2 * T
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=1e-5)
+        assert int(t.osc.theta) == int(np.asarray(j.osc.theta))
+        assert t.resamp.exact_sched == j.resamp.exact_sched
+
+
+def test_rxchain_state_carries_over_from_yagi_tpu():
+    """A yagi_tpu RxChain's state, loaded mid-stream, continues identically."""
+    rng = np.random.default_rng(23)
+    j = JRx.create(mix_freq=0.2, batch_shape=(C,))
+    _, _, j = j.step(jnp.asarray(_cplx(rng, (C, 640))))
+    t = RxChain(
+        fir=load_state(FirFilter, _fields(j.fir)),
+        resamp=load_state(Resamp, _fields(j.resamp)),
+        osc=load_state(Osc, _fields(j.osc)),
+    )
+    x = _cplx(rng, (C, 512))
+    yj, kj, _ = j.step(jnp.asarray(x))
+    yt, kt, _ = t.step(torch.from_numpy(x))
+    assert int(kt) == int(np.asarray(kj))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mix_freq", [0.0, 0.35])
+def test_fused_matches_yagi_tpu_and_rxchain(mix_freq):
+    rng = np.random.default_rng(7)
+    jf = _jfused(mix_freq)
+    tf = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,))
+    rx = RxChain.create(mix_freq=mix_freq, batch_shape=(C,))
+    np.testing.assert_array_equal(tf.g.numpy(), np.asarray(jf.g))
+    for blk in range(3):  # streaming state carry across blocks
+        x = _cplx(rng, (C, T))
+        yj, kj, jf = jf.step(jnp.asarray(x))
+        yt, kt, tf = tf.step(torch.from_numpy(x))
+        yr, kr, rx = rx.step(torch.from_numpy(x))
+        assert kt == int(kj) == int(kr) == 2 * T
+        assert _rel(yj, yt.numpy()) < 1e-4, f"block {blk} vs yagi_tpu"
+        assert _rel(yr.numpy()[:, :kt], yt.numpy()) < 1e-4, f"block {blk} vs RxChain"
+        assert int(tf.theta) == int(np.asarray(jf.theta))
+        np.testing.assert_array_equal(tf.hist_r.numpy(), np.asarray(jf.hist_r))
+
+
+def test_fused_state_carries_over_from_yagi_tpu():
+    rng = np.random.default_rng(24)
+    jf = _jfused(0.35)
+    _, _, jf = jf.step(jnp.asarray(_cplx(rng, (C, 1024))))
+    tf = load_state(FusedRxChain, _fields(jf))
+    assert tf.theta.dtype == torch.int64 and tf.r == jf.r
+    x = _cplx(rng, (C, 1024))
+    yj, _, _ = jf.step(jnp.asarray(x))
+    yt, _, _ = tf.step(torch.from_numpy(x))
+    assert _rel(yj, yt.numpy()) < 1e-4
+
+
+def test_block_split_invariance():
+    """One 4096 block == two 2048 blocks (state carry exact)."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(_cplx(rng, (2, 4096)))
+    y_all, _, _ = FusedRxChain.create(batch_shape=(2,)).step(x)
+    c2 = FusedRxChain.create(batch_shape=(2,))
+    y_a, _, c2 = c2.step(x[:, :2048])
+    y_b, _, c2 = c2.step(x[:, 2048:])
+    np.testing.assert_allclose(
+        y_all.numpy(), torch.cat([y_a, y_b], dim=-1).numpy(), rtol=0, atol=1e-5
+    )
+
+
+def test_planar_step_matches_complex_step():
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_cplx(rng, (2, 1024)))
+    c = FusedRxChain.create(batch_shape=(2,))
+    y, k, _ = c.step(x)
+    yr, yi, k2, _ = c.step_planar(x.real.contiguous(), x.imag.contiguous())
+    assert k == k2 == 2048
+    np.testing.assert_array_equal(y.real.numpy(), yr.numpy())
+    np.testing.assert_array_equal(y.imag.numpy(), yi.numpy())
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(rate=1.5, batch_shape=(2,)), dict(rate=3.0, batch_shape=(2,)),
+     dict(batch_shape=()), dict(batch_shape=(2,), precision="bf16")],
+)
+def test_rejects_bad_config(kw):
+    with pytest.raises(ConfigError):
+        FusedRxChain.create(**kw)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default", "bf16x3"])
+def test_every_precision_mode_runs_fp32(precision):
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(_cplx(rng, (2, 256)))
+    y, _, _ = FusedRxChain.create(batch_shape=(2,), precision=precision).step(x)
+    y0, _, _ = FusedRxChain.create(batch_shape=(2,)).step(x)
+    np.testing.assert_array_equal(y.numpy(), y0.numpy())
+
+
+def test_dispatch_by_device():
+    assert _route(torch.device("cuda", 0)) == "cuda"
+    assert _route(torch.device("cpu")) == "reference"
+    with pytest.raises(ValueError):
+        _route(torch.device("meta"))
+
+
+def _apply_args(c=2, t=256):
+    chain = FusedRxChain.create(batch_shape=(c,))
+    z = torch.zeros((c, t))
+    return [z, z.clone(), chain.g, chain.hist_r, chain.hist_i, chain.theta, chain.d_theta]
+
+
+def test_apply_counts_no_launch_on_cpu():
+    before = fused_chain_apply.launches
+    fused_chain_apply(*_apply_args(), p=2)
+    assert fused_chain_apply.launches == before
+
+
+@pytest.mark.parametrize("bad", ["length", "dtype", "layout", "device", "phase"])
+def test_apply_rejects_bad_input(bad):
+    args = _apply_args()
+    if bad == "length":
+        args[0] = args[1] = torch.zeros((2, 200))
+    elif bad == "dtype":
+        args[0] = args[0].double()
+    elif bad == "layout":
+        args[0] = torch.zeros((256, 2)).t()
+    elif bad == "device":
+        args[1] = args[1].to("meta")
+    else:
+        args[5] = args[5].to(torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        fused_chain_apply(*args, p=2)
+
+
+def test_kernel_build_recipe():
+    """sm_90a, no fast math (sincosf must stay accurate), and a plain C
+    interface without PyTorch's headers."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "fast_math" not in flags
+    src = open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc", "chain.cu")).read()
+    assert "torch/extension.h" not in src and 'extern "C"' in src

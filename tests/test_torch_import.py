@@ -1,0 +1,66 @@
+"""yagi_tpu_torch stands alone: it imports no jax and no yagi_tpu, and keeps
+yagi_tpu's error taxonomy."""
+
+import inspect
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import yagi_tpu.errors as jerr
+import yagi_tpu_torch.errors as terr
+
+torch.set_num_threads(1)
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_MODULES = (
+    "yagi_tpu_torch",
+    "yagi_tpu_torch.errors",
+    "yagi_tpu_torch._src.struct",
+    "yagi_tpu_torch.math",
+    "yagi_tpu_torch.design",
+    "yagi_tpu_torch.filter",
+    "yagi_tpu_torch.nco",
+    "yagi_tpu_torch.kernels",
+    "yagi_tpu_torch.kernels._build",
+    "yagi_tpu_torch.chains",
+)
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yagi_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _error_classes(mod):
+    return {
+        name: cls for name, cls in vars(mod).items()
+        if inspect.isclass(cls) and issubclass(cls, Exception) and cls.__module__ == mod.__name__
+    }
+
+
+def test_error_names_match():
+    assert sorted(_error_classes(terr)) == sorted(_error_classes(jerr))
+
+
+@pytest.mark.parametrize("name", sorted(_error_classes(jerr)))
+def test_error_hierarchy_matches(name):
+    def bases(cls):
+        return [b.__name__ for b in cls.__mro__]
+
+    assert bases(getattr(terr, name)) == bases(getattr(jerr, name))

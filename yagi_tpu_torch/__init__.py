@@ -1,0 +1,30 @@
+"""yagi_tpu_torch — the PyTorch/CUDA port of yagi_tpu.
+
+Same DSP objects, state carry and typed errors as :mod:`yagi_tpu`, in
+PyTorch; each Pallas TPU kernel on a ported path becomes a hand-written
+Hopper kernel (``csrc/``), built with nvcc at first use. Imports torch and
+never jax. Ported so far: the BASELINE config[0] receive chain (Kaiser FIR →
+2× polyphase interpolator → u32 NCO mix-down), as :class:`chains.RxChain`
+(plain torch) and :class:`chains.FusedRxChain` (one kernel per block).
+
+Layer map (mirrors yagi_tpu):
+  math/     host-side design math (float64 NumPy)
+  design/   FIR design, Kaiser path
+  filter/   streaming FIR, PFB decomposition, arbitrary resampler
+  nco/      oscillator, mode "exact"
+  kernels/  Hopper kernels beside their plain torch versions
+  chains/   composed receive chains
+"""
+
+__version__ = "0.1.0"
+
+from . import errors  # noqa: F401
+from . import math  # noqa: F401
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in ("design", "filter", "nco", "kernels", "chains"):
+        return importlib.import_module(f"yagi_tpu_torch.{name}")
+    raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

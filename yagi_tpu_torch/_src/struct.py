@@ -1,0 +1,74 @@
+"""Frozen dataclass machinery for stateful DSP objects.
+
+Every streaming object is an immutable frozen dataclass, threaded through
+calls as ``y, obj = obj.execute_block(x)``, as in :mod:`yagi_tpu._src.struct`.
+Tensor fields hold coefficients and carried stream state; static fields hold
+structural configuration (lengths, modes, schedule certificates).
+
+Unsigned 32-bit state (resampler and oscillator phases) is held as int64 in
+[0, 2^32): torch has no general uint32 arithmetic. Every update masks with
+``U32``, so the values equal the reference's wrapping u32 accumulators.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, TypeVar
+
+import numpy as np
+import torch
+
+_T = TypeVar("_T")
+
+U32 = 0xFFFFFFFF
+
+
+def static_field(**kwargs) -> Any:
+    """A dataclass field holding static configuration (not a tensor)."""
+    metadata = dict(kwargs.pop("metadata", {}) or {})
+    metadata["static"] = True
+    return dataclasses.field(metadata=metadata, **kwargs)
+
+
+def field(**kwargs) -> Any:
+    """A tensor-valued dataclass field."""
+    return dataclasses.field(**kwargs)
+
+
+def state(cls: type[_T]) -> type[_T]:
+    """Decorator: frozen dataclass with a ``replace(**updates)`` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+
+    def _replace(self, **updates):
+        return dataclasses.replace(self, **updates)
+
+    cls.replace = _replace  # type: ignore[attr-defined]
+    return cls
+
+
+def _as_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def load_state(cls: type[_T], arrays: dict, device=None) -> _T:
+    """Build a ``cls`` object from another implementation's field values.
+
+    ``arrays`` maps field names to numpy arrays (or anything ``np.asarray``
+    takes), typically the fields of the matching yagi_tpu object. uint32
+    becomes int64 in [0, 2^32); other dtypes (float32, complex64) are kept.
+    Static fields pass through unchanged. Keys that ``cls`` has no field for
+    (such as a Pallas ``interpret`` flag) are ignored; a missing field falls
+    back to its default or raises ``KeyError``.
+    """
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in arrays:
+            if f.default is dataclasses.MISSING:
+                raise KeyError(f"{cls.__name__}: no value for field {f.name!r}")
+            continue
+        v = arrays[f.name]
+        kw[f.name] = v if f.metadata.get("static", False) else _as_tensor(v, device)
+    return cls(**kw)

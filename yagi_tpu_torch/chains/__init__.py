@@ -1,0 +1,4 @@
+"""Composed receive chains, each a state object with a ``step``."""
+
+from .rx import RxChain  # noqa: F401
+from .fused import FusedRxChain  # noqa: F401

@@ -1,0 +1,266 @@
+"""Arbitrary-rate polyphase resampler.
+
+Port of :mod:`yagi_tpu.filter.resamp` (reference: resamp.rs). The reference
+advances a u32 fixed-point phase per input sample (step = round(2^24 / r),
+resamp.rs:103) and emits one output per phase slot through a selected PFB
+branch (resamp.rs:141-154).
+
+Closed form: output m has the 64-bit accumulated phase P_m = phase0 + m·step
+and is emitted while consuming input n_m = P_m >> 24 through branch
+(P_m & 0xffffff) >> (24 − bits). torch's int64 holds P_m exactly, so the
+schedule, the count and the carried phase equal the reference's u32
+semantics. Outputs are a frame gather plus one batched contraction, or, while
+the schedule is provably periodic with phase 0 at block edges, one banded
+matmul (filter/_sched.py).
+
+Because the output count depends on the carried phase, the block calls return
+a fixed-capacity buffer plus the exact count.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .._src import struct
+from .._src.struct import U32
+from ..errors import ConfigError
+from .. import design
+from ..math.special import nextpow2
+from ..nco.osc import _rotate_down
+from ._sched import sched_banded_matmul, sched_matmul_ok, u32_static_schedule
+from .firpfb import pfb_decompose
+
+__all__ = ["Resamp"]
+
+
+def _pq_of_step(step: int) -> tuple | None:
+    """(P, Q) of the exactly-periodic u32 schedule, or None."""
+    if step <= 0:
+        return None
+    g = math.gcd(step, 1 << 24)
+    p = (1 << 24) // g
+    return (p, step // g) if p <= 256 else None
+
+
+@struct.state
+class Resamp:
+    """Arbitrary resampler state (resamp.rs:8-16)."""
+
+    m: int = struct.static_field()  # filter semi-length (delay)
+    bits: int = struct.static_field()  # log2(npfb)
+    nominal_rate: float = struct.static_field()  # create-time rate, sizes buffers
+    branches: torch.Tensor = struct.field()  # [npfb, Lsub] convolution order
+    rate: torch.Tensor = struct.field()  # float32 current rate
+    step: torch.Tensor = struct.field()  # u32 = round(2^24 / rate), int64
+    phase: torch.Tensor = struct.field()  # u32 accumulator, int64
+    window: torch.Tensor = struct.field()  # [..., Lsub] PFB window
+    # (P, Q) when the u32 schedule is exactly periodic (P | 2^24) AND the
+    # carried phase is provably 0 at every block boundary so far: the
+    # banded-matmul fast path applies. Cleared (None) by a block that can
+    # leave a nonzero phase.
+    exact_sched: tuple | None = struct.static_field(default=None)
+
+    # ------------------------------------------------------------------ ctors
+    @classmethod
+    def create(
+        cls,
+        rate: float,
+        m: int = 7,
+        fc: float = 0.25,
+        as_: float = 60.0,
+        npfb: int = 256,
+        batch_shape: tuple = (),
+        dtype=torch.complex64,
+        interp: str = "pfb",
+        device=None,
+    ) -> "Resamp":
+        """Design the PFB prototype and initialize state (resamp.rs:24-71).
+
+        Only ``interp="pfb"`` (the reference's 256-branch evaluation) is
+        ported; ``"farrow"`` raises :class:`ConfigError`.
+        """
+        if interp not in ("pfb", "farrow"):
+            raise ConfigError("interp must be 'pfb' or 'farrow'")
+        if interp == "farrow":
+            raise ConfigError("interp='farrow' is not ported yet; use 'pfb'")
+        if rate <= 0.0:
+            raise ConfigError("resampling rate must be greater than zero")
+        if m == 0:
+            raise ConfigError("filter semi-length must be greater than zero")
+        if fc <= 0.0 or fc >= 0.5:
+            raise ConfigError("filter cutoff must be in (0,0.5)")
+        if as_ <= 0.0:
+            raise ConfigError("filter stop-band suppression must be greater than zero")
+        bits = nextpow2(npfb)
+        if bits < 1 or bits > 16:
+            raise ConfigError("number of filter banks must be in (2^0,2^16)")
+        npfb = 1 << bits
+
+        n = 2 * m * npfb + 1
+        hf = design.fir_design_kaiser(n, fc / npfb, as_, 0.0)
+        h = (hf * (npfb / np.sum(hf))).astype(np.float32)
+        # the reference constructs the PFB with h_len = n-1 (drops last tap)
+        branches = pfb_decompose(h[: n - 1], npfb)
+        step = int(np.round((1 << 24) / rate))
+        obj = cls(
+            m=m,
+            bits=bits,
+            nominal_rate=float(rate),
+            branches=torch.from_numpy(branches).to(device),
+            rate=torch.tensor(rate, dtype=torch.float32, device=device),
+            step=torch.tensor(step & U32, dtype=torch.int64, device=device),
+            phase=torch.zeros((), dtype=torch.int64, device=device),
+            window=torch.zeros(
+                batch_shape + (branches.shape[1],), dtype=dtype, device=device
+            ),
+            exact_sched=_pq_of_step(step),
+        )
+        return obj._check_rate(rate)
+
+    def _check_rate(self, rate: float) -> "Resamp":
+        if rate < 0.004 or rate > 250.0:
+            raise ConfigError("resampling rate must be in [0.004,250]")
+        return self
+
+    # ------------------------------------------------------------- properties
+    @property
+    def npfb(self) -> int:
+        return self.branches.shape[0]
+
+    @property
+    def sub_len(self) -> int:
+        return self.branches.shape[1]
+
+    def out_capacity(self, num_input: int, rate_hint: float | None = None) -> int:
+        """Static output-buffer capacity for a block of num_input samples,
+        sized from the create-time nominal rate, rounded up to a multiple
+        of 8."""
+        r = self.nominal_rate if rate_hint is None else rate_hint
+        return -(-(int(np.ceil(num_input * r)) + 4) // 8) * 8
+
+    # -------------------------------------------------------------- internals
+    def _static_fast(self, xa, n: int, out_capacity: int):
+        """Static-schedule banded-matmul resample, or None if inapplicable.
+
+        Valid only while ``exact_sched`` certifies the u32 phase is 0 at
+        every block boundary. Returns ``(y, n_out)`` with ``y`` zero-padded
+        to ``out_capacity``.
+        """
+        if self.exact_sched is None:
+            return None
+        p_s, q_s = self.exact_sched
+        n_out = (n // q_s) * p_s
+        if n % q_s != 0 or n_out > out_capacity:
+            return None
+        if not sched_matmul_ok(p_s, q_s, self.sub_len):
+            return None
+        sched = u32_static_schedule(
+            int(np.round((1 << 24) / self.nominal_rate)), self.bits, self.npfb
+        )
+        if sched is None:
+            return None
+        _, _, src_off, br_idx = sched
+        y = sched_banded_matmul(xa, self.branches, src_off, br_idx, q_s, n // q_s)
+        pad = out_capacity - n_out
+        if pad:
+            y = torch.nn.functional.pad(y, (0, pad))
+        return y, n_out
+
+    def _keeps_sched(self, n: int, out_capacity: int):
+        """exact_sched after a block of n inputs: kept only when the block
+        consumed whole schedule periods within capacity."""
+        s = self.exact_sched
+        if s is not None and n % s[1] == 0 and (n // s[1]) * s[0] <= out_capacity:
+            return s
+        return None
+
+    def _u32_path(self, xa, n: int, out_capacity: int):
+        """General u32 schedule: (y unmasked, valid, num_output, new_phase)."""
+        dev = xa.device
+        L = self.sub_len
+        # one extra index so lo[num_output] is always in range (phase carry)
+        m_idx = torch.arange(out_capacity + 1, dtype=torch.int64, device=dev)
+        acc = self.phase + m_idx * self.step  # exact 64-bit phase0 + m·step
+        lo_full = acc & U32
+        n_m = (acc >> 24)[:out_capacity]  # source sample index
+        branch = (lo_full[:out_capacity] >> (24 - self.bits)) & (self.npfb - 1)
+        valid = n_m < n
+        num_output = valid.sum()
+
+        starts = n_m.clamp(0, n - 1)  # frame m = xa[s : s+L]
+        frame_idx = starts[:, None] + torch.arange(L, device=dev)[None, :]
+        frames = xa[..., frame_idx]  # [..., cap, L] oldest..newest
+        hb = self.branches[branch].flip(-1).to(frames.dtype)  # [cap, L]
+        y = torch.einsum("...cl,cl->...c", frames, hb)
+        # phase' = (phase + num_output·step) - n·2^24 (mod 2^32), resamp.rs:149-151
+        new_phase = (lo_full[num_output] - ((n & 0xFF) << 24)) & U32
+        return y, valid, num_output, new_phase
+
+    # ------------------------------------------------------------- streaming
+    def execute_block(self, x, out_capacity: int | None = None):
+        """Resample a block (resamp.rs:156-165).
+
+        Returns (y, num_output, state): y has static length ``out_capacity``
+        with valid samples in y[..., :num_output] and zeros beyond.
+        """
+        n = x.shape[-1]
+        if out_capacity is None:
+            out_capacity = self.out_capacity(n)
+        L = self.sub_len
+        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
+        new_window = xa[..., xa.shape[-1] - L :]
+
+        fast = self._static_fast(xa, n, out_capacity)
+        if fast is not None:
+            y, n_out = fast
+            count = torch.full((), n_out, dtype=torch.int64, device=x.device)
+            return y, count, self.replace(window=new_window)
+
+        y, valid, num_output, new_phase = self._u32_path(xa, n, out_capacity)
+        y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
+        return y, num_output, self.replace(
+            phase=new_phase,
+            window=new_window,
+            exact_sched=self._keeps_sched(n, out_capacity),
+        )
+
+    __call__ = execute_block
+
+    def execute_block_mix_down(self, x, osc, out_capacity: int | None = None):
+        """Resample then NCO down-mix in one pass.
+
+        Equal to ``execute_block`` followed by ``osc.mix_block_down_n`` (same
+        integer schedule, same u32 phase ramp, same sin/cos). Returns
+        ``(y_mixed, num_output, new_resamp, new_osc)``.
+        """
+        n = x.shape[-1]
+        if out_capacity is None:
+            out_capacity = self.out_capacity(n)
+        L = self.sub_len
+        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
+        new_window = xa[..., xa.shape[-1] - L :]
+        zero = torch.zeros((), dtype=xa.dtype, device=xa.device)
+
+        fast = self._static_fast(xa, n, out_capacity)
+        if fast is not None:
+            yf, n_out = fast
+            m_valid = torch.arange(out_capacity, device=x.device) < n_out
+            yf = torch.where(m_valid, _rotate_down(yf, osc._phase_ramp(out_capacity)), zero)
+            count = torch.full((), n_out, dtype=torch.int64, device=x.device)
+            return yf, count, self.replace(window=new_window), osc._advance(n_out)
+
+        y, valid, num_output, new_phase = self._u32_path(xa, n, out_capacity)
+        y = torch.where(valid, _rotate_down(y, osc._phase_ramp(out_capacity)), zero)
+        return (
+            y,
+            num_output,
+            self.replace(
+                phase=new_phase,
+                window=new_window,
+                exact_sched=self._keeps_sched(n, out_capacity),
+            ),
+            osc._advance(num_output),
+        )

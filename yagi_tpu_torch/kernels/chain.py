@@ -1,0 +1,177 @@
+"""Fused RX-chain kernel: FIR → P× polyphase interp → NCO mix-down.
+
+Port of :mod:`yagi_tpu.kernels.chain` (BASELINE config[0]; reference
+semantics: firfilt.rs execute_block → resamp.rs:141-154 u32-phase polyphase
+emission → osc.rs:179 block mix). For an integer rate P (P | 2^24, P | npfb)
+the resampler's schedule is static: output m = P·n + δ consumes input n
+through branch δ·npfb/P, and the carried phase is always 0. FIR ⊛ branch
+filters collapse into P combined filters g_δ of K ≤ 128 taps, computed in
+float64 on the host (:func:`chain_matrices`).
+
+Two implementations of one function, chosen by the device of the input:
+
+* :func:`fused_chain_reference`, plain torch: the banded form of the TPU
+  kernel, Z[b] = [X[b−1] | X[b]] @ [G_prev; G_cur] per 128-sample row,
+  then the exact u32 NCO ramp. CPU tensors run it.
+* ``csrc/chain.cu``, the hand-written Hopper kernel, which replaces
+  ``yagi_tpu/kernels/chain.py::_chain_kernel``. CUDA tensors run it, or the
+  call raises; nothing falls back.
+
+Complex I/O is planar (re/im float32 planes), as the kernel takes it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._src.struct import U32
+from ..nco.osc import PHASE_TO_RAD
+
+__all__ = ["chain_matrices", "fused_chain_apply", "fused_chain_reference"]
+
+_LANE = 128
+_KERNEL_RATES = (1, 2, 4, 8)
+
+
+def chain_matrices(h, scale, branches, p: int) -> np.ndarray:
+    """Banded chain matrices G [2, 128, 128·P] from FIR taps + PFB branches.
+
+    ``h``: FIR taps (h[0] multiplies the newest sample), ``scale``: FIR output
+    scale, ``branches``: [npfb, L] polyphase bank in convolution order.
+
+    Output column u = P·t + δ holds the δ-th polyphase stream's tap for
+    output sample index m = P·(128b + t) + δ:
+      G[1][j, u] = g_δ[t - j]        (current input row)
+      G[0][j, u] = g_δ[128 + t - j]  (previous input row)
+    where g_δ = (scale·h) ⊛ branches[δ·npfb/P], computed in float64.
+    """
+    h = np.asarray(h, dtype=np.float64) * float(np.asarray(scale).real)
+    branches = np.asarray(branches, dtype=np.float64)
+    npfb, L = branches.shape
+    if npfb % p:
+        raise ValueError("P must divide npfb")
+    if (1 << 24) % p:
+        raise ValueError("P must divide 2^24 for an exact static phase schedule")
+    K = len(h) + L - 1
+    if K > _LANE:
+        raise ValueError(f"combined filter length {K} exceeds one row ({_LANE})")
+    g = np.stack([np.convolve(h, branches[d * (npfb // p)]) for d in range(p)])
+
+    j = np.arange(_LANE)[:, None]  # source index within a row
+    t = np.arange(_LANE)[None, :]  # output "input-sample" index within a row
+    G = np.zeros((2, _LANE, _LANE * p), dtype=np.float64)
+    for d in range(p):
+        k_cur = t - j
+        k_prev = _LANE + t - j
+        cur = np.where((k_cur >= 0) & (k_cur < K), g[d][np.clip(k_cur, 0, K - 1)], 0.0)
+        prev = np.where(
+            (k_prev >= 0) & (k_prev < K), g[d][np.clip(k_prev, 0, K - 1)], 0.0
+        )
+        G[1, :, d::p] = cur
+        G[0, :, d::p] = prev
+    return G.astype(np.float32)
+
+
+def _nco_rotate(zr, zi, theta0, dtheta):
+    """(zr + j·zi)·e^{−jθ_m} with θ_m = θ0 + m·dθ in wrapping u32."""
+    idx = torch.arange(zr.shape[-1], dtype=torch.int64, device=zr.device)
+    theta = (theta0 + idx * dtheta) & U32
+    t = theta.to(torch.float32) * PHASE_TO_RAD
+    c, s = torch.cos(t), torch.sin(t)
+    return zr * c + zi * s, zi * c - zr * s
+
+
+def fused_chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int):
+    """Plain-torch fused chain: same arguments and result as
+    :func:`fused_chain_apply`, as the TPU kernel's banded fp32 matmul."""
+    C, T = xr.shape
+    nb = T // _LANE
+    gm = g.reshape(2 * _LANE, _LANE * p)  # stacked [G_prev; G_cur]
+
+    def band(x, hist):
+        x3 = x.reshape(C, nb, _LANE)
+        prev = torch.cat([hist[:, None], x3[:, :-1]], dim=1)
+        return (torch.cat([prev, x3], dim=-1) @ gm).reshape(C, T * p)
+
+    return _nco_rotate(band(xr, hist_r), band(xi, hist_i), theta0, dtheta)
+
+
+def _route(device: torch.device) -> str:
+    """Which implementation serves tensors on ``device``: ``"cuda"`` (the
+    kernel) or ``"reference"`` (plain torch, CPU only)."""
+    if device.type == "cuda":
+        return "cuda"
+    if device.type == "cpu":
+        return "reference"
+    raise ValueError(f"fused_chain_apply: no implementation for device {device}")
+
+
+def _check(xr, xi, g, hist_r, hist_i, theta0, dtheta, p: int) -> None:
+    if xr.dim() != 2:
+        raise ValueError(f"xr must be [C, T], got shape {tuple(xr.shape)}")
+    C, T = xr.shape
+    if T % _LANE:
+        raise ValueError(f"block length {T} must be a multiple of {_LANE}")
+    # K ≤ 128 is the band's shape: chain_matrices refuses longer filters
+    want = {
+        "xr": (C, T), "xi": (C, T), "g": (2, _LANE, _LANE * p),
+        "hist_r": (C, _LANE), "hist_i": (C, _LANE), "theta0": (), "dtheta": (),
+    }
+    args = dict(xr=xr, xi=xi, g=g, hist_r=hist_r, hist_i=hist_i,
+                theta0=theta0, dtheta=dtheta)
+    for name, t in args.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+        dtype = torch.int64 if name in ("theta0", "dtheta") else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != xr.device:
+            raise ValueError(f"{name} is on {t.device}, xr on {xr.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int):
+    """Run the fused chain over one planar block.
+
+    xr/xi: [C, T] float32 input planes (T a multiple of 128); g: [2, 128,
+    128·P] from :func:`chain_matrices`; hist_r/i: [C, 128] trailing input
+    history of the previous block (zeros at stream start); theta0/dtheta:
+    0-d int64 tensors holding the u32 NCO state.
+
+    Returns (yr, yi) [C, T·P]. State advance (caller): hist' = x[:, -128:],
+    theta' = theta0 + (T·P)·dtheta mod 2^32.
+
+    CPU tensors run :func:`fused_chain_reference`; CUDA tensors launch the
+    kernel (counted in ``fused_chain_apply.launches``) or raise.
+    """
+    _check(xr, xi, g, hist_r, hist_i, theta0, dtheta, p)
+    if _route(xr.device) == "reference":
+        return fused_chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta, p=p)
+
+    from ._build import library
+
+    C, T = xr.shape
+    if p not in _KERNEL_RATES:
+        raise ValueError(f"the CUDA chain kernel takes P in {_KERNEL_RATES}, got {p}")
+    if T * p >= 1 << 31 or C > 65535:
+        raise ValueError(f"block [{C}, {T}] at P={p} exceeds the kernel's index range")
+    yr = torch.empty((C, T * p), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = library().yagi_chain_fp32(
+            xr.data_ptr(), xi.data_ptr(), g.data_ptr(), hist_r.data_ptr(),
+            hist_i.data_ptr(), theta0.data_ptr(), dtheta.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), C, T, p, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"chain kernel launch failed with CUDA error {rc}")
+    fused_chain_apply.launches += 1
+    return yr, yi
+
+
+fused_chain_apply.launches = 0
