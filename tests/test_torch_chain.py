@@ -29,7 +29,8 @@ from yagi_tpu_torch.chains import FusedRxChain, RxChain
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.filter import FirFilter, Resamp
 from yagi_tpu_torch.kernels import _build
-from yagi_tpu_torch.kernels.chain import _route, fused_chain_apply, fused_chain_reference
+from yagi_tpu_torch.kernels._check import route
+from yagi_tpu_torch.kernels.chain import fused_chain_apply, fused_chain_reference
 from yagi_tpu_torch.nco import Osc
 
 torch.set_num_threads(1)
@@ -180,10 +181,10 @@ def test_every_precision_mode_runs_fp32(precision):
 
 
 def test_dispatch_by_device():
-    assert _route(torch.device("cuda", 0)) == "cuda"
-    assert _route(torch.device("cpu")) == "reference"
+    assert route(torch.device("cuda", 0), "fused_chain_apply") == "cuda"
+    assert route(torch.device("cpu"), "fused_chain_apply") == "reference"
     with pytest.raises(ValueError):
-        _route(torch.device("meta"))
+        route(torch.device("meta"), "fused_chain_apply")
 
 
 def _apply_args(c=2, t=256):

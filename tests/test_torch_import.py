@@ -24,8 +24,12 @@ _MODULES = (
     "yagi_tpu_torch.design",
     "yagi_tpu_torch.filter",
     "yagi_tpu_torch.nco",
+    "yagi_tpu_torch.modem",
+    "yagi_tpu_torch.multichannel",
     "yagi_tpu_torch.kernels",
     "yagi_tpu_torch.kernels._build",
+    "yagi_tpu_torch.kernels.channelizer",
+    "yagi_tpu_torch.kernels.mix",
     "yagi_tpu_torch.chains",
 )
 

@@ -5,13 +5,19 @@ PyTorch; each Pallas TPU kernel on a ported path becomes a hand-written
 Hopper kernel (``csrc/``), built with nvcc at first use. Imports torch and
 never jax. Ported so far: the BASELINE config[0] receive chain (Kaiser FIR →
 2× polyphase interpolator → u32 NCO mix-down), as :class:`chains.RxChain`
-(plain torch) and :class:`chains.FusedRxChain` (one kernel per block).
+(plain torch) and :class:`chains.FusedRxChain` (one kernel per block); and
+the config[4] path, the 64-channel polyphase channelizer
+(:class:`multichannel.Firpfbch`, plain torch, and
+:class:`multichannel.FusedChannelizer`, one kernel per block) feeding the FM
+discriminator :class:`modem.Freqdem`.
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy)
   design/   FIR design, Kaiser path
   filter/   streaming FIR, PFB decomposition, arbitrary resampler
   nco/      oscillator, mode "exact"
+  modem/    analog FM modulator and discriminator
+  multichannel/  polyphase channelizers
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
 """
@@ -25,6 +31,6 @@ from . import math  # noqa: F401
 def __getattr__(name):
     import importlib
 
-    if name in ("design", "filter", "nco", "kernels", "chains"):
+    if name in ("design", "filter", "nco", "modem", "multichannel", "kernels", "chains"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

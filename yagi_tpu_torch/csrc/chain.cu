@@ -6,9 +6,8 @@
 //   z_m = Σ_{k<K} g_δ[k] · x[n − k]            (re and im planes, fp32 FMA)
 //   y_m = z_m · e^{−jθ_m},  θ_m = θ0 + m·dθ      (wrapping u32)
 // where g_δ = (scale·h_fir) ⊛ branch[δ·npfb/P] are the K ≤ 128 combined taps
-// built in float64 on the host (yagi_tpu_torch/kernels/chain.py). The u32 →
-// f32 step rounds to nearest and is scaled by float32(2π/2^32), as the
-// reference does, so the phase fed to sincosf is bit-identical to it.
+// built in float64 on the host (yagi_tpu_torch/kernels/chain.py). The NCO
+// step is nco.cuh's, shared with the mix-down kernel (mix.cu).
 //
 // What bounds it on an H100. Per output sample it does 2·K FMAs (K = 77 for
 // config[0]) and moves about 12 bytes: 8 bytes of input per P = 2 outputs and
@@ -25,11 +24,12 @@
 // load of 2R samples feeds R·R·P FMA pairs. Taps past the last nonzero one
 // are skipped (K is found per block from the tap table). A wgmma form over
 // the banded matrix, and TF32 / bf16x3 tensor-core modes, are later work:
-// every precision mode runs this fp32 kernel. Build without --use_fast_math:
-// it would turn sincosf into __sinf/__cosf, whose error is not the reference's.
+// every precision mode runs this fp32 kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nco.cuh"
 
 namespace {
 
@@ -48,7 +48,6 @@ chain_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* __restrict__ yr, float* __restrict__ yi, int T) {
   static_assert(R % 4 == 0 && kTaps % R == 0, "R must be a multiple of 4 dividing 128");
   constexpr int kTile = kThreads * R;  // input samples per block
-  constexpr float kPhaseToRad = (float)(6.283185307179586 / 4294967296.0);
   __shared__ __align__(16) float s_xr[kHalo + kTile];
   __shared__ __align__(16) float s_xi[kHalo + kTile];
   __shared__ __align__(16) float s_g[P][kTaps];
@@ -127,7 +126,7 @@ chain_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       }
   }
 
-  // NCO epilogue: exact wrapping u32 ramp, then (zr + j·zi)·(c − j·s)
+  // NCO epilogue: exact wrapping u32 ramp, then (zr + j·zi)·e^{−jθ}
   const uint32_t theta0 = (uint32_t)(*theta0_p);
   const uint32_t dtheta = (uint32_t)(*dtheta_p);
   const int m0 = (n_start + t0) * P;
@@ -137,10 +136,7 @@ chain_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
     for (int d = 0; d < P; ++d) {
       const uint32_t th = theta0 + (uint32_t)(m0 + r * P + d) * dtheta;
-      float s, co;
-      sincosf(__uint2float_rn(th) * kPhaseToRad, &s, &co);
-      out_r[r * P + d] = ar[r][d] * co + ai[r][d] * s;
-      out_i[r * P + d] = ai[r][d] * co - ar[r][d] * s;
+      yagi::nco_rotate_down(ar[r][d], ai[r][d], th, out_r[r * P + d], out_i[r * P + d]);
     }
   // R·P is a multiple of 4 and the row offset is 16-byte aligned
   float* yr_o = yr + (size_t)c * T * P + m0;

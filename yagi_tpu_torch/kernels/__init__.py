@@ -2,3 +2,9 @@
 torch version (which CPU tensors run)."""
 
 from .chain import chain_matrices, fused_chain_apply, fused_chain_reference  # noqa: F401
+from .channelizer import (  # noqa: F401
+    channelizer_tables,
+    fused_channelizer_apply,
+    fused_channelizer_reference,
+)
+from .mix import mix_down_apply, mix_down_reference  # noqa: F401

@@ -1,10 +1,13 @@
 """Build and bind the port's CUDA kernels: nvcc into a shared library, ctypes.
 
-The sources ``yagi_tpu_torch/csrc/*.cu`` have a plain C interface and do not
-include PyTorch's headers, so nvcc compiles them in seconds. The library goes
+The sources ``yagi_tpu_torch/csrc/*.cu`` (and the headers ``*.cuh`` they
+include) have a plain C interface and do not include PyTorch's headers, so
+nvcc compiles them in seconds. Each ``*.cu`` compiles in its own nvcc
+process, all started together, and the objects link into one library. It goes
 to ``build/yagi_tpu_torch/`` beside the package, named by a hash of the
-sources and flags, and is built at first use. Pointers and the stream are
-passed as ``c_void_p`` (a bare Python int would be cut to 32 bits).
+sources, the headers and the flags, and is built at first use. Pointers and
+the stream are passed as ``c_void_p`` (a bare Python int would be cut to 32
+bits).
 """
 
 from __future__ import annotations
@@ -19,11 +22,24 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "yagi_tpu_torch"
-# no --use_fast_math: it swaps sincosf for __sinf/__cosf (see csrc/chain.cu)
+# no --use_fast_math: it swaps sincosf for __sinf/__cosf (see csrc/nco.cuh)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: argument types, in the order of their declarations in csrc/
+_SIGNATURES = {
+    # xr, xi, g, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, stream
+    "yagi_chain_fp32": [_P] * 9 + [_I] * 3 + [_P],
+    # xr, xi, taps, hr, hi, hist_r, hist_i, yr, yi, T, p, nh, stream
+    "yagi_channelizer_fp32": [_P] * 9 + [_I] * 3 + [_P],
+    # x, theta0, dtheta, y, n, stream
+    "yagi_mix_down": [_P] * 4 + [_I, _P],
+}
 
 
 def _nvcc() -> str:
@@ -34,28 +50,55 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def source_digest(csrc: Path = _CSRC) -> str:
+    """Hash of the flags and of every ``*.cu`` and ``*.cuh`` under ``csrc``:
+    an edit to a header alone gives a new library name."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels unless a library for these sources exists.
 
-    Returns the library's path and the compiler's output (with ptxas's
+    Returns the library's path and the compilers' output (with ptxas's
     register and spill report), or ``""`` when the library was already built.
     """
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libyagi_tpu_torch_{digest.hexdigest()[:16]}.so"
+    tag = source_digest()
+    out = BUILD_DIR / f"libyagi_tpu_torch_{tag}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    return out, proc.stdout + proc.stderr
+    pid = os.getpid()
+    nvcc = _nvcc()
+    sources = sorted(_CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):  # wait for every compiler before raising
+        log, _ = proc.communicate()
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{pid}.tmp")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(logs) + link.stdout + link.stderr
 
 
 @functools.cache
@@ -63,7 +106,8 @@ def library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed, with its C signatures."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    fn = lib.yagi_chain_fp32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -27,6 +27,7 @@ import torch
 
 from .._src.struct import U32
 from ..nco.osc import PHASE_TO_RAD
+from ._check import check_tensors, route
 
 __all__ = ["chain_matrices", "fused_chain_apply", "fused_chain_reference"]
 
@@ -97,41 +98,20 @@ def fused_chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int):
     return _nco_rotate(band(xr, hist_r), band(xi, hist_i), theta0, dtheta)
 
 
-def _route(device: torch.device) -> str:
-    """Which implementation serves tensors on ``device``: ``"cuda"`` (the
-    kernel) or ``"reference"`` (plain torch, CPU only)."""
-    if device.type == "cuda":
-        return "cuda"
-    if device.type == "cpu":
-        return "reference"
-    raise ValueError(f"fused_chain_apply: no implementation for device {device}")
-
-
 def _check(xr, xi, g, hist_r, hist_i, theta0, dtheta, p: int) -> None:
-    if xr.dim() != 2:
-        raise ValueError(f"xr must be [C, T], got shape {tuple(xr.shape)}")
+    if not isinstance(xr, torch.Tensor) or xr.dim() != 2:
+        raise ValueError("fused_chain_apply: xr must be a [C, T] tensor")
     C, T = xr.shape
     if T % _LANE:
         raise ValueError(f"block length {T} must be a multiple of {_LANE}")
+    f32, i64 = torch.float32, torch.int64
     # K ≤ 128 is the band's shape: chain_matrices refuses longer filters
-    want = {
-        "xr": (C, T), "xi": (C, T), "g": (2, _LANE, _LANE * p),
-        "hist_r": (C, _LANE), "hist_i": (C, _LANE), "theta0": (), "dtheta": (),
-    }
-    args = dict(xr=xr, xi=xi, g=g, hist_r=hist_r, hist_i=hist_i,
-                theta0=theta0, dtheta=dtheta)
-    for name, t in args.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
-        dtype = torch.int64 if name in ("theta0", "dtheta") else torch.float32
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != xr.device:
-            raise ValueError(f"{name} is on {t.device}, xr on {xr.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors("fused_chain_apply", xr.device, {
+        "xr": (xr, (C, T), f32), "xi": (xi, (C, T), f32),
+        "g": (g, (2, _LANE, _LANE * p), f32),
+        "hist_r": (hist_r, (C, _LANE), f32), "hist_i": (hist_i, (C, _LANE), f32),
+        "theta0": (theta0, (), i64), "dtheta": (dtheta, (), i64),
+    })
 
 
 def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int):
@@ -149,7 +129,7 @@ def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int):
     kernel (counted in ``fused_chain_apply.launches``) or raise.
     """
     _check(xr, xi, g, hist_r, hist_i, theta0, dtheta, p)
-    if _route(xr.device) == "reference":
+    if route(xr.device, "fused_chain_apply") == "reference":
         return fused_chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta, p=p)
 
     from ._build import library

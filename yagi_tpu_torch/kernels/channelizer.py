@@ -1,0 +1,169 @@
+"""Fused M = 64 polyphase channelizer kernel (BASELINE config[4]).
+
+Port of :mod:`yagi_tpu.kernels.channelizer` (algorithm: liquid firpfbch, see
+multichannel/firpfbch.py). For analyzer step i (M-block X[i]):
+
+  s_b[i]   = x[iM − b]                      (commutator)
+  u[b, i]  = Σ_j br[b, j] · s_b[i−j]        (branch FIR)
+  y[k, i]  = Σ_b u[b, i] · e^{+2πi·bk/M} · scale   (IDFT)
+
+Output is step-major [T, M] planar (y[t, k] = channel k at step t).
+
+Two implementations of one function, chosen by the device of the input:
+
+* :func:`fused_channelizer_reference`, plain torch in the TPU kernel's own
+  formulation: two M-blocks per 128-lane row, the commutator as a one-row
+  shift with lanes 0 and 64 patched, and the IDFT as ``[R2, 256] @
+  [256, 128]`` dots against the stacked block-diagonal twiddles. CPU tensors
+  run it.
+* ``csrc/channelizer.cu``, the hand-written Hopper kernel, which replaces
+  ``yagi_tpu/kernels/channelizer.py::_chan_kernel``. CUDA tensors run it, or
+  the call raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._check import check_tensors, route
+
+__all__ = ["channelizer_tables", "fused_channelizer_apply", "fused_channelizer_reference",
+           "halo_rows"]
+
+_LANE = 128
+_M = 64  # channels (the kernel is specialized to M = 64, the config[4] workload)
+_S = _LANE // _M  # analyzer steps per 128-lane row (= 2)
+_MAX_P = 64  # taps per branch the CUDA kernel's shared memory is sized for
+
+
+def channelizer_tables(branches: np.ndarray, scale: float):
+    """Host tables: per-tap lane vectors + block-diagonal IDFT twiddles.
+
+    branches: [M, p] conv order (branch b tap j multiplies s_b[i−j]).
+
+    Lane c carries branch b(c) = (M−c) mod M, so the commutator is
+    s_{b(c)}[m] = X[m−1, c] (c ≥ 1) and s_0[m] = X[m, 0]: a one-step shift with
+    no lane reversal. The branch permutation is folded into these tables:
+    taps[j, c] = branches[b(c), j] and H = blockdiag(W', W') with
+    W'[c, k] = e^{+2πi·b(c)·k/M}·scale. The tables equal yagi_tpu's field for
+    field, so a yagi_tpu FusedChannelizer's state loads as it is.
+    """
+    M, p = branches.shape
+    if M != _M:
+        raise ValueError(f"kernel is specialized to M={_M}")
+    perm = (-np.arange(M)) % M  # b(c)
+    taps = np.tile(branches[perm].astype(np.float32).T, (1, _S))  # [p, 128]
+    b = np.arange(M)
+    w = np.exp(2j * np.pi * np.outer(perm, b) / M) * scale
+    h = np.zeros((_LANE, _LANE), np.complex128)
+    for s in range(_S):
+        h[s * M : (s + 1) * M, s * M : (s + 1) * M] = w
+    return taps, h.real.astype(np.float32), h.imag.astype(np.float32)
+
+
+def halo_rows(p: int) -> int:
+    """Rows of 128 history samples a p-tap bank needs: the deepest access is
+    X[i−p], plus one row for the one-step-delayed view."""
+    return max((p + 1) // 2, (p - 1) // 2 + 1)
+
+
+def fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int):
+    """Plain-torch channelizer: same arguments and result as
+    :func:`fused_channelizer_apply`, as the TPU kernel computes it over the
+    whole block at once (one tile of all rows).
+
+    On the card the IDFT dots are float32 matmuls: set
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` for a full-fp32 oracle.
+    """
+    t2 = xr.shape[-1] // _LANE
+    halo = halo_rows(p)
+    lane = torch.arange(_LANE, device=xr.device)
+    patch = (lane & (_M - 1)) == 0  # lanes 0 and 64
+
+    def streams(x, hist):
+        # ext rows: [history | block], row r = [X[2r] | X[2r+1]]
+        ext = torch.cat([hist.reshape(halo, _LANE), x.reshape(t2, _LANE)])
+        prev = torch.cat([torch.zeros_like(ext[:1]), ext[:-1]])
+        shift1 = torch.cat([prev[:, _M:], ext[:, :_M]], dim=1)  # [X[2r−1] | X[2r]]
+        # steps (2r, 2r+1), and the one-step-delayed view (2r−1, 2r)
+        return torch.where(patch, ext, shift1), torch.where(patch, shift1, prev)
+
+    def branch_fir(s2, s2d):
+        acc = None
+        for j in range(p):
+            # tap j delays by j steps: even j shifts the (2r, 2r+1) grid by j/2
+            # rows, odd j uses the delayed view
+            src = s2 if j % 2 == 0 else s2d
+            shift = j // 2
+            term = taps[j] * src[halo - shift : halo - shift + t2]
+            acc = term if acc is None else acc + term
+        return acc
+
+    # complex IDFT as two stacked K=256 dots:
+    #   yr = [ur|ui] @ [H_re; −H_im],  yi = [ur|ui] @ [H_im; H_re]
+    u = torch.cat([branch_fir(*streams(xr, hist_r)), branch_fir(*streams(xi, hist_i))], dim=1)
+    yr = u @ torch.cat([hr, -hi])
+    yi = u @ torch.cat([hi, hr])
+    return yr.reshape(t2 * _S, _M), yi.reshape(t2 * _S, _M)
+
+
+def _check(xr, xi, taps, hr, hi, hist_r, hist_i, p: int, r2: int) -> None:
+    if not isinstance(xr, torch.Tensor) or xr.dim() != 1:
+        raise ValueError("fused_channelizer_apply: xr must be a 1-d tensor")
+    n = xr.shape[0]
+    if n == 0 or n % _LANE:
+        raise ValueError("stream length must be a positive multiple of 128")
+    if (n // _LANE) % r2:
+        raise ValueError(f"need length divisible by {r2 * _LANE}")
+    nh = halo_rows(p) * _LANE
+    f32 = torch.float32
+    check_tensors("fused_channelizer_apply", xr.device, {
+        "xr": (xr, (n,), f32), "xi": (xi, (n,), f32), "taps": (taps, (p, _LANE), f32),
+        "hr": (hr, (_LANE, _LANE), f32), "hi": (hi, (_LANE, _LANE), f32),
+        "hist_r": (hist_r, (nh,), f32), "hist_i": (hist_i, (nh,), f32),
+    })
+
+
+def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2: int = 128):
+    """Channelize planar stream planes xr/xi [N] (N = T·64, T steps).
+
+    taps [p, 128], hr/hi [128, 128] from :func:`channelizer_tables`;
+    hist_r/i [halo·128] = trailing input samples of the previous block (zeros
+    at stream start), halo = :func:`halo_rows` (p). N must be a multiple of
+    128·r2, as on the TPU, where r2 is the rows per tile.
+
+    Returns (yr, yi) shaped [T, 64] (step-major). State advance (caller):
+    hist' = x[-halo·128:].
+
+    CPU tensors run :func:`fused_channelizer_reference`; CUDA tensors launch
+    the kernel (counted in ``fused_channelizer_apply.launches``) or raise.
+    """
+    _check(xr, xi, taps, hr, hi, hist_r, hist_i, p, r2)
+    if route(xr.device, "fused_channelizer_apply") == "reference":
+        return fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, p=p)
+
+    from ._build import library
+
+    n = xr.shape[0]
+    if not 1 <= p <= _MAX_P:
+        raise ValueError(f"the CUDA channelizer kernel takes 1 <= p <= {_MAX_P}, got {p}")
+    if n >= 1 << 31:
+        raise ValueError(f"stream length {n} exceeds the kernel's index range")
+    t = n // _M
+    yr = torch.empty((t, _M), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = library().yagi_channelizer_fp32(
+            xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+            hist_r.data_ptr(), hist_i.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            t, p, hist_r.shape[0], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"channelizer kernel launch failed with CUDA error {rc}")
+    fused_channelizer_apply.launches += 1
+    return yr, yi
+
+
+fused_channelizer_apply.launches = 0
