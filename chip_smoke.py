@@ -11,7 +11,12 @@ Three paths of the port, yagi_tpu_torch, each at its real size:
   complex samples (FusedChannelizer → Freqdem, kernel K2,
   csrc/channelizer.cu);
 * the u32 NCO mix-down of blocks of 2^21 complex samples, phase carried
-  (mix_down_apply, kernel K5, csrc/mix.cu).
+  (mix_down_apply, kernel K5, csrc/mix.cu);
+* BASELINE config[1]: arbitrary-rate MsResamp (rate 2/2.0663, "farrow",
+  whose decimation stage is the 256-branch PFB gather) → Symsync (RRCOS
+  k = 2, m = 7, β = 0.3, 32 filters, loop bandwidth 0.02) over 1024
+  channels, blocks of 4096 complex samples, the resampler's count fed on as
+  n_valid (kernel K3 for backend "auto", K4 for "pallas", csrc/symscan.cu).
 
 Five phases:
 
@@ -19,12 +24,14 @@ Five phases:
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
 3. kernel vs plain: each kernel against its plain torch version on the same
    CUDA tensors, at a small shape and at its path's shape;
-4. main paths: each streams 16 blocks with its state carried, each block
-   held against the plain oracle (RxChain, Firpfbch → Freqdem,
-   Osc.mix_block_down); every launch count is set to 0 just before a path
-   and read just after it; block-split invariance;
-5. timing with CUDA events: each kernel and its plain version by CUDA-graph
-   replay, and the config[0] and config[4] steps.
+4. main paths: each streams 16 blocks with its state carried, held against
+   the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
+   for config[1] the XLA-form scan over its first 4 blocks); every launch
+   count is set to 0 just before a path and read just after it;
+   block-split invariance;
+5. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+   version by graph replay (eager calls for the symsync scans' plain
+   loops), and the config[0], config[4] and config[1] steps.
 
 Prints one line per check, a JSON line of per-kernel results, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -56,7 +63,15 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     fused_channelizer_apply,
     fused_channelizer_reference,
 )
+from yagi_tpu_torch.filter import MsResamp, Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
+from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
+    branch_outputs,
+    symsync_fused_apply,
+    symsync_fused_reference,
+    symsync_scan_apply,
+    symsync_scan_reference,
+)
 from yagi_tpu_torch.modem import Freqdem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
@@ -90,7 +105,21 @@ N_MIX = 1 << 21
 MIX_TOL = 1e-6
 MIX_PHASE = 1.1
 
-KERNELS = (fused_chain_apply, fused_channelizer_apply, mix_down_apply)
+# config[1] (bench.py:160-192): 1024 channels, blocks of 4096
+C1, T1 = 1024, 1 << 12
+MS_RATE = 2.0 / 2.0663
+SYM = dict(ftype="rrcos", k=2, m=7, beta=0.3)
+LF_BW = 0.02
+N_SYM_CHECK = 4  # config[1] blocks held against the XLA-form scan
+N_PALLAS = 4  # config[1] blocks through K4
+SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
+# K3 sums its dots in the order branch_outputs reproduces, and K4 and the
+# XLA-form scan read branch_outputs' stream, so all three are held to bit
+# identity (kernels/symscan.py says why one order: through the loop's
+# feedback, dots an ulp apart part whole channels).
+
+KERNELS = (fused_chain_apply, fused_channelizer_apply, mix_down_apply, symsync_fused_apply,
+           symsync_scan_apply)
 
 
 def reset_counts() -> None:
@@ -196,7 +225,7 @@ def phase_build() -> None:
     dt = time.perf_counter() - t0
     print(f"[build] {path.name} in {dt:.2f} s ({' '.join(_build.NVCC_FLAGS)})")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
 
 
@@ -526,6 +555,184 @@ def phase_timing_mix(device, card: str) -> tuple[float, float]:
     return k_ms, p_ms
 
 
+def make_symsync(c: int, device) -> Symsync:
+    return Symsync.create_rnyquist(**SYM, batch_shape=(c,), device=device).set_lf_bw(LF_BW)
+
+
+def sym_same(what: str, got, want) -> bool:
+    """Print and return whether (y, valid[, state]) equal bit for bit, with
+    the number of channels whose emission mask differs."""
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    masks = int((got[1] != want[1]).flatten(1).any(1).sum())
+    err = (got[0] - want[0]).abs().max().item()
+    print(f"{what}: bit-identical (values, valid[, state]) {same}; channels whose mask "
+          f"differs {masks}; max abs err {err:.3e}; {int(got[1].sum())} emissions")
+    return all(same)
+
+
+def sym_inputs(rng, ss: Symsync, c: int, n: int, device):
+    """A random L-sample window and block, xa [c, n + L], and the taps."""
+    L = ss.mf.shape[1]
+    return complex_block(rng, (c, n + L), device), ss.taps()
+
+
+def phase_kernel_vs_plain_symsync(device) -> tuple[float, float]:
+    """K3 and K4 against their plain versions at C = 5, n = 9 (a partial
+    K3 block, a short tile), C = 128, n = 256 and at config[1]'s C = 1024,
+    n = 3976, with n_valid < n, bit for bit; returns (K3, K4) max |error| at
+    config[1]."""
+    rng = np.random.default_rng(SEED + 20)
+    n1 = MsResamp.create(MS_RATE, arbitrary_interp="farrow").out_capacity(T1)
+    errs = (0.0, 0.0)
+    for c, n, n_valid in [(5, 9, 6), (128, 256, None), (C1, n1, n1 - 11)]:
+        ss = make_symsync(c, device)
+        xa, g = sym_inputs(rng, ss, c, n, device)
+        nv = None if n_valid is None else torch.tensor(n_valid, device=device)
+        kw = dict(E=2, **ss.kernel_args())
+        xs4 = branch_outputs(xa, g)
+        k4 = symsync_scan_apply(xs4, nv, **kw), symsync_scan_reference(xs4, nv, **kw)
+        del xs4
+        k3 = symsync_fused_apply(xa, g, nv, **kw), symsync_fused_reference(xa, g, nv, **kw)
+        for name, (got, want) in (("symsync_fused (K3)", k3), ("symsync_scan (K4)", k4)):
+            require(tuple(got[0].shape) == (c, n, 2) and bool(torch.isfinite(got[0]).all()),
+                    f"{name} output shape and finiteness")
+            require(sym_same(f"[kernel-vs-plain] {name} C={c} n={n} n_valid={n_valid}", got,
+                             want), f"{name} vs plain at C={c} n={n}")
+        errs = tuple((got[0] - want[0]).abs().max().item() for got, want in (k3, k4))
+    return errs
+
+
+def phase_main_path_config1(device) -> tuple[int, int]:
+    """Stream N_BLOCKS config[1] blocks through MsResamp → Symsync (K3), then
+    N_PALLAS through backend "pallas" (K4); returns (K3 launches, K4
+    launches), each from its own run."""
+    rng = np.random.default_rng(SEED + 21)
+    blocks = [complex_block(rng, (C1, T1), device) for _ in range(N_BLOCKS)]
+
+    def make():
+        return (MsResamp.create(MS_RATE, batch_shape=(C1,), arbitrary_interp="farrow",
+                                device=device), make_symsync(C1, device))
+
+    ms, ss = make()
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = []
+    for x in blocks:
+        y, cnt, ms = ms.execute_block(x)
+        slots, valid, ss = ss.execute_slots(y, n_valid=cnt)
+        outs.append((y, cnt, slots, valid))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    k3 = counts["symsync_fused_apply"]
+    print(f"[main-path] MsResamp -> Symsync: {N_BLOCKS} blocks of [{C1}, {T1}] complex64, "
+          f"kernel launches {counts}")
+    require(k3 == N_BLOCKS and counts["symsync_scan_apply"] == 0,
+            f"K3 launches {k3} != blocks {N_BLOCKS}")
+
+    # the plain route: the same resampler (its counts also held against the
+    # host-side replay of the u32 schedule), then the XLA-form scan
+    ms_p, ss_p = make()
+    plain = []
+    for i, (x, (y, cnt, slots, _)) in enumerate(zip(blocks, outs)):
+        want = ms_p.get_num_output(T1)
+        y_p, cnt_p, ms_p = ms_p.execute_block(x)
+        require(int(cnt) == int(cnt_p) == want,
+                f"block {i}: counts {int(cnt)}, {int(cnt_p)}, host replay {want}")
+        require(torch.equal(y, y_p), f"block {i}: resampler output")
+        require(tuple(slots.shape) == (C1, y.shape[1], 2), f"block {i}: slot shape")
+        require(bool(torch.isfinite(slots).all()), f"block {i}: finite slots")
+        if i < N_SYM_CHECK:
+            y_s, v_s, ss_p = ss_p.execute_slots(y_p, n_valid=cnt_p, backend="xla")
+            plain.append((y_s, v_s))
+    require(int(ms.arbitrary.phase) == int(ms_p.arbitrary.phase), "carried u32 phase")
+    print(f"[main-path] MsResamp counts equal the plain route and the host replay over "
+          f"{N_BLOCKS} blocks ({int(outs[0][1])}..{int(outs[-1][1])} per block), carried phase "
+          f"{int(ms.arbitrary.phase)} equal")
+    got = [torch.cat([o[j] for o in outs[:N_SYM_CHECK]], 1) for j in (2, 3)]
+    want = [torch.cat([p[j] for p in plain], 1) for j in (0, 1)]
+    require(sym_same(f"[main-path] Symsync K3 vs the XLA-form scan over {N_SYM_CHECK} blocks",
+                     got, want), "K3 route vs XLA-form scan")
+
+    # one resampled block as one Symsync block and as two: bit-identical
+    y0, cnt0 = outs[0][0], outs[0][1]
+    for backend in ("auto", "pallas"):
+        one, _, s1 = make_symsync(C1, device).execute_slots(y0, n_valid=cnt0, backend=backend)
+        a, _, s2 = make_symsync(C1, device).execute_slots(y0[:, :SYM_SPLIT], backend=backend)
+        b, _, s2 = s2.execute_slots(y0[:, SYM_SPLIT:], n_valid=cnt0 - SYM_SPLIT, backend=backend)
+        same = torch.equal(one, torch.cat([a, b], 1)) and torch.equal(s1.tau, s2.tau)
+        print(f"[main-path] Symsync {backend}: one block of {y0.shape[1]} (n_valid {int(cnt0)}) "
+              f"vs {SYM_SPLIT} + rest: bit-identical {same}")
+        require(same, f"Symsync block split ({backend})")
+
+    # K4's route over the first N_PALLAS blocks: the same loop and stream as
+    # the XLA-form scan, so bit-identical to it
+    ms, ss = make()
+    torch.cuda.synchronize()
+    reset_counts()
+    k4_outs = []
+    for x in blocks[:N_PALLAS]:
+        y, cnt, ms = ms.execute_block(x)
+        slots, valid, ss = ss.execute_slots(y, n_valid=cnt, backend="pallas")
+        k4_outs.append((slots, valid))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    k4 = counts["symsync_scan_apply"]
+    print(f"[main-path] MsResamp -> Symsync(backend='pallas'): {N_PALLAS} blocks, kernel "
+          f"launches {counts}")
+    require(k4 == N_PALLAS and counts["symsync_fused_apply"] == 0,
+            f"K4 launches {k4} != blocks {N_PALLAS}")
+    got = [torch.cat([o[j] for o in k4_outs], 1) for j in (0, 1)]
+    want = [torch.cat([p[j] for p in plain[:N_PALLAS]], 1) for j in (0, 1)]
+    require(sym_same(f"[main-path] Symsync K4 vs the XLA-form scan over {N_PALLAS} blocks",
+                     got, want), "K4 route vs XLA-form scan")
+    return k3, k4
+
+
+def phase_timing_config1(device, card: str) -> dict:
+    """K3 and K4 by graph replay, their plain versions by eager calls, and
+    the config[1] step; returns {name: (kernel ms, plain ms)}."""
+    rng = np.random.default_rng(SEED + 22)
+    ms = MsResamp.create(MS_RATE, batch_shape=(C1,), arbitrary_interp="farrow", device=device)
+    n1 = ms.out_capacity(T1)
+    ss = make_symsync(C1, device)
+    kw = dict(E=2, **ss.kernel_args())
+    nv = torch.tensor(n1 - 11, device=device)
+    sets = [sym_inputs(rng, ss, C1, n1, device) for _ in range(N_ROT)]  # 130 MB of input
+    k3 = [lambda a=a: symsync_fused_apply(*a, nv, **kw) for a in sets]
+    k3_1, k3_2 = graph_ms(k3, reps=3), graph_ms(k3, reps=3)
+    xs4 = [branch_outputs(*sets[i]) for i in range(2)]  # 2.1 GB each
+    k4 = [lambda x=x: symsync_scan_apply(x, nv, **kw) for x in xs4]
+    k4_1, k4_2 = graph_ms(k4, reps=3), graph_ms(k4, reps=3)
+    p3 = cuda_ms(lambda: symsync_fused_reference(*sets[0], nv, **kw), iters=2, warmup=1)
+    p4 = cuda_ms(lambda: symsync_scan_reference(xs4[0], nv, **kw), iters=2, warmup=1)
+    del xs4
+    print(f"[timing] {card}: symsync_fused (K3) {(k3_1 + k3_2) / 2:.4f} ms/block ({k3_1:.4f}, "
+          f"{k3_2:.4f}), graph replay; symsync_fused_reference {p3:.2f} ms/block, eager "
+          f"(2 calls after one); at C={C1}, n={n1}, n_valid={n1 - 11}")
+    print(f"[timing] {card}: symsync_scan (K4) {(k4_1 + k4_2) / 2:.4f} ms/block ({k4_1:.4f}, "
+          f"{k4_2:.4f}), graph replay; symsync_scan_reference {p4:.2f} ms/block, eager "
+          f"(2 calls after one)")
+
+    blocks = [complex_block(rng, (C1, T1), device) for _ in range(N_ROT)]
+
+    def step_msps(iters: int, warmup: int, backend: str) -> float:
+        state = [ms, ss, 0]
+
+        def step():
+            y, cnt, state[0] = state[0].execute_block(blocks[state[2] % N_ROT])
+            _, _, state[1] = state[1].execute_slots(y, n_valid=cnt, backend=backend)
+            state[2] += 1
+
+        return C1 * T1 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
+
+    f_msps = step_msps(20, 3, "auto")
+    p_msps = step_msps(2, 1, "xla")
+    print(f"[timing] {card}: config[1] step MsResamp -> Symsync {f_msps:.1f} Msps (K3, 20 eager "
+          f"steps), {p_msps:.2f} Msps (XLA-form scan, 2 eager steps) (input complex "
+          f"Msamples/s, [{C1}, {T1}] blocks)")
+    return {"symsync_fused": ((k3_1 + k3_2) / 2, p3), "symsync_scan": ((k4_1 + k4_2) / 2, p4)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch sees none")
@@ -541,21 +748,26 @@ def main() -> None:
         "channelizer_fp32": phase_kernel_vs_plain_channelizer(device),
         "mix_down": phase_kernel_vs_plain_mix(device),
     }
+    errs["symsync_fused"], errs["symsync_scan"] = phase_kernel_vs_plain_symsync(device)
     launches = {
         "chain_fp32": phase_main_path(device),
         "channelizer_fp32": phase_main_path_config4(device),
         "mix_down": phase_mix_path(device),
     }
+    launches["symsync_fused"], launches["symsync_scan"] = phase_main_path_config1(device)
     times = {
         "chain_fp32": phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),
         "mix_down": phase_timing_mix(device, smi),
+        **phase_timing_config1(device, smi),
     }
     sources = {
         "chain_fp32": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
         "channelizer_fp32": ("yagi_tpu_torch/csrc/channelizer.cu",
                              "yagi_tpu/kernels/channelizer.py:71"),
         "mix_down": ("yagi_tpu_torch/csrc/mix.cu", "yagi_tpu/kernels/mix.py:29"),
+        "symsync_fused": ("yagi_tpu_torch/csrc/symscan.cu", "yagi_tpu/kernels/symscan.py:201"),
+        "symsync_scan": ("yagi_tpu_torch/csrc/symscan.cu", "yagi_tpu/kernels/symscan.py:72"),
     }
     print(json.dumps({"kernels": [{
         "name": k,

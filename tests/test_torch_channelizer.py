@@ -32,7 +32,9 @@ from yagi_tpu.kernels.channelizer import fused_channelizer_apply as j_apply
 from yagi_tpu.modem import Freqdem as JFreqdem
 from yagi_tpu.multichannel import Firpfbch as JFirpfbch
 from yagi_tpu.multichannel import FusedChannelizer as JFused
+from yagi_tpu.design import FirFilterShape as JFirFilterShape
 from yagi_tpu_torch._src.struct import load_state
+from yagi_tpu_torch.design import FirFilterShape
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.kernels.channelizer import (
     channelizer_tables,
@@ -162,11 +164,24 @@ def test_firpfbch_scale_and_reset():
     "make",
     [lambda: Firpfbch.create_kaiser(1), lambda: Firpfbch.create_kaiser(8, m=0),
      lambda: Firpfbch.create_kaiser(8, 3).analyzer_execute(torch.zeros(13, dtype=torch.complex64)),
-     lambda: Firpfbch.create_rnyquist("rrcos", 8, 3, 0.3)],
+     lambda: Firpfbch.create_rnyquist(FirFilterShape.GMSKTX, 8, 3, 0.3)],
 )
 def test_firpfbch_rejects_bad_config(make):
     with pytest.raises(ConfigError):
         make()
+
+
+@pytest.mark.parametrize("shape", ["kaiser", "rcos", "rrcos"])
+def test_firpfbch_rnyquist_matches_yagi_tpu(shape):
+    """The root-Nyquist prototype (fir_design_prototype) gives the same bank
+    and outputs as yagi_tpu's."""
+    x = _cplx(np.random.default_rng(9), 8 * 40)
+    j = JFirpfbch.create_rnyquist(JFirFilterShape.from_str(shape), 8, 3, 0.3)
+    t = Firpfbch.create_rnyquist(FirFilterShape.from_str(shape), 8, 3, 0.3)
+    np.testing.assert_array_equal(t.branches.numpy(), np.asarray(j.branches))
+    yj, _ = j.analyzer_execute(jnp.asarray(x))
+    yt, _ = t.analyzer_execute(torch.from_numpy(x))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------------ fused kernel

@@ -5,10 +5,12 @@ import numpy as np
 import pytest
 import torch
 
+import yagi_tpu.design as jdesign
 from yagi_tpu.design import fir_design_kaiser as j_kaiser
 from yagi_tpu.errors import ConfigError as JConfigError
 from yagi_tpu.filter.firpfb import pfb_decompose as j_pfb
 from yagi_tpu.kernels.chain import chain_matrices as j_chain
+import yagi_tpu_torch.design as tdesign
 from yagi_tpu_torch.design import fir_design_kaiser
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.filter import pfb_decompose
@@ -73,3 +75,40 @@ def test_chain_matrices_rejects(p, n_taps):
         j_chain(h, scale, branches, p)
     with pytest.raises(ValueError):
         chain_matrices(h, scale, branches, p)
+
+
+# (shape, k, m, beta): config[1]'s symsync prototype (k·num_filters = 64),
+# beta 1 and 0.5 (rcos and rrcos meet their special-case points) and
+# Firpfbch's use
+_PROTO = [(s, k, m, beta) for s in ("kaiser", "rcos", "rrcos")
+          for k, m, beta in ((64, 7, 0.3), (2, 3, 1.0), (4, 2, 0.5), (8, 3, 0.25))]
+
+
+@pytest.mark.parametrize("shape,k,m,beta", _PROTO)
+def test_fir_design_prototype_bit_exact(shape, k, m, beta):
+    want = jdesign.fir_design_prototype(jdesign.FirFilterShape.from_str(shape), k, m, beta, 0.0)
+    got = tdesign.fir_design_prototype(tdesign.FirFilterShape.from_str(shape), k, m, beta, 0.0)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", ["pm", "fexp", "rkaiser", "hm3", "gmsktx", "rfsech"])
+def test_fir_design_prototype_names_unported_shape(shape):
+    with pytest.raises(ConfigError, match=shape):
+        tdesign.fir_design_prototype(tdesign.FirFilterShape.from_str(shape), 2, 3, 0.3)
+
+
+@pytest.mark.parametrize("m,as_", [(3, 65.0), (5, 65.0), (12, 70.0), (2, 40.0)])
+def test_pm_halfband_bit_exact(m, as_):
+    np.testing.assert_array_equal(
+        tdesign.fir_design_pm_halfband_stopband_attenuation(m, as_),
+        jdesign.fir_design_pm_halfband_stopband_attenuation(m, as_))
+
+
+@pytest.mark.parametrize("df,as_", [(0.1, 65.0), (0.02, 80.0), (0.3, 40.0)])
+def test_filter_length_estimators_bit_exact(df, as_):
+    assert tdesign.estimate_req_filter_len(df, as_) == jdesign.estimate_req_filter_len(df, as_)
+    n = jdesign.estimate_req_filter_len(df, as_)
+    assert (tdesign.estimate_req_filter_stopband_attenuation(df, n)
+            == jdesign.estimate_req_filter_stopband_attenuation(df, n))
+    assert (tdesign.estimate_req_filter_transition_bandwidth(as_, n)
+            == jdesign.estimate_req_filter_transition_bandwidth(as_, n))

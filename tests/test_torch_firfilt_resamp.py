@@ -142,7 +142,7 @@ def test_resamp_u32_path_from_nonzero_phase():
 
 @pytest.mark.parametrize(
     "kw", [dict(rate=0.0), dict(rate=1.0, m=0), dict(rate=1.0, fc=0.7), dict(rate=300.0),
-           dict(rate=1.0, interp="farrow"), dict(rate=1.0, interp="linear")]
+           dict(rate=1.0, npfb=1 << 17), dict(rate=1.0, interp="linear")]
 )
 def test_resamp_rejects(kw):
     with pytest.raises(ConfigError):

@@ -30,6 +30,12 @@ _MODULES = (
     "yagi_tpu_torch.kernels._build",
     "yagi_tpu_torch.kernels.channelizer",
     "yagi_tpu_torch.kernels.mix",
+    "yagi_tpu_torch.kernels.symscan",
+    "yagi_tpu_torch.filter.msresamp",
+    "yagi_tpu_torch.filter.symsync",
+    "yagi_tpu_torch.design.pm",
+    "yagi_tpu_torch.optim",
+    "yagi_tpu_torch.utils",
     "yagi_tpu_torch.chains",
 )
 

@@ -1,0 +1,342 @@
+"""yagi_tpu_torch's Symsync and its two scan kernels' plain versions against
+yagi_tpu (BASELINE config[1]'s symbol synchronizer: RRCOS k = 2, m = 7,
+β = 0.3, 32 filters, set_lf_bw(0.02)), at C = 128 channels, n = 256.
+
+* K4's plain version, ``symsync_scan_reference``, against yagi_tpu's Pallas
+  ``symsync_scan`` (interpret mode) on the same all-branch stream: masks and
+  values equal, and the integer rows of the carried state (b, dec) equal.
+  The float rows are not bit-equal: XLA's CPU backend contracts a multiply
+  and an add into one FMA (checked: ``c - a*b`` under jit equals the fused
+  result, not the two-step one), while the port rounds every op as the CUDA
+  kernel does, so the loop filter (v0 = q − a1·v0, rate + radj·q̂) differs
+  by an ulp from the eighth sample on. rate, δ, v0 and v1 are held to
+  1e-6. τ integrates δ over the block's ~128 timing updates, so τ and
+  τ_decim are held to 1e-4 (measured ≤ 1.2e-5), as test_symscan.py's fused
+  test holds τ, and bf = 32·τ to 32·1e-4.
+* K3's plain version, ``symsync_fused_reference``, against
+  ``symsync_scan_fused`` (interpret): masks equal, values < 1e-5·max(|y|, 1)
+  (the dots sum in another order).
+* ``Symsync.execute_slots`` / ``execute`` on every backend against yagi_tpu's
+  XLA scan: masks and counts equal, values < 1e-4·max(|y|, 1), τ within 1e-4,
+  across a 128 + 128 block split and with ``n_valid``.
+
+The CUDA kernels run only on a GPU; chip_smoke.py holds them against these
+plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yagi_tpu.design import FirFilterShape as JShape
+from yagi_tpu.filter import Symsync as JSymsync
+from yagi_tpu.kernels.symscan import symsync_scan, symsync_scan_fused
+from yagi_tpu_torch._src.struct import load_state
+from yagi_tpu_torch.errors import ConfigError
+from yagi_tpu_torch.filter import Symsync
+from yagi_tpu_torch.kernels.symscan import (
+    branch_outputs,
+    symsync_fused_apply,
+    symsync_fused_reference,
+    symsync_scan_apply,
+    symsync_scan_reference,
+    symsync_scan_xla,
+)
+
+torch.set_num_threads(1)
+
+C, N = 128, 256
+P, L, LPAD = 32, 28, 32  # config[1]'s bank: 32 branches of 28 taps (TPU pad 32)
+SLOT_TOL = 1e-4  # tests/test_symscan.py::TestSymscanFused
+FUSED_TOL = 1e-5
+
+
+def _sig(seed, c=C, n=N):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((c, n)) + 1j * rng.standard_normal((c, n))).astype(np.complex64)
+
+
+def _pair(c=C, k_out=1):
+    j = JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
+    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
+    if k_out != 1:
+        j, t = j.set_output_rate(k_out), t.set_output_rate(k_out)
+    return j, t
+
+
+def _kernel_args(j, rng):
+    """The loop's inputs from a yagi_tpu Symsync: its kernel state and
+    constants for the Pallas kernels, the port's keyword arguments, and a
+    window-prefixed block with a random window."""
+    state16, consts = j._kernel_state(C)
+    kw = dict(
+        state=torch.from_numpy(np.array(state16[:9])),
+        locked=torch.from_numpy(np.array(j.locked)),
+        radj=torch.from_numpy(np.array(j.rate_adjustment)),
+        pll_a=torch.from_numpy(np.array(j.pll_a)),
+        pll_b=torch.from_numpy(np.array(j.pll_b)),
+        P=P, k_out=j.k_out, k=j.k,
+    )
+    xa = np.concatenate([_sig(int(rng.integers(1 << 30)), n=L), _sig(int(rng.integers(1 << 30)))], -1)
+    g = np.concatenate([np.asarray(j.mf), np.asarray(j.dmf)])[:, ::-1].copy()
+    return state16, consts, kw, xa, g
+
+
+def _vf(n_valid):
+    v = np.arange(N) < (N if n_valid is None else n_valid)
+    return jnp.asarray(np.broadcast_to(v.astype(np.float32)[:, None], (N, C)))
+
+
+def _unpack(ys, E):
+    """yagi_tpu kernel rows [n, 3E, C] → (y [C, n, E], valid [C, n, E])."""
+    ys = np.asarray(ys)
+    y = ys[:, :E] + 1j * ys[:, E : 2 * E]
+    return y.transpose(2, 0, 1), ys[:, 2 * E :].transpose(2, 0, 1) > 0.5
+
+
+def _nv(n_valid):
+    return None if n_valid is None else torch.tensor(n_valid)
+
+
+def _check_state(got, want):
+    """Rows (b, bf, τ, τ_decim, rate, δ, dec, v0, v1); see the module
+    docstring for the tolerances."""
+    for rows, atol in (((0, 6), 0.0), ((4, 5, 7, 8), 1e-6), ((2, 3), 1e-4), ((1,), P * 1e-4)):
+        np.testing.assert_allclose(got[list(rows)], want[list(rows)], rtol=0, atol=atol)
+
+
+# ------------------------------------------------------------- K4 (plain)
+@pytest.mark.parametrize("k_out", [1, 2])
+@pytest.mark.parametrize("n_valid", [None, 200])
+def test_scan_reference_matches_pallas_scan(n_valid, k_out):
+    j, _ = _pair(k_out=k_out)
+    E = 2 if k_out == 1 else 3
+    state16, consts, kw, xa, g = _kernel_args(j, np.random.default_rng(1))
+    xs4 = branch_outputs(torch.from_numpy(xa), torch.from_numpy(g))
+    ys, st = symsync_scan(jnp.asarray(xs4.numpy().transpose(1, 2, 0)), _vf(n_valid), state16,
+                          consts, P=P, E=E, k_out=k_out, interpret=True)
+    y_want, v_want = _unpack(ys, E)
+    y, v, st_t = symsync_scan_reference(xs4, _nv(n_valid), E=E, **kw)
+    assert y.shape == (C, N, E) and y.dtype == torch.complex64 and v.dtype == torch.bool
+    np.testing.assert_array_equal(v.numpy(), v_want)
+    np.testing.assert_array_equal(y.numpy(), y_want)
+    _check_state(st_t.numpy(), np.asarray(st)[:9])
+    if n_valid is not None:
+        assert not v[:, n_valid:].any()
+
+
+def test_branch_outputs_is_block_length_invariant():
+    """Each all-branch output depends only on its own L samples: a block and
+    its halves give identical bits (K4's stream under a block split)."""
+    j, _ = _pair()
+    _, _, _, xa, g = _kernel_args(j, np.random.default_rng(2))
+    xa, g = torch.from_numpy(xa), torch.from_numpy(g)
+    whole = branch_outputs(xa, g)
+    h = N // 2
+    parts = [branch_outputs(xa[:, : h + L], g), branch_outputs(xa[:, h:], g)]
+    np.testing.assert_array_equal(torch.cat(parts, 1).numpy(), whole.numpy())
+
+
+# ------------------------------------------------------------- K3 (plain)
+@pytest.mark.parametrize("n_valid", [None, 200])
+def test_fused_reference_matches_pallas_fused(n_valid):
+    j, _ = _pair()
+    state16, consts, kw, xa, g = _kernel_args(j, np.random.default_rng(3))
+    xt = xa[:, 1:].T
+    pad = [(0, N + LPAD - xt.shape[0]), (0, 0)]
+    g2 = np.pad(g, [(0, 0), (0, LPAD - L)])
+    ys, _ = symsync_scan_fused(jnp.asarray(np.pad(xt.real, pad)), jnp.asarray(np.pad(xt.imag, pad)),
+                               _vf(n_valid), state16, consts, jnp.asarray(g2), P=P, E=2,
+                               k_out=1, interpret=True)
+    y_want, v_want = _unpack(ys, 2)
+    y, v, _ = symsync_fused_reference(torch.from_numpy(xa), torch.from_numpy(g), _nv(n_valid),
+                                      E=2, **kw)
+    np.testing.assert_array_equal(v.numpy(), v_want)
+    assert np.abs(y.numpy() - y_want).max() < FUSED_TOL * max(np.abs(y_want).max(), 1.0)
+
+
+def test_wrappers_run_plain_versions_on_cpu():
+    """On CPU tensors the kernel wrappers run the plain versions and count no
+    launch; K4's plain version and the XLA-form scan agree bit for bit at
+    k = 2 (x·(1/2) and x/2 are the same float)."""
+    j, _ = _pair()
+    _, _, kw, xa, g = _kernel_args(j, np.random.default_rng(4))
+    xa, g = torch.from_numpy(xa), torch.from_numpy(g)
+    xs4 = branch_outputs(xa, g)
+    n3, n4 = symsync_fused_apply.launches, symsync_scan_apply.launches
+    outs = [symsync_scan_apply(xs4, None, E=2, **kw), symsync_scan_reference(xs4, None, E=2, **kw),
+            symsync_scan_xla(xs4, None, E=2, **kw)]
+    fused = [symsync_fused_apply(xa, g, None, E=2, **kw), symsync_fused_reference(xa, g, None, E=2, **kw)]
+    assert (symsync_fused_apply.launches, symsync_scan_apply.launches) == (n3, n4)
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[1], outs[2]):
+        assert torch.equal(a, b)
+    for a, b in zip(fused[0], fused[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["rank", "xs4_dtype", "state", "locked", "device", "n_valid"])
+def test_scan_apply_rejects_bad_input(bad):
+    j, _ = _pair()
+    _, _, kw, xa, g = _kernel_args(j, np.random.default_rng(5))
+    xs4 = branch_outputs(torch.from_numpy(xa), torch.from_numpy(g))
+    n_valid = None
+    if bad == "rank":
+        xs4 = xs4[0]
+    elif bad == "xs4_dtype":
+        xs4 = xs4.double()
+    elif bad == "state":
+        kw["state"] = kw["state"][:8]
+    elif bad == "locked":
+        kw["locked"] = kw["locked"].float()
+    elif bad == "device":
+        xs4 = xs4.to("meta")
+    else:
+        n_valid = torch.tensor(200, dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        symsync_scan_apply(xs4, n_valid, E=2, **kw)
+
+
+@pytest.mark.parametrize("bad", ["g_rows", "xa_dtype", "short", "layout"])
+def test_fused_apply_rejects_bad_input(bad):
+    j, _ = _pair()
+    _, _, kw, xa, g = _kernel_args(j, np.random.default_rng(6))
+    xa, g = torch.from_numpy(xa), torch.from_numpy(g)
+    if bad == "g_rows":
+        g = g[:P]
+    elif bad == "xa_dtype":
+        xa = xa.to(torch.complex128)
+    elif bad == "short":
+        xa = xa[:, :L]
+    else:
+        xa = torch.cat([xa, xa], 1)[:, ::2]
+    with pytest.raises((ValueError, TypeError)):
+        symsync_fused_apply(xa, g, None, E=2, **kw)
+
+
+# ------------------------------------------------------------ Symsync
+def test_create_matches_yagi_tpu():
+    j, t = _pair()
+    np.testing.assert_array_equal(t.mf.numpy(), np.asarray(j.mf))
+    np.testing.assert_array_equal(t.dmf.numpy(), np.asarray(j.dmf))
+    np.testing.assert_array_equal(t.pll_a.numpy(), np.asarray(j.pll_a))
+    np.testing.assert_array_equal(t.pll_b.numpy(), np.asarray(j.pll_b))
+    np.testing.assert_array_equal(t.rate_adjustment.numpy(), np.asarray(j.rate_adjustment))
+    jk = JSymsync.create_kaiser(2, 3, 0.4, num_filters=16, batch_shape=(2,))
+    tk = Symsync.create_kaiser(2, 3, 0.4, num_filters=16, batch_shape=(2,))
+    np.testing.assert_array_equal(tk.mf.numpy(), np.asarray(jk.mf))
+    np.testing.assert_array_equal(tk.dmf.numpy(), np.asarray(jk.dmf))
+
+
+def _check_slots(yt, vt, yj, vj):
+    yj, vj = np.asarray(yj), np.asarray(vj)
+    np.testing.assert_array_equal(vt.numpy(), vj)
+    assert np.abs(yt.numpy() - yj).max() < SLOT_TOL * max(np.abs(yj).max(), 1.0)
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused", "pallas", "xla"])
+def test_execute_slots_matches_xla_scan_across_blocks(backend):
+    """A 128 + 128 split, the second block with n_valid = 100; the port's
+    backend against yagi_tpu's XLA scan on the same split."""
+    x = _sig(7)
+    j, t = _pair()
+    for blk, n_valid in ((x[:, :128], None), (x[:, 128:], 100)):
+        yj, vj, j = j.execute_slots(jnp.asarray(blk), n_valid=n_valid, backend="xla")
+        yt, vt, t = t.execute_slots(torch.from_numpy(blk), n_valid=n_valid, backend=backend)
+        _check_slots(yt, vt, yj, vj)
+        np.testing.assert_allclose(t.tau.numpy(), np.asarray(j.tau), atol=1e-4)
+        np.testing.assert_array_equal(t.b.numpy(), np.asarray(j.b))
+        np.testing.assert_array_equal(t.decim_counter.numpy(), np.asarray(j.decim_counter))
+        np.testing.assert_array_equal(t.window.numpy(), np.asarray(j.window))
+
+
+def test_execute_slots_block_split_is_exact():
+    """Against itself the port is bit-invariant to block splits, on every
+    backend (the plain versions here; chip_smoke.py checks the kernels)."""
+    x = torch.from_numpy(_sig(8))
+    for backend in ("auto", "pallas", "xla"):
+        _, t = _pair()
+        yf, vf, sf = t.execute_slots(x, backend=backend)
+        y1, v1, s = t.execute_slots(x[:, :100], backend=backend)
+        y2, v2, s = s.execute_slots(x[:, 100:], backend=backend)
+        assert torch.equal(torch.cat([v1, v2], 1), vf)
+        assert torch.equal(torch.cat([y1, y2], 1), yf)
+        assert torch.equal(s.tau, sf.tau) and torch.equal(s.window, sf.window)
+
+
+def test_execute_compacts_like_yagi_tpu():
+    x = _sig(9)
+    j, t = _pair()
+    yj, kj, j = j.execute(jnp.asarray(x))
+    yt, kt, t = t.execute(torch.from_numpy(x))
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    assert np.abs(yt.numpy() - np.asarray(yj)).max() < SLOT_TOL * max(np.abs(np.asarray(yj)).max(), 1.0)
+
+
+def test_state_carries_over_from_yagi_tpu():
+    """A yagi_tpu Symsync mid-stream loads into the port (its TPU-only
+    bank_g dropped) and continues as yagi_tpu does."""
+    x = _sig(10)
+    j, _ = _pair()
+    _, _, j = j.execute_slots(jnp.asarray(x[:, :96]), backend="xla")
+    t = load_state(Symsync, j)
+    assert t.b.dtype == torch.int32 and t.locked.dtype == torch.bool
+    yj, vj, j = j.execute_slots(jnp.asarray(x[:, 96:]), backend="xla")
+    yt, vt, t = t.execute_slots(torch.from_numpy(x[:, 96:]), backend="xla")
+    _check_slots(yt, vt, yj, vj)
+    np.testing.assert_allclose(t.tau.numpy(), np.asarray(j.tau), atol=1e-4)
+
+
+def test_controls_match_yagi_tpu():
+    """lock (no timing updates), set_output_rate, unlock, reset, get_tau."""
+    x = _sig(11, c=4)
+    j, t = (JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(4,)),
+            Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(4,)))
+    j, t = j.lock(), t.lock()
+    yj, vj, j = j.execute_slots(jnp.asarray(x), backend="xla")
+    yt, vt, t = t.execute_slots(torch.from_numpy(x), backend="auto")
+    _check_slots(yt, vt, yj, vj)
+    np.testing.assert_array_equal(t.get_tau().numpy(), np.asarray(j.get_tau()))
+    j, t = j.unlock().set_output_rate(2).reset(), t.unlock().set_output_rate(2).reset()
+    assert t.k_out == 2 and not t.locked.any() and not t.window.any()
+    np.testing.assert_array_equal(t.rate.numpy(), np.asarray(j.rate))
+    yj, vj, j = j.execute_slots(jnp.asarray(x), backend="xla")
+    yt, vt, t = t.execute_slots(torch.from_numpy(x), backend="pallas")
+    assert yt.shape == (4, N, 3)
+    _check_slots(yt, vt, yj, vj)
+
+
+def test_unbatched_and_real_input():
+    """batch_shape () and a float32 stream, as yagi_tpu takes them."""
+    x = _sig(12, c=1)[0].real.copy()
+    j = JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, dtype=jnp.float32)
+    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, dtype=torch.float32)
+    yj, vj, _ = j.execute_slots(jnp.asarray(x), backend="xla")
+    yt, vt, _ = t.execute_slots(torch.from_numpy(x))
+    assert yt.dtype == torch.float32 and yt.shape == (N, 2)
+    _check_slots(yt, vt, yj, vj)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [lambda t: t.execute_slots(torch.zeros(C, 10, dtype=torch.complex64), samples_per_step=3),
+     lambda t: t.execute_slots(torch.zeros(C, 8, dtype=torch.complex64), backend="mosaic"),
+     lambda t: t.set_lf_bw(1.5), lambda t: t.set_output_rate(0),
+     lambda t: Symsync.create_rnyquist("rrcos", 1, 7, 0.3),
+     lambda t: Symsync.create_rnyquist("nyquist", 2, 7, 0.3),
+     lambda t: Symsync.create_rnyquist("gmsktx", 2, 7, 0.3)],
+)
+def test_rejects_bad_config(make):
+    _, t = _pair()
+    with pytest.raises(ConfigError):
+        make(t)
+
+
+def test_samples_per_step_changes_nothing():
+    x = torch.from_numpy(_sig(13))
+    _, t = _pair()
+    y1, v1, _ = t.execute_slots(x)
+    y4, v4, _ = t.execute_slots(x, samples_per_step=4)
+    assert torch.equal(y1, y4) and torch.equal(v1, v4)

@@ -13,6 +13,7 @@ Unsigned 32-bit state (resampler and oscillator phases) is held as int64 in
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Any, TypeVar
 
 import numpy as np
@@ -53,16 +54,37 @@ def _as_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def load_state(cls: type[_T], arrays: dict, device=None) -> _T:
+def _is_state(tp) -> bool:
+    return isinstance(tp, type) and dataclasses.is_dataclass(tp) and hasattr(tp, "replace")
+
+
+def _load_value(tp, v, device):
+    """One field value: a nested state object, a tuple of them, or a tensor."""
+    if _is_state(tp):
+        return load_state(tp, v, device)
+    if typing.get_origin(tp) is tuple:
+        elem = typing.get_args(tp)[0]
+        return tuple(_load_value(elem, e, device) for e in v)
+    return _as_tensor(v, device)
+
+
+def load_state(cls: type[_T], arrays, device=None) -> _T:
     """Build a ``cls`` object from another implementation's field values.
 
-    ``arrays`` maps field names to numpy arrays (or anything ``np.asarray``
-    takes), typically the fields of the matching yagi_tpu object. uint32
-    becomes int64 in [0, 2^32); other dtypes (float32, complex64) are kept.
-    Static fields pass through unchanged. Keys that ``cls`` has no field for
-    (such as a Pallas ``interpret`` flag) are ignored; a missing field falls
-    back to its default or raises ``KeyError``.
+    ``arrays`` is the matching yagi_tpu object, or a dict mapping field names
+    to numpy arrays (or anything ``np.asarray`` takes). uint32 becomes int64
+    in [0, 2^32); other dtypes (float32, complex64, int32, bool) are kept.
+    Static fields pass through unchanged. A field annotated with a state
+    class (or ``tuple[StateClass, ...]``) loads recursively from the nested
+    object(s), so a composite (``MsResamp`` with its ``Resamp``,
+    ``MsResamp2`` and ``Resamp2`` stages) loads whole. Values that ``cls``
+    has no field for (a Pallas ``interpret`` flag, a TPU-only matrix such as
+    Symsync's ``bank_g``) are ignored; a missing field falls back to its
+    default or raises ``KeyError``.
     """
+    if not isinstance(arrays, dict):
+        arrays = {f.name: getattr(arrays, f.name) for f in dataclasses.fields(arrays)}
+    hints = typing.get_type_hints(cls)
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name not in arrays:
@@ -70,5 +92,5 @@ def load_state(cls: type[_T], arrays: dict, device=None) -> _T:
                 raise KeyError(f"{cls.__name__}: no value for field {f.name!r}")
             continue
         v = arrays[f.name]
-        kw[f.name] = v if f.metadata.get("static", False) else _as_tensor(v, device)
+        kw[f.name] = v if f.metadata.get("static", False) else _load_value(hints[f.name], v, device)
     return cls(**kw)

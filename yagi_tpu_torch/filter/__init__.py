@@ -1,5 +1,9 @@
-"""Streaming filters (reference layer L4), the subset the ported slice needs."""
+"""Streaming filters (reference layer L4), the subset the ported slices need."""
 
 from .firfilt import FirFilter  # noqa: F401
 from .firpfb import pfb_decompose  # noqa: F401
+from .msresamp import MsResamp  # noqa: F401
+from .msresamp2 import MsResamp2  # noqa: F401
 from .resamp import Resamp  # noqa: F401
+from .resamp2 import Resamp2  # noqa: F401
+from .symsync import Symsync  # noqa: F401

@@ -62,6 +62,11 @@ class Resamp:
     # banded-matmul fast path applies. Cleared (None) by a block that can
     # leave a nonzero phase.
     exact_sched: tuple | None = struct.static_field(default=None)
+    # "pfb": the reference's 256-branch evaluation. "farrow" (yagi_tpu's TPU
+    # production mode) is stored, so a farrow MsResamp's decimation stage
+    # (execute_block_n, which always runs the PFB gather) works; its
+    # execute_block raises until the Farrow values are ported.
+    interp: str = struct.static_field(default="pfb")
 
     # ------------------------------------------------------------------ ctors
     @classmethod
@@ -79,13 +84,12 @@ class Resamp:
     ) -> "Resamp":
         """Design the PFB prototype and initialize state (resamp.rs:24-71).
 
-        Only ``interp="pfb"`` (the reference's 256-branch evaluation) is
-        ported; ``"farrow"`` raises :class:`ConfigError`.
+        ``interp`` is stored (see the field comment): with ``"farrow"``,
+        :meth:`execute_block` raises :class:`ConfigError`, and
+        :meth:`execute_block_n` runs the PFB gather as yagi_tpu's does.
         """
         if interp not in ("pfb", "farrow"):
             raise ConfigError("interp must be 'pfb' or 'farrow'")
-        if interp == "farrow":
-            raise ConfigError("interp='farrow' is not ported yet; use 'pfb'")
         if rate <= 0.0:
             raise ConfigError("resampling rate must be greater than zero")
         if m == 0:
@@ -117,6 +121,7 @@ class Resamp:
                 batch_shape + (branches.shape[1],), dtype=dtype, device=device
             ),
             exact_sched=_pq_of_step(step),
+            interp=interp,
         )
         return obj._check_rate(rate)
 
@@ -133,6 +138,15 @@ class Resamp:
     @property
     def sub_len(self) -> int:
         return self.branches.shape[1]
+
+    def get_num_output(self, num_input: int) -> int:
+        """Exact output count for the next num_input samples (resamp.rs:128);
+        host-side, reads the carried phase back."""
+        phase, step = int(self.phase), int(self.step)
+        end = num_input << 24
+        if phase > end - 1:
+            return 0
+        return (end - 1 - phase) // step + 1
 
     def out_capacity(self, num_input: int, rate_hint: float | None = None) -> int:
         """Static output-buffer capacity for a block of num_input samples,
@@ -177,17 +191,20 @@ class Resamp:
             return s
         return None
 
-    def _u32_path(self, xa, n: int, out_capacity: int):
-        """General u32 schedule: (y unmasked, valid, num_output, new_phase)."""
+    def _u32_path(self, xa, n: int, out_capacity: int, consumed=None):
+        """General u32 schedule over a buffer of n input samples, of which
+        the first ``consumed`` (default n; may be a 0-d device tensor) are
+        consumed: (y unmasked, valid, num_output, new_phase)."""
         dev = xa.device
         L = self.sub_len
+        consumed = n if consumed is None else consumed
         # one extra index so lo[num_output] is always in range (phase carry)
         m_idx = torch.arange(out_capacity + 1, dtype=torch.int64, device=dev)
         acc = self.phase + m_idx * self.step  # exact 64-bit phase0 + m·step
         lo_full = acc & U32
         n_m = (acc >> 24)[:out_capacity]  # source sample index
         branch = (lo_full[:out_capacity] >> (24 - self.bits)) & (self.npfb - 1)
-        valid = n_m < n
+        valid = n_m < consumed
         num_output = valid.sum()
 
         starts = n_m.clamp(0, n - 1)  # frame m = xa[s : s+L]
@@ -195,8 +212,11 @@ class Resamp:
         frames = xa[..., frame_idx]  # [..., cap, L] oldest..newest
         hb = self.branches[branch].flip(-1).to(frames.dtype)  # [cap, L]
         y = torch.einsum("...cl,cl->...c", frames, hb)
-        # phase' = (phase + num_output·step) - n·2^24 (mod 2^32), resamp.rs:149-151
-        new_phase = (lo_full[num_output] - ((n & 0xFF) << 24)) & U32
+        # phase' = (phase + num_output·step) - consumed·2^24 (mod 2^32),
+        # resamp.rs:149-151; a gather, not lo_full[num_output], which would
+        # read the count back to the host
+        lo_out = lo_full.gather(0, num_output.reshape(1))[0]
+        new_phase = (lo_out - ((consumed & 0xFF) << 24)) & U32
         return y, valid, num_output, new_phase
 
     # ------------------------------------------------------------- streaming
@@ -206,6 +226,8 @@ class Resamp:
         Returns (y, num_output, state): y has static length ``out_capacity``
         with valid samples in y[..., :num_output] and zeros beyond.
         """
+        if self.interp == "farrow":
+            raise ConfigError("Farrow values not ported yet: interp='farrow' has no execute_block")
         n = x.shape[-1]
         if out_capacity is None:
             out_capacity = self.out_capacity(n)
@@ -228,6 +250,35 @@ class Resamp:
         )
 
     __call__ = execute_block
+
+    def execute_block_n(self, x, n_valid, out_capacity: int | None = None):
+        """Valid-prefix variant of :meth:`execute_block`: only the first
+        ``n_valid`` samples of the fixed-capacity buffer ``x`` [..., cap] are
+        consumed (x is masked past them). ``n_valid`` is an int or a 0-d
+        integer tensor on x's device; it is never read back to the host.
+
+        The u32 phase advances by exactly the emissions a sequential run
+        over those samples would make (resamp.rs:141-154), the PFB window
+        lands at the valid end, and ``exact_sched`` is cleared. Always the
+        u32 frame gather, for either ``interp``, as in yagi_tpu. Returns
+        (y, num_output, state) with y zero beyond num_output.
+        """
+        cap = x.shape[-1]
+        dev = x.device
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+        if out_capacity is None:
+            out_capacity = self.out_capacity(cap)
+        L = self.sub_len
+        zero = torch.zeros((), dtype=x.dtype, device=dev)
+        x = torch.where(torch.arange(cap, device=dev) < n_valid, x, zero)
+        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
+        y, valid, num_output, new_phase = self._u32_path(xa, cap, out_capacity, n_valid)
+        y = torch.where(valid, y, zero)
+        # the L samples ending at the last valid one; the old window if none
+        start = (n_valid - 1).clamp(0, cap - 1)
+        sliced = xa[..., start + torch.arange(L, device=dev)]
+        new_window = torch.where(n_valid > 0, sliced, self.window.to(x.dtype))
+        return y, num_output, self.replace(phase=new_phase, window=new_window, exact_sched=None)
 
     def execute_block_mix_down(self, x, osc, out_capacity: int | None = None):
         """Resample then NCO down-mix in one pass.

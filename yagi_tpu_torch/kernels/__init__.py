@@ -8,3 +8,11 @@ from .channelizer import (  # noqa: F401
     fused_channelizer_reference,
 )
 from .mix import mix_down_apply, mix_down_reference  # noqa: F401
+from .symscan import (  # noqa: F401
+    branch_outputs,
+    symsync_fused_apply,
+    symsync_fused_reference,
+    symsync_scan_apply,
+    symsync_scan_reference,
+    symsync_scan_xla,
+)

@@ -31,6 +31,7 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: argument types, in the order of their declarations in csrc/
 _SIGNATURES = {
     # xr, xi, g, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, stream
@@ -39,6 +40,12 @@ _SIGNATURES = {
     "yagi_channelizer_fp32": [_P] * 9 + [_I] * 3 + [_P],
     # x, theta0, dtheta, y, n, stream
     "yagi_mix_down": [_P] * 4 + [_I, _P],
+    # xs4, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
+    # C, n, P, E, k_out, 1/k, stream
+    "yagi_symsync_scan": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # xa, g, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
+    # C, n, L, P, E, k_out, 1/k, stream
+    "yagi_symsync_fused": [_P] * 11 + [_I] * 6 + [_F, _P],
 }
 
 

@@ -103,9 +103,11 @@ class Firpfbch:
 
     @classmethod
     def create_rnyquist(cls, ftype, num_channels: int, m: int, beta: float, **kw) -> "Firpfbch":
-        """Root-Nyquist prototype (liquid firpfbch rnyquist ctor): needs
-        ``design.fir_design_prototype``, which is not ported yet."""
-        raise ConfigError("Firpfbch.create_rnyquist is not ported yet; use create_kaiser")
+        """Root-Nyquist prototype (liquid firpfbch rnyquist ctor): ``ftype``
+        one of the shapes :func:`design.fir_design_prototype` ports (KAISER,
+        RCOS, RRCOS)."""
+        h = design.fir_design_prototype(ftype, num_channels, m, beta, 0.0)
+        return cls.create(num_channels, h[: 2 * num_channels * m], **kw)
 
     # ------------------------------------------------------------ properties
     @property
