@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-Three paths of the port, yagi_tpu_torch, each at its real size:
+Five paths of the port, yagi_tpu_torch, each at its real size:
 
 * BASELINE config[0]: 64-tap Kaiser FIR → 2× polyphase interpolator → u32
   NCO mix-down, 16 channels, blocks of 2^17 complex samples (FusedRxChain,
@@ -16,9 +16,16 @@ Three paths of the port, yagi_tpu_torch, each at its real size:
   whose decimation stage is the 256-branch PFB gather) → Symsync (RRCOS
   k = 2, m = 7, β = 0.3, 32 filters, loop bandwidth 0.02) over 1024
   channels, blocks of 4096 complex samples, the resampler's count fed on as
-  n_valid (kernel K3 for backend "auto", K4 for "pallas", csrc/symscan.cu).
+  n_valid (kernel K3 for backend "auto", K4 for "pallas", csrc/symscan.cu);
+* BASELINE config[3]: the 16-QAM receiver QamRx (AGC, bandwidth 1e-3 →
+  Symsync RRCOS k = 2, m = 7, β = 0.3 at 2 samples/symbol out, two slots →
+  7-tap LMS equalizer and carrier PLL → nearest-point decisions and EVM)
+  over 2048 channels, blocks of 4096 complex samples: kernels agc_scan
+  (csrc/agc.cu), K3 at k_out = 2 and qam_eq_scan (csrc/qam.cu), once each
+  per block; besides the noise blocks, an impaired 16-QAM signal decoded
+  in every channel.
 
-Five phases:
+Six phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
@@ -26,12 +33,16 @@ Five phases:
    CUDA tensors, at a small shape and at its path's shape;
 4. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
-   for config[1] the XLA-form scan over its first 4 blocks); every launch
-   count is set to 0 just before a path and read just after it;
-   block-split invariance;
-5. timing with CUDA events: each kernel by CUDA-graph replay, each plain
-   version by graph replay (eager calls for the symsync scans' plain
-   loops), and the config[0], config[4] and config[1] steps.
+   for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
+   8, the first 2 held bit for bit against the chain with every stage on
+   its plain version); every launch count is set to 0 just before a path
+   and read just after it; block-split invariance;
+5. signal: config[3] decodes an impaired 16-QAM signal in all 2048
+   channels (tail symbol error rate 0, tail EVM below −25 dB);
+6. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+   version by graph replay (eager calls for the plain loops: the symsync
+   scans, the AGC and the eq/carrier loop), and the config[0], config[4],
+   config[1] and config[3] steps.
 
 Prints one line per check, a JSON line of per-kernel results, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -41,6 +52,7 @@ CUDA device. Run it from anywhere: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,7 +65,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from yagi_tpu_torch._src.struct import U32  # noqa: E402
-from yagi_tpu_torch.chains import FusedRxChain, RxChain  # noqa: E402
+from yagi_tpu_torch.agc import Agc, AgcSquelchMode  # noqa: E402
+from yagi_tpu_torch.chains import FusedRxChain, QamRx, RxChain  # noqa: E402
+from yagi_tpu_torch.design import FirFilterShape, fir_design_prototype  # noqa: E402
+from yagi_tpu_torch.kernels.agc import agc_scan_apply, agc_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels import _build  # noqa: E402
 from yagi_tpu_torch.kernels.chain import (  # noqa: E402
     fused_chain_apply,
@@ -65,6 +80,7 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
 )
 from yagi_tpu_torch.filter import MsResamp, Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
+from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     branch_outputs,
     symsync_fused_apply,
@@ -72,9 +88,10 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     symsync_scan_apply,
     symsync_scan_reference,
 )
-from yagi_tpu_torch.modem import Freqdem  # noqa: E402
+from yagi_tpu_torch.modem import Freqdem, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
+from yagi_tpu_torch.utils import compact_valid  # noqa: E402
 
 C, T = 16, 1 << 17  # config[0]: channels, samples per block
 N_BLOCKS = 16
@@ -118,8 +135,33 @@ SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
 # identity (kernels/symscan.py says why one order: through the loop's
 # feedback, dots an ulp apart part whole channels).
 
+# config[3] (bench.py:221-242): QamRx over 2048 channels, blocks of 4096,
+# input default_rng(4)-style standard-normal complex64
+C3, T3 = 2048, 1 << 12
+QAM_SMALL = (64, 512)  # the kernels' small check shape (C, n)
+N_QAM = 8  # main-path blocks
+N_QAM_PLAIN = 2  # of them held against the all-plain chain (~10 s a block)
+QAM_SPLIT = 2000  # where the block-split check cuts a block
+N_QAM_SIG = 3  # blocks of the impaired 16-QAM signal
+N_QAM_STEPS = 20  # eager steps timed
+QAM_SEED = 4
+# the impaired channel of tests/test_qamrx.py:69-88, and its pass marks
+QAM_GAIN, QAM_PHASE, QAM_CFO, QAM_NOISE = 0.5, 0.3, 1e-4, 0.002
+QAM_ECHO, QAM_ECHO_DELAY = 0.1 * np.exp(1j * 1.1), 3
+QAM_EVM_DB, QAM_THETA_MIN, QAM_TAIL = -25.0, 0.05, 800
+# A few channels in a thousand acquire wrongly: the equalizer settles between
+# symbol instants (tail EVM stuck near −12 dB) or the carrier loop locks a
+# quarter turn off (SER ~0.92 at a good EVM). yagi_tpu's QamRx does the same
+# on the same input, and which channels do is chaotic, an ulp in the
+# acquisition can decide it (PERF.md §6); so up to this share of the
+# channels may miss the SER and EVM marks, each one printed.
+QAM_FALSE_LOCK_MAX = 0.005
+# The AGC and eq/carrier loops feed their decisions back, so kernel and plain
+# version are held to bit identity (kernels/agc.py, kernels/qam.py): every
+# op rounded alone, one evaluation order.
+
 KERNELS = (fused_chain_apply, fused_channelizer_apply, mix_down_apply, symsync_fused_apply,
-           symsync_scan_apply)
+           symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply)
 
 
 def reset_counts() -> None:
@@ -733,6 +775,329 @@ def phase_timing_config1(device, card: str) -> dict:
     return {"symsync_fused": ((k3_1 + k3_2) / 2, p3), "symsync_scan": ((k4_1 + k4_2) / 2, p4)}
 
 
+def make_qamrx(c: int, device) -> QamRx:
+    return QamRx.create(batch_shape=(c,), device=device)
+
+
+def state_diff(a, b, prefix: str = "") -> list[str]:
+    """The fields of two state objects (nested ones included) whose tensors
+    differ in any bit, or whose static values differ."""
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            diff += state_diff(x, y, f"{prefix}{f.name}.")
+        elif not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y):
+            diff.append(prefix + f.name)
+    return diff
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN equal to NaN wherever both hold one."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def agc_inputs(rng, c: int, n: int, device) -> tuple:
+    """agc_scan's arguments with the loop's branches all taken: levels from
+    −60 to +20 dB that drop by 60 dB halfway in half the channels, loop
+    bandwidths 1e-3 (QamRx's), 0.02 and 0.25, the squelch enabled in three
+    channels of four with thresholds from −40 to +40 dB, every seventh channel
+    locked, scales 1 and 2."""
+    level = 10 ** rng.uniform(-3, 1, (c, 1)) * np.where(
+        (np.arange(n) >= n // 2) & (rng.random((c, 1)) < 0.5), 1e-3, 1.0)
+    x = complex_block(rng, (c, n), device) * torch.from_numpy(level.astype(np.float32)).to(device)
+
+    def f32(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+
+    def i32(v):
+        return torch.from_numpy(np.asarray(v, np.int32)).to(device)
+
+    ch = np.arange(c)
+    mode = np.where(ch % 4 == 3, AgcSquelchMode.DISABLED, AgcSquelchMode.ENABLED)
+    return (x, f32(np.ones(c)), f32(np.ones(c)), f32(np.array([1e-3, 0.02, 0.25])[ch % 3]),
+            f32(1.0 + (ch % 2)), f32(rng.uniform(-40, 40, c)),
+            torch.from_numpy(ch % 7 == 0).to(device), i32(mode), i32(np.full(c, 100)))
+
+
+def phase_kernel_vs_plain_qam(device) -> dict:
+    """K3 at QamRx's k_out = 2 against symsync_fused_reference, then
+    qam_eq_scan on K3's slots and agc_scan on a level-stepped block against
+    their plain versions, at QAM_SMALL and at config[3]'s C = 2048, n = 4096,
+    bit for bit (outputs and every state field); returns max |error| and the
+    plain versions' eager time (ms) at config[3], each from one call."""
+    rng = np.random.default_rng(SEED + 30)
+    out = {}
+    for c, n in (QAM_SMALL, (C3, T3)):
+        big = (c, n) == (C3, T3)
+        rx = make_qamrx(c, device)
+        ss = rx.symsync
+        xa, g = sym_inputs(rng, ss, c, n, device)
+        kw = dict(E=rx.slots, **ss.kernel_args())
+        got = symsync_fused_apply(xa, g, None, **kw)
+        want = symsync_fused_reference(xa, g, None, **kw)
+        require(tuple(got[0].shape) == (c, n, 2) and bool(torch.isfinite(got[0]).all()),
+                "K3 (k_out = 2) output shape and finiteness")
+        require(sym_same(f"[kernel-vs-plain] symsync_fused (K3) k_out=2 C={c} n={n} (values, "
+                         f"valid, state, deferral count {int(got[3].sum())})", got, want),
+                f"K3 at k_out = 2 vs plain at C={c} n={n}")
+        del xa, want
+
+        slots = (got[0].reshape(c, n * 2), got[1].reshape(c, n * 2))
+        args = rx.eq_scan_args()
+        k = qam_eq_scan_apply(*slots, *args, k_eq=rx.k_eq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = qam_eq_scan_reference(*slots, *args, k_eq=rx.k_eq)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(a, b) for a, b in zip(k[:3], p[:3])]
+        bad = [f for f in k[3] if not torch.equal(k[3][f], p[3][f])]
+        err = (k[1] - p[1]).abs().max().item()
+        print(f"[kernel-vs-plain] qam_eq_scan C={c} S={n * 2}: bit-identical (syms, soft, "
+              f"mask) {same}, state fields that differ {bad}; max abs err {err:.3e}; "
+              f"{int(k[2].sum())} symbols")
+        require(all(same) and not bad, f"qam_eq_scan vs plain at C={c} n={n}")
+        if big:
+            out["qam_eq_scan"] = (err, p_ms)
+        else:  # the other table paths (registers ≤ 16 points, shared memory
+            # past that) and NaN slots, which take the argmin's first-NaN rule
+            yn = slots[0].clone()
+            yn[::7, 100::97] = float("nan")
+            for scheme, y_in in (("qpsk", slots[0]), ("qam64", slots[0]), ("qam16", yn)):
+                table = Modem.create(scheme, device=device).table
+                k = qam_eq_scan_apply(y_in, slots[1], table, *args[1:], k_eq=rx.k_eq)
+                p = qam_eq_scan_reference(y_in, slots[1], table, *args[1:], k_eq=rx.k_eq)
+                same = [same_bits(a, b) for a, b in zip(k[:3], p[:3])]
+                bad = [f for f in k[3] if not same_bits(k[3][f], p[3][f])]
+                print(f"[kernel-vs-plain] qam_eq_scan C={c} S={n * 2} M={table.shape[0]}"
+                      f"{' with NaN slots' if y_in is yn else ''}: bit-identical (syms, soft, "
+                      f"mask) {same}, state fields that differ {bad}")
+                require(all(same) and not bad, f"qam_eq_scan vs plain, {scheme}")
+        del got, slots, k, p
+
+        a_args = agc_inputs(rng, c, n, device)
+        k = agc_scan_apply(*a_args, timeout=100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = agc_scan_reference(*a_args, timeout=100)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(a, b) for a, b in zip(k, p)]
+        err = (k[0] - p[0]).abs().max().item()
+        modes = torch.bincount(k[3].long(), minlength=7).tolist()
+        print(f"[kernel-vs-plain] agc_scan C={c} n={n}: bit-identical (y, g, y2', mode, timer) "
+              f"{same}; max abs err {err:.3e}; final squelch modes {modes}")
+        require(all(same) and bool(torch.isfinite(k[0]).all()), f"agc_scan vs plain at C={c}")
+        if big:
+            out["agc_scan"] = (err, p_ms)
+    return out
+
+
+def phase_main_path_config3(device) -> dict:
+    """Stream N_QAM config[3] blocks through QamRx.step_masked; the first
+    N_QAM_PLAIN against the chain with every stage on its plain version,
+    outputs and whole state bit for bit; a block split. Returns the
+    launches of that run per kernel."""
+    rng = np.random.default_rng(QAM_SEED)
+    blocks = [complex_block(rng, (C3, T3), device) for _ in range(N_QAM)]
+    rx = make_qamrx(C3, device)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, states = [], []
+    for x in blocks:
+        syms, soft, mask, rx = rx.step_masked(x)
+        outs.append((syms, soft, mask))
+        states.append(rx)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[main-path] QamRx.step_masked: {N_QAM} blocks of [{C3}, {T3}] complex64, kernel "
+          f"launches {counts}")
+    path = ("agc_scan_apply", "symsync_fused_apply", "qam_eq_scan_apply")
+    require(all(counts[k] == (N_QAM if k in path else 0) for k in counts),
+            f"launches {counts}: want {N_QAM} of each of {path}, no other")
+
+    S = 2 * T3
+    for i, (syms, soft, mask) in enumerate(outs):
+        require(tuple(syms.shape) == tuple(soft.shape) == tuple(mask.shape) == (C3, S),
+                f"block {i}: shapes")
+        require(syms.dtype == torch.int64 and soft.dtype == torch.complex64
+                and mask.dtype == torch.bool, f"block {i}: dtypes")
+        require(bool(torch.isfinite(soft).all()) and bool(((syms >= 0) & (syms < 16)).all()),
+                f"block {i}: finite soft values, symbols in [0, 16)")
+    per_block = [int(o[2].sum()) for o in outs]
+    print(f"[main-path] symbols per block {per_block} (about C·n/2 = {C3 * T3 // 2}); "
+          f"overflow_count total {int(rx.overflow_count.sum())}")
+
+    plain = make_qamrx(C3, device)
+    for i in range(N_QAM_PLAIN):
+        p = plain._step_masked(blocks[i], plain=True)
+        plain = p[3]
+        same = [torch.equal(a, b) for a, b in zip(outs[i], p[:3])]
+        print(f"[main-path] QamRx block {i} vs the all-plain chain (agc_scan_reference, the "
+              f"XLA-form scan, qam_eq_scan_reference): bit-identical (syms, soft, mask) {same}")
+        require(all(same), f"block {i}: QamRx vs the all-plain chain")
+    bad = state_diff(states[N_QAM_PLAIN - 1], plain)
+    print(f"[main-path] QamRx state after {N_QAM_PLAIN} blocks vs the all-plain chain: fields "
+          f"that differ {bad} (overflow_count included)")
+    require(not bad, f"carried state vs the all-plain chain: {bad}")
+
+    one = make_qamrx(C3, device).step_masked(blocks[0])
+    a = make_qamrx(C3, device).step_masked(blocks[0][:, :QAM_SPLIT])
+    b = a[3].step_masked(blocks[0][:, QAM_SPLIT:])
+    same = [torch.equal(o, torch.cat([u, v], -1)) for o, u, v in zip(one[:3], a[:3], b[:3])]
+    bad = state_diff(one[3], b[3])
+    print(f"[main-path] QamRx one block of {T3} vs {QAM_SPLIT} + rest: bit-identical (syms, "
+          f"soft, mask) {same}, state fields that differ {bad}")
+    require(all(same) and not bad, "QamRx block split")
+    return {"agc_scan": counts["agc_scan_apply"], "qam_eq_scan": counts["qam_eq_scan_apply"]}
+
+
+def qam_signal(rng, c: int, n: int, device):
+    """c channels of 16-QAM at k = 2, n samples each, every channel with its
+    own symbols and noise: the RRCOS (m = 7, β = 0.3) interpolation, then
+    tests/test_qamrx.py's impairments (gain 0.5, echo 0.1·e^{j1.1} at 3
+    samples, phase 0.3, CFO 1e-4 rad/sample, complex noise 0.002 per part).
+    Returns (symbols int64 [c, n/2], x complex64 [c, n]) on the device."""
+    syms = torch.from_numpy(rng.integers(0, 16, (c, n // 2))).to(device)
+    pts, _ = Modem.create("qam16", device=device).modulate(syms)
+    h = torch.from_numpy(fir_design_prototype(FirFilterShape.RRCOS, 2, 7, 0.3)).to(device)
+    up = torch.zeros((c, n), dtype=torch.complex128, device=device)
+    up[:, ::2] = pts
+    sig = torch.zeros_like(up)
+    for j in range(h.shape[0]):  # causal FIR over the zero-stuffed symbols
+        sig[:, j:] += h[j] * up[:, : n - j]
+    s = sig + QAM_ECHO * torch.roll(sig, QAM_ECHO_DELAY, dims=1)
+    t = torch.arange(n, dtype=torch.float64, device=device)
+    s = QAM_GAIN * s * torch.polar(torch.ones_like(t), QAM_PHASE + QAM_CFO * t)
+    noise = torch.complex(torch.from_numpy(rng.standard_normal((c, n))),
+                          torch.from_numpy(rng.standard_normal((c, n)))).to(device)
+    return syms, (s + QAM_NOISE * noise).to(torch.complex64)
+
+
+def tail_ser(got, cnt, want, offsets: int = 40):
+    """tests/test_qamrx.py::_tail_ser per channel: the symbol error rate over
+    the last quarter of the stream, at the best of ``offsets`` alignments of
+    the decisions ``got`` [c, cap] (the first ``cnt`` valid) against the sent
+    symbols ``want`` [c, m]."""
+    m = want.shape[1]
+    i = torch.arange(m, device=got.device)
+    best = torch.ones(got.shape[0], dtype=torch.float64, device=got.device)
+    for off in range(offsets):
+        L = torch.clamp(torch.minimum(cnt - off, torch.full_like(cnt, m)), min=0)
+        tail = (i >= (3 * L // 4)[:, None]) & (i < L[:, None])
+        g = got[:, off:off + m]
+        g = torch.nn.functional.pad(g, (0, m - g.shape[1]), value=-1)
+        err = ((g != want) & tail).sum(1).double() / tail.sum(1).clamp(min=1)
+        best = torch.where(tail.any(1), torch.minimum(best, err), best)
+    return best
+
+
+def phase_signal_config3(device) -> None:
+    """The impaired 16-QAM signal through QamRx over N_QAM_SIG blocks, all
+    C3 channels: tail symbol error rate 0 and tail EVM < QAM_EVM_DB in all
+    but at most QAM_FALSE_LOCK_MAX of them; in every channel no deferral and
+    the carrier loop moved off 0."""
+    rng = np.random.default_rng(QAM_SEED + 1)
+    want, x = qam_signal(rng, C3, N_QAM_SIG * T3, device)
+    rx = make_qamrx(C3, device)
+    parts = []
+    for blk in torch.split(x, T3, dim=1):
+        syms, soft, mask, rx = rx.step_masked(blk)
+        parts.append((syms, soft, mask))
+    syms, soft, mask = (torch.cat([p[j] for p in parts], -1) for j in range(3))
+    got, cnt = compact_valid(syms, mask)
+    soft_c, _ = compact_valid(soft, mask)
+    ser = tail_ser(got, cnt, want)
+    require(bool((cnt >= QAM_TAIL).all()), "every channel decided enough symbols")
+    idx = cnt[:, None] - QAM_TAIL + torch.arange(QAM_TAIL, device=device)
+    ts = soft_c.gather(1, idx)
+    d2 = (ts[:, :, None] - rx.table).abs().square().amin(-1)
+    evm = 10 * torch.log10(d2.mean(1))
+    theta = torch.remainder(rx.theta, 2 * np.pi).abs()
+    ovf = rx.overflow_count
+    ok = (ser == 0) & (evm < QAM_EVM_DB)
+    bad = torch.nonzero(~ok).flatten().tolist()
+    print(f"[signal] 16-QAM over {C3} channels, {N_QAM_SIG} blocks of {T3} (gain {QAM_GAIN}, "
+          f"echo 0.1·e^(j1.1) at {QAM_ECHO_DELAY}, phase {QAM_PHASE}, CFO {QAM_CFO}, noise "
+          f"{QAM_NOISE}): symbols decided {int(cnt.min())}..{int(cnt.max())} of "
+          f"{want.shape[1]} sent; tail SER 0 and tail EVM < {QAM_EVM_DB} dB in "
+          f"{C3 - len(bad)} of {C3} channels; among them worst tail EVM "
+          f"{(evm[ok].max().item() if ok.any() else float('nan')):.2f} dB (median {evm.median().item():.2f} dB); smallest "
+          f"|theta| mod 2pi {theta.min().item():.4f}, overflow_count max {int(ovf.max())}")
+    for c in bad:
+        print(f"[signal] wrong lock in channel {c}: tail SER {ser[c].item():.4f}, tail EVM "
+              f"{evm[c].item():.2f} dB, theta {rx.theta[c].item():.4f}, dtheta "
+              f"{rx.dtheta[c].item():.3e}")
+    require(len(bad) <= QAM_FALSE_LOCK_MAX * C3,
+            f"tail SER 0 and EVM < {QAM_EVM_DB} dB: {len(bad)} channels miss")
+    require(bool((ovf == 0).all()), "no deferred emission")
+    require(bool((theta > QAM_THETA_MIN).all()), f"|theta| mod 2pi > {QAM_THETA_MIN}")
+
+
+def phase_timing_config3(device, card: str, plain_ms: dict) -> dict:
+    """agc_scan, qam_eq_scan and K3 (k_out = 2) by graph replay at config[3]'s
+    shape, and the config[3] step, kernels against the all-plain chain;
+    returns {name: (kernel ms, plain ms)}, the plain versions' times from
+    their checks (``plain_ms``)."""
+    rng = np.random.default_rng(SEED + 31)
+    rx = make_qamrx(C3, device)
+    ss = rx.symsync
+    kw = dict(E=rx.slots, **ss.kernel_args())
+    sets = [sym_inputs(rng, ss, C3, T3, device) for _ in range(2)]  # 134 MB of input
+    k3 = [lambda a=a: symsync_fused_apply(*a, None, **kw) for a in sets]
+    k3_1, k3_2 = graph_ms(k3, reps=5), graph_ms(k3, reps=5)
+    slots = []
+    for a in sets:
+        y, v, _, _ = symsync_fused_apply(*a, None, **kw)
+        slots.append((y.reshape(C3, 2 * T3), v.reshape(C3, 2 * T3)))
+    args = rx.eq_scan_args()
+    eq = [lambda s=s: qam_eq_scan_apply(*s, *args, k_eq=rx.k_eq) for s in slots]
+    eq_1, eq_2 = graph_ms(eq, reps=5), graph_ms(eq, reps=5)
+    a = rx.agc  # the path's AGC: bandwidth 1e-3, squelch disabled
+    agc_sets = [(complex_block(rng, (C3, T3), device), a.g, a.y2_prime, a.alpha, a.scale,
+                 a.squelch_threshold, a.locked, a.squelch_mode, a.squelch_timer)
+                for _ in range(2)]
+    agc = [lambda a=a: agc_scan_apply(*a, timeout=100) for a in agc_sets]
+    agc_1, agc_2 = graph_ms(agc, reps=5), graph_ms(agc, reps=5)
+    del sets, slots, agc_sets
+    print(f"[timing] {card}: symsync_fused (K3) k_out=2 {(k3_1 + k3_2) / 2:.4f} ms/block "
+          f"({k3_1:.4f}, {k3_2:.4f}) at C={C3}, n={T3}; qam_eq_scan {(eq_1 + eq_2) / 2:.4f} "
+          f"ms/block ({eq_1:.4f}, {eq_2:.4f}), qam_eq_scan_reference "
+          f"{plain_ms['qam_eq_scan']:.2f} ms/block; agc_scan {(agc_1 + agc_2) / 2:.4f} ms/block "
+          f"({agc_1:.4f}, {agc_2:.4f}), agc_scan_reference {plain_ms['agc_scan']:.2f} ms/block. "
+          f"Kernels by graph replay, plain versions by one eager call")
+
+    rng = np.random.default_rng(QAM_SEED)
+    blocks = [complex_block(rng, (C3, T3), device) for _ in range(N_ROT)]
+
+    def step_msps(iters: int, warmup: int, plain: bool) -> float:
+        state = [make_qamrx(C3, device), 0]
+
+        def step():
+            x = blocks[state[1] % N_ROT]
+            if plain:
+                state[0] = state[0]._step_masked(x, plain=True)[3]
+            else:
+                state[0] = state[0].step_masked(x)[3]
+            state[1] += 1
+
+        return C3 * T3 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
+
+    f_msps = step_msps(N_QAM_STEPS, 3, False)
+    p_msps = step_msps(1, 0, True)
+    print(f"[timing] {card}: config[3] step QamRx.step_masked {f_msps:.1f} Msps ({N_QAM_STEPS} "
+          f"eager steps over {N_ROT} blocks), all-plain chain {p_msps:.4f} Msps (1 eager step) "
+          f"(input complex Msamples/s, [{C3}, {T3}] blocks)")
+    return {"agc_scan": ((agc_1 + agc_2) / 2, plain_ms["agc_scan"]),
+            "qam_eq_scan": ((eq_1 + eq_2) / 2, plain_ms["qam_eq_scan"])}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch sees none")
@@ -755,11 +1120,16 @@ def main() -> None:
         "mix_down": phase_mix_path(device),
     }
     launches["symsync_fused"], launches["symsync_scan"] = phase_main_path_config1(device)
+    qam = phase_kernel_vs_plain_qam(device)
+    errs.update({k: v[0] for k, v in qam.items()})
+    launches.update(phase_main_path_config3(device))
+    phase_signal_config3(device)
     times = {
         "chain_fp32": phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),
         "mix_down": phase_timing_mix(device, smi),
         **phase_timing_config1(device, smi),
+        **phase_timing_config3(device, smi, {k: v[1] for k, v in qam.items()}),
     }
     sources = {
         "chain_fp32": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
@@ -768,6 +1138,9 @@ def main() -> None:
         "mix_down": ("yagi_tpu_torch/csrc/mix.cu", "yagi_tpu/kernels/mix.py:29"),
         "symsync_fused": ("yagi_tpu_torch/csrc/symscan.cu", "yagi_tpu/kernels/symscan.py:201"),
         "symsync_scan": ("yagi_tpu_torch/csrc/symscan.cu", "yagi_tpu/kernels/symscan.py:72"),
+        # no pallas_call: the lax.scan bodies these loops stand for
+        "agc_scan": ("yagi_tpu_torch/csrc/agc.cu", "yagi_tpu/agc/agc.py:260"),
+        "qam_eq_scan": ("yagi_tpu_torch/csrc/qam.cu", "yagi_tpu/chains/qam.py:173"),
     }
     print(json.dumps({"kernels": [{
         "name": k,

@@ -37,6 +37,12 @@ _MODULES = (
     "yagi_tpu_torch.optim",
     "yagi_tpu_torch.utils",
     "yagi_tpu_torch.chains",
+    "yagi_tpu_torch.agc",
+    "yagi_tpu_torch.equalization",
+    "yagi_tpu_torch.modem.modem",
+    "yagi_tpu_torch.kernels.agc",
+    "yagi_tpu_torch.kernels.qam",
+    "yagi_tpu_torch.chains.qam",
 )
 
 

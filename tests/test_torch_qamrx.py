@@ -1,0 +1,300 @@
+"""yagi_tpu_torch's QamRx (BASELINE config[3]: AGC → Symsync at 2 samples
+per symbol → 7-tap LMS equalizer and carrier PLL → 16-QAM decisions) and the
+plain version of its eq/carrier loop kernel against yagi_tpu's QamRx, on the
+CPU.
+
+The port has one route, yagi_tpu's decoupled formulation; it is held against
+yagi_tpu's ``step_masked`` (on the CPU its fused scan) and
+``_step_masked_decoupled``. XLA's CPU backend contracts a·b + c into an FMA
+and has its own exp, log, cos and sin, while the port rounds every op as its
+CUDA kernels do, so the loops' states differ by ulps: masks and decided
+symbols are equal, soft values, θ and the equalizer taps are held to 1e-5
+absolute (measured ≤ 1.7e-6, 1.1e-7 and 4.9e-7 over two blocks of the
+impaired signal), the AGC gain to 1e-5 relative (≤ 1.3e-6), the running
+EVM to 1e-3 dB (≤ 1.9e-5), τ to 1e-4 (≤ 4.8e-7). Over longer streams a
+timing decision can fall an ulp the other way at a τ wrap and move one
+emission by an input sample (seen after ~2900 samples in one of four
+impaired channels), so the parity cases stop at 2400 samples; the port's own
+decoding is checked over the whole 6000. Against itself the port is bit-exact
+across block splits. The CUDA kernels run only on a GPU; chip_smoke.py holds
+them against these plain versions there, bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yagi_tpu.chains import QamRx as JQamRx
+from yagi_tpu.design import FirFilterShape as JShape
+from yagi_tpu.design import fir_design_prototype
+from yagi_tpu.filter import FirInterpolationFilter
+from yagi_tpu.modem import Modem as JModem
+from yagi_tpu_torch._src.struct import load_state
+from yagi_tpu_torch.chains import QamRx
+from yagi_tpu_torch.errors import ConfigError
+from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference
+from yagi_tpu_torch.utils import compact_valid
+
+torch.set_num_threads(1)
+
+K, M, BETA = 2, 7, 0.3
+C_SIG, NSYM = 4, 3000  # impaired 16-QAM channels and symbols sent in each
+N_PARITY = 1200  # samples per block in the parity cases (two blocks)
+TOL = 1e-5  # soft values, θ, dθ, equalizer taps (absolute); AGC gain (relative)
+EVM_TOL_DB = 1e-3
+TAU_TOL = 1e-4
+
+
+def _tx(seed):
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, 16, NSYM).astype(np.uint32)
+    pts, _ = JModem.create("qam16").modulate(jnp.asarray(syms))
+    h = fir_design_prototype(JShape.RRCOS, K, M, BETA)
+    sig, _ = FirInterpolationFilter.create(K, h).execute_block(pts)
+    return syms, np.asarray(sig).astype(np.complex64)
+
+
+def _impair(sig, seed):
+    """tests/test_qamrx.py:69-78: echo, gain, phase, CFO, noise."""
+    rng = np.random.default_rng(seed)
+    n = len(sig)
+    s = sig + 0.1 * np.roll(sig, 3) * np.exp(1j * 1.1)
+    s = 0.5 * s * np.exp(1j * (0.3 + 1e-4 * np.arange(n)))
+    return (s + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.002).astype(np.complex64)
+
+
+@pytest.fixture(scope="module")
+def impaired():
+    """C_SIG channels, each its own symbols and noise: (sent [C, NSYM],
+    received [C, 2·NSYM])."""
+    txs = [_tx(42 + c) for c in range(C_SIG)]
+    x = np.stack([_impair(s, 3 + c) for c, (_, s) in enumerate(txs)])
+    return np.stack([t[0] for t in txs]), x
+
+
+def _noise(seed=9, c=8, n=512):
+    """tests/test_qamrx.py:130-133."""
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((c, n)) + 1j * rng.standard_normal((c, n))) * 0.5).astype(np.complex64)
+
+
+def _same_outputs(t_out, j_out):
+    syms_t, soft_t, mask_t = (v.numpy() for v in t_out[:3])
+    syms_j, soft_j, mask_j = (np.asarray(v) for v in j_out[:3])
+    assert syms_t.dtype == np.int64 and soft_t.dtype == np.complex64 and mask_t.dtype == bool
+    np.testing.assert_array_equal(mask_t, mask_j)
+    np.testing.assert_array_equal(syms_t[mask_t], syms_j[mask_j])
+    np.testing.assert_allclose(soft_t, soft_j, rtol=0, atol=TOL)
+
+
+def _same_state(t, j):
+    for f in ("theta", "dtheta"):
+        np.testing.assert_allclose(getattr(t, f).numpy(), np.asarray(getattr(j, f)), rtol=0, atol=TOL)
+    np.testing.assert_allclose(t.eq.w.numpy(), np.asarray(j.eq.w), rtol=0, atol=TOL)
+    np.testing.assert_allclose(t.agc.g.numpy(), np.asarray(j.agc.g), rtol=TOL, atol=0)
+    np.testing.assert_allclose(t.get_evm().numpy(), np.asarray(j.get_evm()), rtol=0, atol=EVM_TOL_DB)
+    np.testing.assert_allclose(t.symsync.tau.numpy(), np.asarray(j.symsync.tau), rtol=0, atol=TAU_TOL)
+    for f in ("sym_phase", "evm_count", "overflow_count"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)))
+    np.testing.assert_array_equal(t.eq.count.numpy(), np.asarray(j.eq.count))
+
+
+def test_step_masked_matches_yagi_tpu_on_impaired_qam(impaired):
+    """Two blocks of N_PARITY samples of the impaired 16-QAM signal, C = 4,
+    against yagi_tpu's fused (its CPU route) and decoupled formulations."""
+    _, x = impaired
+    j = jd = JQamRx.create(batch_shape=(C_SIG,))
+    t = QamRx.create(batch_shape=(C_SIG,))
+    for i in range(2):
+        blk = x[:, i * N_PARITY:(i + 1) * N_PARITY]
+        *jo, j = j.step_masked(jnp.asarray(blk))
+        *do, jd = jd._step_masked_decoupled(jnp.asarray(blk))
+        *to, t = t.step_masked(torch.from_numpy(blk))
+        assert to[0].shape == (C_SIG, 2 * N_PARITY)
+        _same_outputs(to, jo)
+        _same_outputs(to, do)
+        _same_state(t, j)
+        _same_state(t, jd)
+    assert int(t.evm_count.min()) > 300  # the equalizer adapted in every channel
+
+
+def test_step_masked_matches_yagi_tpu_on_noise():
+    """C = 8, n = 512 of noise (tests/test_qamrx.py::TestDecoupledPath)."""
+    x = _noise()
+    j = JQamRx.create(batch_shape=(8,))
+    *jo, j = j.step_masked(jnp.asarray(x))
+    *to, t = QamRx.create(batch_shape=(8,)).step_masked(torch.from_numpy(x))
+    _same_outputs(to, jo)
+    _same_state(t, j)
+
+
+def _tail_ser(got, want):
+    """tests/test_qamrx.py::_tail_ser: the best of 40 alignments."""
+    best = 1.0
+    for off in range(40):
+        L = min(len(got) - off, len(want))
+        tl = slice(3 * L // 4, L)
+        best = min(best, float(np.mean(got[off:off + L][tl] != want[:L][tl])))
+    return best
+
+
+def test_decodes_impaired_qam(impaired):
+    """The port alone over the whole signal in four blocks: tail symbol error
+    rate 0 and tail EVM < −25 dB in every channel, the carrier loop moved off
+    0, no deferred emission (tests/test_qamrx.py::test_impaired_channel)."""
+    sent, x = impaired
+    t = QamRx.create(batch_shape=(C_SIG,))
+    syms, soft, cnt = [], [], []
+    for blk in np.split(x, 4, axis=-1):
+        s, v, n, t = t.step(torch.from_numpy(blk))
+        syms.append(s.numpy())
+        soft.append(v.numpy())
+        cnt.append(n.numpy())
+    table = t.table.numpy()
+    for c in range(C_SIG):
+        got = np.concatenate([s[c, :n[c]] for s, n in zip(syms, cnt)])
+        sv = np.concatenate([v[c, :n[c]] for v, n in zip(soft, cnt)])
+        assert _tail_ser(got, sent[c]) == 0.0
+        evm = 10 * np.log10(np.mean(np.abs(sv[-800:, None] - table).min(1) ** 2))
+        assert evm < -25.0, (c, evm)
+    assert (np.abs(np.remainder(t.theta.numpy(), 2 * np.pi)) > 0.05).all()
+    assert not t.overflow_count.any()
+
+
+def test_block_split_is_exact():
+    x = torch.from_numpy(_noise())
+    rx = QamRx.create(batch_shape=(8,))
+    *one, s1 = rx.step_masked(x)
+    *a, s2 = rx.step_masked(x[:, :200])
+    *b, s2 = s2.step_masked(x[:, 200:], samples_per_step=8)
+    for o, u, v in zip(one, a, b):
+        assert torch.equal(o, torch.cat([u, v], -1))
+    for f in ("theta", "dtheta", "sym_phase", "evm_accum", "evm_count", "overflow_count"):
+        assert torch.equal(getattr(s1, f), getattr(s2, f))
+    assert torch.equal(s1.eq.w, s2.eq.w) and torch.equal(s1.agc.g, s2.agc.g)
+    assert torch.equal(s1.symsync.tau, s2.symsync.tau)
+
+
+def test_step_compacts_reset_and_evm():
+    x = torch.from_numpy(_noise(seed=10))
+    rx = QamRx.create(batch_shape=(8,))
+    syms_m, soft_m, mask, _ = rx.step_masked(x)
+    syms, soft, num, new = rx(x)
+    assert torch.equal(num, mask.sum(-1))
+    assert torch.equal(syms, compact_valid(syms_m, mask)[0])
+    assert torch.equal(soft, compact_valid(soft_m, mask)[0])
+    ms = new.evm_accum / torch.clamp(new.evm_count, min=1.0)
+    assert torch.equal(new.get_evm(), 10.0 * torch.log10(torch.clamp(ms, min=1e-12)))
+    r = new.reset()
+    fresh = QamRx.create(batch_shape=(8,))
+    for f in ("theta", "dtheta", "sym_phase", "evm_accum", "evm_count", "overflow_count"):
+        assert torch.equal(getattr(r, f), getattr(fresh, f)), f
+    assert torch.equal(r.eq.w, fresh.eq.w) and torch.equal(r.agc.g, fresh.agc.g)
+    assert not r.symsync.window.any()
+
+
+def test_create_and_controls_match_yagi_tpu():
+    j = JQamRx.create(batch_shape=(3,)).set_bandwidth(0.05)
+    t = QamRx.create(batch_shape=(3,)).set_bandwidth(0.05)
+    assert (t.k, t.k_eq, t.slots, t.eq.h_len) == (j.k, j.k_eq, j.slots, j.eq.h_len)
+    for f in ("table", "alpha", "beta", "sym_phase", "theta"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)))
+    np.testing.assert_array_equal(t.agc.alpha.numpy(), np.asarray(j.agc.alpha))
+    np.testing.assert_array_equal(t.eq.mu.numpy(), np.asarray(j.eq.mu))
+    np.testing.assert_array_equal(t.symsync.mf.numpy(), np.asarray(j.symsync.mf))
+    assert t.symsync.k_out == j.symsync.k_out == 2
+
+
+@pytest.mark.parametrize("make", [
+    lambda: QamRx.create("rrcos", 1, M, BETA), lambda: QamRx.create("rrcos", K, M, 1.5),
+    lambda: QamRx.create("rrcos", K, M, BETA, eq_len=6),
+    lambda: QamRx.create("rrcos", K, M, BETA).set_bandwidth(-0.1),
+    lambda: QamRx.create(batch_shape=(2,)).step_masked(torch.zeros(2, 10, dtype=torch.complex64),
+                                                       samples_per_step=3),
+])
+def test_rejects_bad_config(make):
+    """tests/test_qamrx.py:111-120, and samples_per_step not dividing n."""
+    with pytest.raises(ConfigError):
+        make()
+
+
+def test_overflow_count_matches_yagi_fused_route():
+    """A symsync whose rate and δ are 0.4, below half of nominal (1 at
+    k_out = 2), defers an emission past the two slots after every sample;
+    the port's count equals yagi_tpu's fused route."""
+    j = JQamRx.create(batch_shape=(8,))
+    slow = jnp.full((8,), 0.4, jnp.float32)
+    j = j.replace(symsync=j.symsync.replace(rate=slow, delta=slow))
+    t = load_state(QamRx, j)
+    x = _noise(seed=11, n=256)
+    *jo, j = j.step_masked(jnp.asarray(x))
+    *to, t = t.step_masked(torch.from_numpy(x))
+    assert int(t.overflow_count.min()) > 0
+    np.testing.assert_array_equal(t.overflow_count.numpy(), np.asarray(j.overflow_count))
+    np.testing.assert_array_equal(to[2].numpy(), np.asarray(jo[2]))
+
+
+def test_eq_scan_reference_matches_yagi_eq_scan():
+    """``qam_eq_scan_reference`` fed yagi_tpu's decoupled slots (its AGC and
+    symsync on the same block) against yagi_tpu's eq-only scan; the wrapper
+    runs the plain version on CPU tensors, bit for bit, with no launch."""
+    x = _noise(seed=12)
+    j = JQamRx.create(batch_shape=(8,))
+    y0, _ = j.agc.execute_block(jnp.asarray(x), samples_per_step=8)
+    ys, vs, _ = j.symsync.execute_slots(y0, max_emit=j.slots)
+    *jo, jn = j._step_masked_decoupled(jnp.asarray(x))
+    t = load_state(QamRx, j)
+    slots = (torch.from_numpy(np.asarray(ys)).reshape(8, -1),
+             torch.from_numpy(np.asarray(vs)).reshape(8, -1))
+    launches = qam_eq_scan_apply.launches
+    ref = qam_eq_scan_reference(*slots, *t.eq_scan_args(), k_eq=2)
+    out = qam_eq_scan_apply(*slots, *t.eq_scan_args(), k_eq=2)
+    assert qam_eq_scan_apply.launches == launches
+    for a, b in zip(out[:3], ref[:3]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(out[3][f], ref[3][f]) for f in ref[3])
+    _same_outputs(ref, jo)
+    st = ref[3]
+    np.testing.assert_allclose(st["theta"].numpy(), np.asarray(jn.theta), rtol=0, atol=TOL)
+    np.testing.assert_allclose(st["w"].numpy(), np.asarray(jn.eq.w), rtol=0, atol=TOL)
+    np.testing.assert_allclose(st["evm_accum"].numpy(), np.asarray(jn.evm_accum), rtol=TOL)
+    for f, want in (("count", jn.eq.count), ("sym_phase", jn.sym_phase), ("evm_count", jn.evm_count)):
+        np.testing.assert_array_equal(st[f].numpy(), np.asarray(want))
+
+
+def test_load_state_round_trip():
+    """A yagi_tpu QamRx after one block loads whole (Agc, Symsync, Eqlms,
+    table) and continues as yagi_tpu does."""
+    x = _noise(seed=13)
+    _, _, _, j = JQamRx.create(batch_shape=(8,)).step_masked(jnp.asarray(x[:, :256]))
+    t = load_state(QamRx, j)
+    assert t.agc.squelch_mode.dtype == torch.int32 and t.eq.count.dtype == torch.int32
+    assert t.symsync.b.dtype == torch.int32 and t.table.dtype == torch.complex64
+    np.testing.assert_array_equal(t.eq.w.numpy(), np.asarray(j.eq.w))
+    *jo, j = j.step_masked(jnp.asarray(x[:, 256:]))
+    *to, t = t.step_masked(torch.from_numpy(x[:, 256:]))
+    _same_outputs(to, jo)
+    _same_state(t, j)
+
+
+@pytest.mark.parametrize("bad", ["rank", "keys", "y_dtype", "mu_shape", "count_dtype", "table"])
+def test_eq_scan_apply_rejects_bad_input(bad):
+    rx = QamRx.create(batch_shape=(2,))
+    table, mu, alpha, beta, state = rx.eq_scan_args()
+    y = torch.zeros(2, 16, dtype=torch.complex64)
+    valid = torch.ones(2, 16, dtype=torch.bool)
+    if bad == "rank":
+        y = y[0]
+    elif bad == "keys":
+        state = {k: v for k, v in state.items() if k != "x2"}
+    elif bad == "y_dtype":
+        y = y.to(torch.complex128)
+    elif bad == "mu_shape":
+        mu = mu[:1]
+    elif bad == "count_dtype":
+        state = dict(state, count=state["count"].long())
+    else:
+        table = table[None]
+    with pytest.raises((ValueError, TypeError)):
+        qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state)

@@ -117,7 +117,7 @@ def test_scan_reference_matches_pallas_scan(n_valid, k_out):
     ys, st = symsync_scan(jnp.asarray(xs4.numpy().transpose(1, 2, 0)), _vf(n_valid), state16,
                           consts, P=P, E=E, k_out=k_out, interpret=True)
     y_want, v_want = _unpack(ys, E)
-    y, v, st_t = symsync_scan_reference(xs4, _nv(n_valid), E=E, **kw)
+    y, v, st_t, _ = symsync_scan_reference(xs4, _nv(n_valid), E=E, **kw)
     assert y.shape == (C, N, E) and y.dtype == torch.complex64 and v.dtype == torch.bool
     np.testing.assert_array_equal(v.numpy(), v_want)
     np.testing.assert_array_equal(y.numpy(), y_want)
@@ -150,7 +150,7 @@ def test_fused_reference_matches_pallas_fused(n_valid):
                                _vf(n_valid), state16, consts, jnp.asarray(g2), P=P, E=2,
                                k_out=1, interpret=True)
     y_want, v_want = _unpack(ys, 2)
-    y, v, _ = symsync_fused_reference(torch.from_numpy(xa), torch.from_numpy(g), _nv(n_valid),
+    y, v, _, _ = symsync_fused_reference(torch.from_numpy(xa), torch.from_numpy(g), _nv(n_valid),
                                       E=2, **kw)
     np.testing.assert_array_equal(v.numpy(), v_want)
     assert np.abs(y.numpy() - y_want).max() < FUSED_TOL * max(np.abs(y_want).max(), 1.0)
@@ -340,3 +340,66 @@ def test_samples_per_step_changes_nothing():
     y1, v1, _ = t.execute_slots(x)
     y4, v4, _ = t.execute_slots(x, samples_per_step=4)
     assert torch.equal(y1, y4) and torch.equal(v1, v4)
+
+
+# ------------------------------------------------------- deferral count
+def _deferring(c=C, k_out=2, rate=0.5):
+    """A yagi_tpu Symsync and its port with rate and δ at 0.5, half of
+    nominal for k_out = 2 (a quarter for k_out = 1): ~2 emissions are due per
+    input sample, so two slots leave one due after some samples (at 0.48 and
+    below, after every sample)."""
+    j, _ = _pair(c, k_out=k_out)
+    j = j.replace(rate=jnp.full((c,), rate, jnp.float32), delta=jnp.full((c,), rate, jnp.float32))
+    return j, load_state(Symsync, j)
+
+
+@pytest.mark.parametrize("k_out", [1, 2])
+def test_deferral_count_equal_across_routes(k_out):
+    """K3's and K4's plain versions and the XLA-form scan count the same
+    deferrals, bit for bit, on a deferring state."""
+    j, t = _deferring(k_out=k_out)
+    _, _, _, xa, g = _kernel_args(j, np.random.default_rng(14))
+    xa, g = torch.from_numpy(xa), torch.from_numpy(g)
+    kw = dict(E=2, **t.kernel_args())
+    xs4 = branch_outputs(xa, g)
+    counts = [symsync_fused_reference(xa, g, None, **kw)[3],
+              symsync_scan_reference(xs4, None, **kw)[3], symsync_scan_xla(xs4, None, **kw)[3]]
+    assert counts[0].dtype == torch.int32 and counts[0].shape == (C,)
+    assert counts[0].max() > 0 and counts[0].min() < N
+    for other in counts[1:]:
+        assert torch.equal(other, counts[0])
+
+
+def test_deferral_count_matches_yagi_emit_sample():
+    """The count equals yagi_tpu's ``pending`` summed over the block
+    (``filter/symsync.py::_emit_sample``, the flag QamRx's fused route adds to
+    overflow_count), at k_out = 2 and two slots, as QamRx runs it."""
+    import jax
+
+    from yagi_tpu.filter.symsync import _emit_sample, _sym_carry, _sym_loop_params
+
+    j, t = _deferring()
+    x = _sig(15)
+    xs4, _ = j.branch_outputs_4xP(jnp.asarray(x))
+    params = _sym_loop_params(j)
+
+    def body(carry, x4):
+        carry, _, pending = _emit_sample(params, carry, x4, 2, jnp.float32(j.k))
+        return carry, pending.astype(jnp.int32)
+
+    _, pend = jax.lax.scan(body, _sym_carry(j), xs4)
+    _, _, _, deferred = t._run_slots(torch.from_numpy(x), max_emit=2)
+    np.testing.assert_array_equal(deferred.numpy(), np.asarray(pend).sum(0))
+    assert deferred.max() > 0 and deferred.min() < N
+
+
+def test_deferral_count_is_zero_on_config1_path():
+    """config[1]'s Symsync (k_out = 1, two slots, nominal rate 2) never
+    defers on random input: the count is 0 on every route, and
+    execute_slots keeps its three results."""
+    x = torch.from_numpy(_sig(16))
+    _, t = _pair()
+    for backend in ("auto", "pallas", "xla"):
+        y, v, s, deferred = t._run_slots(x, backend=backend)
+        assert deferred.shape == (C,) and not deferred.any()
+        assert len(t.execute_slots(x, backend=backend)) == 3

@@ -9,14 +9,19 @@ never jax. Ported so far: the BASELINE config[0] receive chain (Kaiser FIR →
 the config[4] path, the 64-channel polyphase channelizer
 (:class:`multichannel.Firpfbch`, plain torch, and
 :class:`multichannel.FusedChannelizer`, one kernel per block) feeding the FM
-discriminator :class:`modem.Freqdem`.
+discriminator :class:`modem.Freqdem`; the config[1] path, :class:`filter.MsResamp`
+feeding :class:`filter.Symsync` (kernels K3 and K4); and the config[3] 16-QAM
+receiver :class:`chains.QamRx` (AGC, symsync on K3, LMS equalizer and carrier
+PLL, decisions), three kernels per block.
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy)
-  design/   FIR design, Kaiser path
-  filter/   streaming FIR, PFB decomposition, arbitrary resampler
+  design/   FIR design: Kaiser, (root-)raised-cosine, PM halfband
+  filter/   streaming FIR, PFB decomposition, resamplers, symbol synchronizer
   nco/      oscillator, mode "exact"
-  modem/    analog FM modulator and discriminator
+  agc/      automatic gain control
+  equalization/  LMS equalizer
+  modem/    linear modem (constellation tables, hard decisions), analog FM
   multichannel/  polyphase channelizers
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
@@ -31,6 +36,7 @@ from . import math  # noqa: F401
 def __getattr__(name):
     import importlib
 
-    if name in ("design", "filter", "nco", "modem", "multichannel", "kernels", "chains"):
+    if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
+                "kernels", "chains"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,267 @@
+// QamRx's equalizer / carrier loop over a block's symsync slots, one thread
+// per channel (qam_eq_scan).
+//
+// Replaces the eq-only lax.scan of yagi_tpu/chains/qam.py
+// (_step_masked_decoupled, qam.py:294-302), whose body is eq_slot
+// (qam.py:173-247): yagi_tpu has no Pallas kernel here, XLA compiles the scan
+// into one device loop. In eager torch a slot is ~75 small ops, a launch
+// each; this kernel is the port's form of that compiled loop. Per channel
+// and slot, in stream order:
+//
+//   push the slot into the h_len window (buffer, |x|² window, Σ|x|², count);
+//   y = Σ_j conj(w_j)·buf_j, left to right over the taps;
+//   is_sym = valid ∧ sym_phase = 0; can_adapt = is_sym ∧ Σ|x|² > ½·h_len;
+//   v = y·e^{−jθ}; ŝ = the first table index of the smallest |v − t_m|²;
+//   pe = Im(v·ŝ*)/max(|ŝ|², 1e-12); θ += dθ + α·pe, dθ += β·pe (can_adapt);
+//   w += μ/max(Σ|x|², 1e-20)·conj(ŝ·e^{jθ} − y)·buf (can_adapt, count ≥ h_len);
+//   sym_phase steps on a valid slot; the EVM sums add |v − ŝ|² (can_adapt);
+//   out: ŝ, v, is_sym.
+//
+// It must equal its plain version (kernels/qam.py::qam_eq_scan_reference) bit
+// for bit, because the loop feeds its decisions back and one ulp parts a
+// channel for good on noise: every product, sum and quotient is
+// __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn (never contracted into an FMA, as
+// torch rounds each op), cosf/sinf are called separately where torch calls
+// cos and sin, the argmin scans the table from index 0 with a strict < (a
+// NaN counts as smallest, as torch.argmin), and the clamps are comparisons
+// so a NaN propagates as torch.clamp lets it.
+//
+// What bounds it on an H100: the slots are serial per channel, and each is
+// ~500 instructions (the h_len-tap complex dot, cosf and sinf, the M-way
+// argmin, two divisions, the PLL and LMS updates) whose result the next slot
+// needs. With one thread per channel (2048 channels: 64 warps on 132 SMs,
+// one warp per scheduler) they issue in order and wait on each other: ~2,500
+// cycles a slot, 11.8 ms a config[3] block, where the ~430 MB it moves take
+// ~0.13 ms. An unrolled argmin over a register-held table gained 5% (PERF.md
+// §6); more lanes per channel is the lever.
+// The window and weights live in registers (h_len is a template parameter,
+// so the push is a register rename); the table sits in shared memory, read
+// by all lanes at one address (a broadcast). Each thread walks its own row;
+// the loads do not depend on the loop, so the compiler issues them ahead.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 32;
+
+struct EqIn {
+  const float2 *w, *buf;
+  const float *x2, *x2s;
+  const int32_t* cnt;
+  const float *theta, *dtheta;
+  const int32_t* sph;
+  const float *eacc, *ecnt;
+};
+
+struct EqOut {
+  float2 *w, *buf;
+  float *x2, *x2s;
+  int32_t* cnt;
+  float *theta, *dtheta;
+  int32_t* sph;
+  float *eacc, *ecnt;
+};
+
+__device__ __forceinline__ float fm(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); }
+// torch.clamp(v, min=lo): a NaN stays NaN
+__device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
+
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+qam_eq_scan_kernel(const float2* __restrict__ y, const uint8_t* __restrict__ valid,
+                   const float2* __restrict__ table, const float* __restrict__ mu_in,
+                   const float* __restrict__ alpha_in, const float* __restrict__ beta_in, EqIn in,
+                   int64_t* __restrict__ syms, float2* __restrict__ soft,
+                   uint8_t* __restrict__ mask, EqOut out, int C, int S, int M, int k_eq) {
+  extern __shared__ float2 tab[];
+  for (int i = threadIdx.x; i < M; i += kThreads) tab[i] = table[i];
+  __syncthreads();
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+
+  const float mu = mu_in[c], alpha = alpha_in[c], beta = beta_in[c];
+  const float half_h = 0.5f * H;
+  float br[H], bi[H], x2t[H], wr[H], wi[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float2 b = in.buf[c * H + j], w = in.w[c * H + j];
+    br[j] = b.x;
+    bi[j] = b.y;
+    wr[j] = w.x;
+    wi[j] = w.y;
+    x2t[j] = in.x2[c * H + j];
+  }
+  float x2s = in.x2s[c], theta = in.theta[c], dtheta = in.dtheta[c];
+  float eacc = in.eacc[c], ecnt = in.ecnt[c];
+  int32_t cnt = in.cnt[c], sph = in.sph[c];
+
+  const size_t row = (size_t)c * S;
+  for (int s = 0; s < S; ++s) {
+    const float2 v = y[row + s];
+    const bool vi = valid[row + s] != 0;
+    // push (eqlms.rs:125)
+    const float x2n = fa(fm(v.x, v.x), fm(v.y, v.y));
+    float brp[H], bip[H], x2p[H];
+#pragma unroll
+    for (int j = 0; j + 1 < H; ++j) {
+      brp[j] = br[j + 1];
+      bip[j] = bi[j + 1];
+      x2p[j] = x2t[j + 1];
+    }
+    brp[H - 1] = v.x;
+    bip[H - 1] = v.y;
+    x2p[H - 1] = x2n;
+    const float x2sp = fs(fa(x2s, x2n), x2t[0]);
+    const int32_t cntp = cnt + 1;
+    // execute (eqlms.rs:137)
+    float yr = fa(fm(wr[0], brp[0]), fm(wi[0], bip[0]));
+    float yi = fs(fm(wr[0], bip[0]), fm(wi[0], brp[0]));
+#pragma unroll
+    for (int j = 1; j < H; ++j) {
+      yr = fa(yr, fa(fm(wr[j], brp[j]), fm(wi[j], bip[j])));
+      yi = fa(yi, fs(fm(wr[j], bip[j]), fm(wi[j], brp[j])));
+    }
+    const bool is_sym = vi && sph == 0;
+    const bool can_adapt = is_sym && x2sp > half_h;
+    // derotation and decision
+    const float co = cosf(theta), sn = sinf(theta);
+    const float vr = fa(fm(yr, co), fm(yi, sn));
+    const float vim = fs(fm(yi, co), fm(yr, sn));
+    int sym = 0;
+    float best;
+    {
+      const float dr = fs(vr, tab[0].x), di = fs(vim, tab[0].y);
+      best = fa(fm(dr, dr), fm(di, di));
+    }
+    for (int m = 1; m < M; ++m) {
+      const float dr = fs(vr, tab[m].x), di = fs(vim, tab[m].y);
+      const float d = fa(fm(dr, dr), fm(di, di));
+      if (d < best || (isnan(d) && !isnan(best))) {
+        best = d;
+        sym = m;
+      }
+    }
+    const float sr = tab[sym].x, si = tab[sym].y;
+    // PLL
+    const float pe = __fdiv_rn(fs(fm(vim, sr), fm(vr, si)),
+                               clamp_min(fa(fm(sr, sr), fm(si, si)), 1e-12f));
+    // LMS toward ŝ·e^{jθ} (eqlms.rs:170-187)
+    const float ar = fs(fs(fm(sr, co), fm(si, sn)), yr);
+    const float ai = fs(fa(fm(si, co), fm(sr, sn)), yi);
+    const float g = __fdiv_rn(mu, clamp_min(x2sp, 1e-20f));
+    if (can_adapt && cntp >= H) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float ur = fm(g, fa(fm(ar, brp[j]), fm(ai, bip[j])));
+        const float ui = fm(g, fs(fm(ar, bip[j]), fm(ai, brp[j])));
+        wr[j] = fa(wr[j], ur);
+        wi[j] = fa(wi[j], ui);
+      }
+    }
+    if (vi) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        br[j] = brp[j];
+        bi[j] = bip[j];
+        x2t[j] = x2p[j];
+      }
+      x2s = x2sp;
+      cnt = cntp;
+      if (k_eq == 2) {
+        sph ^= 1;
+      } else {
+        sph = (sph + 1) % k_eq;
+        if (sph < 0) sph += k_eq;
+      }
+    }
+    if (can_adapt) {
+      const float theta_n = fa(fa(theta, dtheta), fm(alpha, pe));
+      dtheta = fa(dtheta, fm(beta, pe));
+      theta = theta_n;
+      const float er = fs(vr, sr), ei = fs(vim, si);
+      eacc = fa(eacc, fa(fm(er, er), fm(ei, ei)));
+      ecnt = fa(ecnt, 1.0f);
+    }
+    syms[row + s] = sym;
+    soft[row + s] = make_float2(vr, vim);
+    mask[row + s] = is_sym;
+  }
+
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    out.buf[c * H + j] = make_float2(br[j], bi[j]);
+    out.w[c * H + j] = make_float2(wr[j], wi[j]);
+    out.x2[c * H + j] = x2t[j];
+  }
+  out.x2s[c] = x2s;
+  out.cnt[c] = cnt;
+  out.theta[c] = theta;
+  out.dtheta[c] = dtheta;
+  out.sph[c] = sph;
+  out.eacc[c] = eacc;
+  out.ecnt[c] = ecnt;
+}
+
+template <int H>
+cudaError_t launch(const float2* y, const uint8_t* valid, const float2* table, const float* mu,
+                   const float* alpha, const float* beta, const EqIn& in, int64_t* syms,
+                   float2* soft, uint8_t* mask, const EqOut& out, int C, int S, int M, int k_eq,
+                   cudaStream_t stream) {
+  const int blocks = (C + kThreads - 1) / kThreads;
+  const int smem = (int)sizeof(float2) * M;
+  cudaError_t err = cudaFuncSetAttribute(qam_eq_scan_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  qam_eq_scan_kernel<H><<<blocks, kThreads, smem, stream>>>(y, valid, table, mu, alpha, beta, in,
+                                                            syms, soft, mask, out, C, S, M, k_eq);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y: [C, S] complex64 slots in stream order; valid: [C, S] uint8; table: [M]
+// complex64; mu, alpha, beta: [C] float32; then the state (w, buffer
+// [C, h_len] complex64; x2 [C, h_len], x2_sum [C] float32; count [C] int32;
+// theta, dtheta [C] float32; sym_phase [C] int32; evm_accum, evm_count [C]
+// float32); syms: [C, S] int64; soft: [C, S] complex64; mask: [C, S] uint8;
+// then fresh arrays for the new state in the same order. 1 ≤ h_len ≤ 16.
+// Launches on `stream`; returns the launch's CUDA error (0 on success).
+extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void* table,
+                                const float* mu, const float* alpha, const float* beta,
+                                const void* w, const void* buf, const float* x2,
+                                const float* x2s, const int32_t* cnt, const float* theta,
+                                const float* dtheta, const int32_t* sph, const float* eacc,
+                                const float* ecnt, int64_t* syms, void* soft, uint8_t* mask,
+                                void* w_out, void* buf_out, float* x2_out, float* x2s_out,
+                                int32_t* cnt_out, float* theta_out, float* dtheta_out,
+                                int32_t* sph_out, float* eacc_out, float* ecnt_out, int C, int S,
+                                int M, int h_len, int k_eq, void* stream) {
+  const EqIn in{static_cast<const float2*>(w), static_cast<const float2*>(buf), x2, x2s, cnt,
+                theta, dtheta, sph, eacc, ecnt};
+  const EqOut out{static_cast<float2*>(w_out), static_cast<float2*>(buf_out), x2_out, x2s_out,
+                  cnt_out, theta_out, dtheta_out, sph_out, eacc_out, ecnt_out};
+  const auto* yy = static_cast<const float2*>(y);
+  const auto* tt = static_cast<const float2*>(table);
+  auto* ss = static_cast<float2*>(soft);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (h_len) {
+#define YAGI_QAM_CASE(H)                                                                  \
+  case H:                                                                                 \
+    err = launch<H>(yy, valid, tt, mu, alpha, beta, in, syms, ss, mask, out, C, S, M, k_eq, \
+                    st);                                                                  \
+    break;
+    YAGI_QAM_CASE(1) YAGI_QAM_CASE(2) YAGI_QAM_CASE(3) YAGI_QAM_CASE(4)
+    YAGI_QAM_CASE(5) YAGI_QAM_CASE(6) YAGI_QAM_CASE(7) YAGI_QAM_CASE(8)
+    YAGI_QAM_CASE(9) YAGI_QAM_CASE(10) YAGI_QAM_CASE(11) YAGI_QAM_CASE(12)
+    YAGI_QAM_CASE(13) YAGI_QAM_CASE(14) YAGI_QAM_CASE(15) YAGI_QAM_CASE(16)
+#undef YAGI_QAM_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}

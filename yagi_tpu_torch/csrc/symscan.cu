@@ -30,7 +30,8 @@
 // touches four 4-byte words.
 //
 // Outputs: y [C, n, E] complex64 (mr/k, mi/k, zero for an empty slot), valid
-// [C, n, E] uint8 (bool), state' [9, C] into a fresh array. n_valid is read
+// [C, n, E] uint8 (bool), state' [9, C] into a fresh array, and deferred [C]
+// int32, the samples after whose E slots an emission was still due. n_valid is read
 // from a device int64 (or n when null): samples at t ≥ n_valid neither emit
 // nor wrap.
 
@@ -58,8 +59,9 @@ symsync_scan_kernel(const float* __restrict__ xs4, const int64_t* __restrict__ n
                     const float* __restrict__ st_in, const uint8_t* __restrict__ locked,
                     const float* __restrict__ radj, const float* __restrict__ pll_a,
                     const float* __restrict__ pll_b, float2* __restrict__ y,
-                    uint8_t* __restrict__ valid, float* __restrict__ st_out, int C, int n, int P,
-                    int E, int k_out, float kinv) {
+                    uint8_t* __restrict__ valid, float* __restrict__ st_out,
+                    int32_t* __restrict__ deferred, int C, int n, int P, int E, int k_out,
+                    float kinv) {
   const int c = blockIdx.x * kScanThreads + threadIdx.x;
   if (c >= C) return;
   const int64_t nv = n_valid ? *n_valid : n;
@@ -67,6 +69,7 @@ symsync_scan_kernel(const float* __restrict__ xs4, const int64_t* __restrict__ n
   yagi::SymState s = yagi::sym_load(st_in, C, c);
   const float* row = xs4 + (size_t)c * n * 4 * P;
   size_t o = (size_t)c * n * E;
+  int32_t pend = 0;
   for (int t = 0; t < n; ++t, row += 4 * P) {
     const bool vs = t < nv;
     for (int e = 0; e < E; ++e, ++o) {
@@ -77,9 +80,11 @@ symsync_scan_kernel(const float* __restrict__ xs4, const int64_t* __restrict__ n
       y[o] = make_float2(yr, yi);
       valid[o] = act;
     }
+    pend += yagi::sym_pending(s, P, vs);
     yagi::sym_wrap(s, P, vs);
   }
   yagi::sym_store(st_out, C, c, s);
+  deferred[c] = pend;
 }
 
 // Shared memory: taps [2P][gpitch], then the re and im planes of the tile,
@@ -90,8 +95,8 @@ symsync_fused_kernel(const float2* __restrict__ xa, const float* __restrict__ g,
                      const uint8_t* __restrict__ locked, const float* __restrict__ radj,
                      const float* __restrict__ pll_a, const float* __restrict__ pll_b,
                      float2* __restrict__ y, uint8_t* __restrict__ valid,
-                     float* __restrict__ st_out, int C, int n, int L, int P, int E, int k_out,
-                     float kinv, int gpitch, int pitch) {
+                     float* __restrict__ st_out, int32_t* __restrict__ deferred, int C, int n,
+                     int L, int P, int E, int k_out, float kinv, int gpitch, int pitch) {
   extern __shared__ float smem[];
   float* gs = smem;
   float* xr = gs + 2 * P * gpitch;
@@ -110,6 +115,7 @@ symsync_fused_kernel(const float2* __restrict__ xa, const float* __restrict__ g,
   const yagi::SymParams p =
       sym_params(locked, radj, pll_a, pll_b, kinv, live ? c : C - 1, P, k_out);
   yagi::SymState s = yagi::sym_load(st_in, C, live ? c : C - 1);
+  int32_t pend = 0;
 
   for (int t0 = 0; t0 < n; t0 += kTile) {
     const int tn = min(kTile, n - t0);
@@ -164,10 +170,14 @@ symsync_fused_kernel(const float2* __restrict__ xa, const float* __restrict__ g,
           valid[o] = act;
         }
       }
+      pend += yagi::sym_pending(s, P, vs);
       yagi::sym_wrap(s, P, vs);
     }
   }
-  if (live && lane == 0) yagi::sym_store(st_out, C, c, s);
+  if (live && lane == 0) {
+    yagi::sym_store(st_out, C, c, s);
+    deferred[c] = pend;
+  }
 }
 
 // The smallest pitch ≥ len with pitch ≡ 4 (mod 32).
@@ -177,17 +187,18 @@ int bank_pitch(int len) { return len + ((4 - len) % 32 + 32) % 32; }
 
 // K4. xs4: [C, n, 4P] float32; n_valid: device int64 or null; st_in/st_out:
 // [9, C] float32; locked: [C] uint8; radj: [C] float32; pll_a/pll_b: [3]
-// float32 on the device; y: [C, n, E] complex64; valid: [C, n, E] uint8.
-// Launches on `stream`; returns the launch's CUDA error (0 on success).
+// float32 on the device; y: [C, n, E] complex64; valid: [C, n, E] uint8;
+// deferred: [C] int32. Launches on `stream`; returns the launch's CUDA error
+// (0 on success).
 extern "C" int yagi_symsync_scan(const float* xs4, const int64_t* n_valid, const float* st_in,
                                  const uint8_t* locked, const float* radj, const float* pll_a,
                                  const float* pll_b, void* y, uint8_t* valid, float* st_out,
-                                 int C, int n, int P, int E, int k_out, float kinv,
-                                 void* stream) {
+                                 int32_t* deferred, int C, int n, int P, int E, int k_out,
+                                 float kinv, void* stream) {
   const int blocks = (C + kScanThreads - 1) / kScanThreads;
   symsync_scan_kernel<<<blocks, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       xs4, n_valid, st_in, locked, radj, pll_a, pll_b, static_cast<float2*>(y), valid, st_out,
-      C, n, P, E, k_out, kinv);
+      deferred, C, n, P, E, k_out, kinv);
   return (int)cudaGetLastError();
 }
 
@@ -199,8 +210,9 @@ extern "C" int yagi_symsync_scan(const float* xs4, const int64_t* n_valid, const
 extern "C" int yagi_symsync_fused(const void* xa, const float* g, const int64_t* n_valid,
                                   const float* st_in, const uint8_t* locked, const float* radj,
                                   const float* pll_a, const float* pll_b, void* y,
-                                  uint8_t* valid, float* st_out, int C, int n, int L, int P,
-                                  int E, int k_out, float kinv, void* stream) {
+                                  uint8_t* valid, float* st_out, int32_t* deferred, int C,
+                                  int n, int L, int P, int E, int k_out, float kinv,
+                                  void* stream) {
   const int smem =
       (int)sizeof(float) * (2 * P * bank_pitch(L) + 2 * kChans * bank_pitch(kTile + L));
   cudaError_t err = cudaFuncSetAttribute(symsync_fused_kernel,
@@ -209,7 +221,7 @@ extern "C" int yagi_symsync_fused(const void* xa, const float* g, const int64_t*
   const int blocks = (C + kChans - 1) / kChans;
   symsync_fused_kernel<<<blocks, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(xa), g, n_valid, st_in, locked, radj, pll_a, pll_b,
-      static_cast<float2*>(y), valid, st_out, C, n, L, P, E, k_out, kinv, bank_pitch(L),
-      bank_pitch(kTile + L));
+      static_cast<float2*>(y), valid, st_out, deferred, C, n, L, P, E, k_out, kinv,
+      bank_pitch(L), bank_pitch(kTile + L));
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@
 // only safe footing: one rounding difference can move an emission.
 //
 // State is f32, b and dec included (exact for their small integer range), as
-// rows (b, bf, τ, τ_decim, rate, δ, dec, v0, v1) of a [9, C] array.
+// rows (b, bf, τ, τ_decim, rate, δ, dec, v0, v1) of a [9, C] array. Beside
+// it, each kernel counts the samples after whose E slots an emission was
+// still due (sym_pending) into an int32 per channel.
 
 #pragma once
 
@@ -90,6 +92,14 @@ __device__ __forceinline__ bool sym_emit(SymState& s, const SymParams& p, bool v
   yr = __fmul_rn(__fmul_rn(af, mr), p.kinv);
   yi = __fmul_rn(__fmul_rn(af, mi), p.kinv);
   return active;
+}
+
+// After a sample's E slots, before the wrap: an emission is still due (b < P)
+// on a valid sample. The bounded slots defer it to the next sample; the
+// kernels count such samples per channel (yagi_tpu's `pending`,
+// filter/symsync.py::_emit_sample).
+__device__ __forceinline__ bool sym_pending(const SymState& s, int P, bool vs) {
+  return vs && s.b < (float)P;
 }
 
 // End of an input sample: a valid one wraps τ, bf and b by one sample.

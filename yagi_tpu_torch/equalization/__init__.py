@@ -1,0 +1,3 @@
+"""Adaptive equalization (reference layer L5: src/equalization/)."""
+
+from .eqlms import Eqlms  # noqa: F401

@@ -257,6 +257,14 @@ class Symsync:
         :mod:`yagi_tpu_torch.kernels.symscan`), so for k = 2 (where K3 and K4
         scale by 1/k and the XLA scan divides by k) they agree bit for bit.
         """
+        return self._run_slots(x, samples_per_step, max_emit, n_valid, backend)[:3]
+
+    def _run_slots(self, x, samples_per_step=None, max_emit=None, n_valid=None,
+                   backend: str = "auto"):
+        """:meth:`execute_slots` plus the deferral count: returns ``(y_slots,
+        valid, state, deferred)``, ``deferred`` int32 [...] on the device, the
+        valid samples after whose ``max_emit`` slots an emission was still
+        due (deferred to the next sample; ``QamRx.overflow_count`` adds it)."""
         if backend not in _BACKENDS:
             raise ConfigError(f"backend must be one of {_BACKENDS}, got {backend!r}")
         n = x.shape[-1]
@@ -275,11 +283,13 @@ class Symsync:
         kw = self.kernel_args()
         xc = xa.to(torch.complex64)
         if backend in ("auto", "fused"):
-            y, valid, st = symsync_fused_apply(xc, self.taps(), n_valid, E=E, **kw)
+            y, valid, st, deferred = symsync_fused_apply(xc, self.taps(), n_valid, E=E, **kw)
         elif backend == "pallas":
-            y, valid, st = symsync_scan_apply(branch_outputs(xc, self.taps()), n_valid, E=E, **kw)
+            y, valid, st, deferred = symsync_scan_apply(branch_outputs(xc, self.taps()), n_valid,
+                                                        E=E, **kw)
         else:
-            y, valid, st = symsync_scan_xla(branch_outputs(xc, self.taps()), n_valid, E=E, **kw)
+            y, valid, st, deferred = symsync_scan_xla(branch_outputs(xc, self.taps()), n_valid,
+                                                      E=E, **kw)
 
         if n_valid is None:
             new_window = xa[:, n:]
@@ -293,7 +303,8 @@ class Symsync:
         )
         if not self.window.is_complex():
             y = y.real
-        return y.reshape(batch + (n, E)), valid.reshape(batch + (n, E)), new
+        return (y.reshape(batch + (n, E)), valid.reshape(batch + (n, E)), new,
+                deferred.reshape(batch))
 
     def execute(self, x):
         """Synchronize a block (symsync.rs:219-266). Returns (y, num_output,

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels for the hot paths, each beside its plain
 torch version (which CPU tensors run)."""
 
+from .agc import agc_scan_apply, agc_scan_reference  # noqa: F401
 from .chain import chain_matrices, fused_chain_apply, fused_chain_reference  # noqa: F401
 from .channelizer import (  # noqa: F401
     channelizer_tables,
@@ -16,3 +17,4 @@ from .symscan import (  # noqa: F401
     symsync_scan_reference,
     symsync_scan_xla,
 )
+from .qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: F401

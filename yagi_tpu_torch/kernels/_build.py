@@ -41,11 +41,17 @@ _SIGNATURES = {
     # x, theta0, dtheta, y, n, stream
     "yagi_mix_down": [_P] * 4 + [_I, _P],
     # xs4, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
-    # C, n, P, E, k_out, 1/k, stream
-    "yagi_symsync_scan": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # deferred, C, n, P, E, k_out, 1/k, stream
+    "yagi_symsync_scan": [_P] * 11 + [_I] * 5 + [_F, _P],
     # xa, g, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
-    # C, n, L, P, E, k_out, 1/k, stream
-    "yagi_symsync_fused": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # deferred, C, n, L, P, E, k_out, 1/k, stream
+    "yagi_symsync_fused": [_P] * 12 + [_I] * 6 + [_F, _P],
+    # x, g, y2p, alpha, scale, thr, locked, mode, timer, y, g_out, y2p_out,
+    # mode_out, timer_out, C, n, timeout, stream
+    "yagi_agc_scan": [_P] * 14 + [_I] * 3 + [_P],
+    # y, valid, table, mu, alpha, beta, the 10 state arrays, syms, soft,
+    # mask, the 10 new state arrays, C, S, M, h_len, k_eq, stream
+    "yagi_qam_eq_scan": [_P] * 29 + [_I] * 5 + [_P],
 }
 
 

@@ -16,7 +16,12 @@ Layouts are the port's, channel-major:
   ``pll_b`` float32 [3] on the device (the loop reads pll_a[1] and pll_b[0]);
 * ``n_valid``: a 0-d int64 tensor on the device, or None for all n; it is
   never read back to the host;
-* outputs ``y`` complex64 [C, n, E] and ``valid`` bool [C, n, E].
+* outputs ``y`` complex64 [C, n, E] and ``valid`` bool [C, n, E], then the
+  new state, then ``deferred`` int32 [C]: the valid samples after whose E
+  slots an emission was still due (b < P before the wrap), which the
+  bounded slots defer to the next sample (yagi_tpu's ``pending``,
+  ``filter/symsync.py::_emit_sample``; ``QamRx.overflow_count`` adds them
+  up). Every route returns ``(y, valid, state', deferred)``.
 
 Two kernels, each beside its plain version, chosen by the tensors' device
 (CPU runs the plain version; CUDA launches the kernel or raises, nothing
@@ -118,6 +123,7 @@ def _loop(pick, n: int, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E
     kinv = torch.tensor(1.0 / k, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     vflags = torch.arange(n, device=dev) < (n if n_valid is None else n_valid)
+    deferred = torch.zeros(state.shape[1], dtype=torch.int32, device=dev)
     yr_all, yi_all, act_all = [], [], []
     for t in range(n):
         vs = vflags[t]
@@ -154,6 +160,7 @@ def _loop(pick, n: int, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E
                 yr_all.append(af * mr * kinv)
                 yi_all.append(af * mi * kinv)
             act_all.append(active)
+        deferred = deferred + ((b < P) & vs).to(torch.int32)
         vsf = vs.to(torch.float32)
         tau = tau - vsf
         bf = bf - vsf * P
@@ -161,7 +168,7 @@ def _loop(pick, n: int, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E
     C = state.shape[1]
     y = torch.complex(torch.stack(yr_all, -1), torch.stack(yi_all, -1)).reshape(C, n, E)
     valid = torch.stack(act_all, -1).reshape(C, n, E)
-    return y, valid, torch.stack([b, bf, tau, tau_d, rate, delta, dec, pv0, pv1])
+    return y, valid, torch.stack([b, bf, tau, tau_d, rate, delta, dec, pv0, pv1]), deferred
 
 
 def _stream_pick(xs4, P: int):
@@ -215,7 +222,8 @@ def _check_loop_args(fn, device, C: int, n_valid, state, locked, radj, pll_a, pl
 def _outputs(C: int, n: int, E: int, device):
     y = torch.empty((C, n, E), dtype=torch.complex64, device=device)
     valid = torch.empty((C, n, E), dtype=torch.bool, device=device)
-    return y, valid, torch.empty((STATE_ROWS, C), dtype=torch.float32, device=device)
+    st = torch.empty((STATE_ROWS, C), dtype=torch.float32, device=device)
+    return y, valid, st, torch.empty(C, dtype=torch.int32, device=device)
 
 
 def _ptr(t) -> int | None:
@@ -227,8 +235,8 @@ def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: in
     """K4: the symsync timing loop over a precomputed all-branch stream.
 
     ``xs4`` float32 [C, n, 4P], groups [re·mf | re·dmf | im·mf | im·dmf];
-    the other arguments and the result ``(y, valid, state')`` as the module
-    docstring says. The counterpart of
+    the other arguments and the result ``(y, valid, state', deferred)`` as
+    the module docstring says. The counterpart of
     ``yagi_tpu/kernels/symscan.py::symsync_scan``.
 
     CPU tensors run :func:`symsync_scan_reference`; CUDA tensors launch the
@@ -248,18 +256,19 @@ def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: in
 
     from ._build import library
 
-    y, valid, st = _outputs(C, n, E, xs4.device)
+    y, valid, st, deferred = _outputs(C, n, E, xs4.device)
     with torch.cuda.device(xs4.device):
         stream = torch.cuda.current_stream(xs4.device).cuda_stream
         rc = library().yagi_symsync_scan(
             xs4.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
             radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(), valid.data_ptr(),
-            st.data_ptr(), C, n, P, E, k_out, ctypes.c_float(np.float32(1.0 / k)), stream,
+            st.data_ptr(), deferred.data_ptr(), C, n, P, E, k_out,
+            ctypes.c_float(np.float32(1.0 / k)), stream,
         )
     if rc != 0:
         raise RuntimeError(f"symsync scan kernel launch failed with CUDA error {rc}")
     symsync_scan_apply.launches += 1
-    return y, valid, st
+    return y, valid, st, deferred
 
 
 symsync_scan_apply.launches = 0
@@ -272,8 +281,8 @@ def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P:
 
     ``xa`` complex64 [C, n + L], the L-sample window then the block; ``g``
     float32 [2P, L], g[i, j] = [mf; dmf][i, L−1−j]; the other arguments and
-    the result ``(y, valid, state')`` as the module docstring says. The
-    counterpart of ``yagi_tpu/kernels/symscan.py::symsync_scan_fused``.
+    the result ``(y, valid, state', deferred)`` as the module docstring says.
+    The counterpart of ``yagi_tpu/kernels/symscan.py::symsync_scan_fused``.
 
     CPU tensors run :func:`symsync_fused_reference`; CUDA tensors launch the
     kernel (counted in ``symsync_fused_apply.launches``) or raise.
@@ -297,18 +306,19 @@ def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P:
 
     from ._build import library
 
-    y, valid, st = _outputs(C, n, E, xa.device)
+    y, valid, st, deferred = _outputs(C, n, E, xa.device)
     with torch.cuda.device(xa.device):
         stream = torch.cuda.current_stream(xa.device).cuda_stream
         rc = library().yagi_symsync_fused(
             xa.data_ptr(), g.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
             radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(), valid.data_ptr(),
-            st.data_ptr(), C, n, L, P, E, k_out, ctypes.c_float(np.float32(1.0 / k)), stream,
+            st.data_ptr(), deferred.data_ptr(), C, n, L, P, E, k_out,
+            ctypes.c_float(np.float32(1.0 / k)), stream,
         )
     if rc != 0:  # also a tap count whose shared memory exceeds the block's limit
         raise RuntimeError(f"symsync fused kernel launch failed with CUDA error {rc}")
     symsync_fused_apply.launches += 1
-    return y, valid, st
+    return y, valid, st, deferred
 
 
 symsync_fused_apply.launches = 0

@@ -1,0 +1,358 @@
+"""Linear modulator / hard demodulator over a constellation table.
+
+Port of :mod:`yagi_tpu.modem.modem` (behavioral spec: modem.rs and its
+scheme submodules). Every memoryless scheme is a constellation table [M]
+(complex64) with liquid's gray coding and normalization, built on the host
+in numpy bit for bit as yagi_tpu builds it; modulation is a gather and hard
+demodulation the nearest table point, argmin |x − table|² with the first
+index on ties (as ``jnp.argmin``; ``torch.argmin`` documents the same).
+Differential schemes (DPSK, π/4-DQPSK) modulate with a cumulative product of
+per-symbol increments seeded by the carried phase.
+
+Symbols are u32 in yagi_tpu; here they are int64 tensors holding the same
+values (the port's convention for u32, :mod:`yagi_tpu_torch._src.struct`).
+
+Not ported yet (each raises :class:`ConfigError` naming itself): soft
+demodulation, ``demodulate_with_stats``, the differential demodulators and
+``random_symbol(s)``.
+
+The constellation data (APSK rings, V.29, the optimal-QAM, logo and sqam
+tables) is ``data/*.json``, a copy of yagi_tpu's.
+"""
+
+from __future__ import annotations
+
+import enum
+import json
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .._src import struct
+from ..errors import ConfigError
+
+__all__ = ["ModulationScheme", "Modem", "build_constellation", "gray_encode", "gray_decode"]
+
+_DATA = Path(__file__).parent / "data"
+
+
+class ModulationScheme(enum.Enum):
+    """Scheme taxonomy (modem.rs:28-79)."""
+
+    PSK2 = "psk2"; PSK4 = "psk4"; PSK8 = "psk8"; PSK16 = "psk16"  # noqa: E702
+    PSK32 = "psk32"; PSK64 = "psk64"; PSK128 = "psk128"; PSK256 = "psk256"  # noqa: E702
+    DPSK2 = "dpsk2"; DPSK4 = "dpsk4"; DPSK8 = "dpsk8"; DPSK16 = "dpsk16"  # noqa: E702
+    DPSK32 = "dpsk32"; DPSK64 = "dpsk64"; DPSK128 = "dpsk128"; DPSK256 = "dpsk256"  # noqa: E702
+    ASK2 = "ask2"; ASK4 = "ask4"; ASK8 = "ask8"; ASK16 = "ask16"  # noqa: E702
+    ASK32 = "ask32"; ASK64 = "ask64"; ASK128 = "ask128"; ASK256 = "ask256"  # noqa: E702
+    QAM4 = "qam4"; QAM8 = "qam8"; QAM16 = "qam16"; QAM32 = "qam32"  # noqa: E702
+    QAM64 = "qam64"; QAM128 = "qam128"; QAM256 = "qam256"  # noqa: E702
+    APSK4 = "apsk4"; APSK8 = "apsk8"; APSK16 = "apsk16"; APSK32 = "apsk32"  # noqa: E702
+    APSK64 = "apsk64"; APSK128 = "apsk128"; APSK256 = "apsk256"  # noqa: E702
+    BPSK = "bpsk"; QPSK = "qpsk"; OOK = "ook"  # noqa: E702
+    SQAM32 = "sqam32"; SQAM128 = "sqam128"; V29 = "V29"  # noqa: E702
+    ARB16OPT = "arb16opt"; ARB32OPT = "arb32opt"; ARB64OPT = "arb64opt"  # noqa: E702
+    ARB128OPT = "arb128opt"; ARB256OPT = "arb256opt"  # noqa: E702
+    ARB64VT = "arb64vt"; ARB64UI = "arb64ui"  # noqa: E702
+    PI4DQPSK = "pi4dqpsk"
+    ARB = "arb"
+
+    @classmethod
+    def from_str(cls, s: str) -> "ModulationScheme":
+        for sch in cls:
+            if sch.value.lower() == s.lower():
+                return sch
+        raise ConfigError(f"unknown modulation scheme {s!r}")
+
+
+def _ints(sym):
+    return sym if isinstance(sym, torch.Tensor) else np.asarray(sym)
+
+
+def gray_encode(sym):
+    """s ^ (s >> 1) (modem.rs:516), on numpy integers or torch tensors."""
+    sym = _ints(sym)
+    return sym ^ (sym >> 1)
+
+
+def gray_decode(sym):
+    """Inverse gray code b = g ^ (g>>1) ^ (g>>2) ^ ... (modem.rs:521), on
+    numpy integers or torch tensors."""
+    g = _ints(sym)
+    b = g
+    for shift in range(1, 32):
+        b = b ^ (g >> shift)
+    return b
+
+
+# ---------------------------------------------------------------- tables
+@lru_cache(maxsize=1)
+def _arb_tables() -> dict:
+    with open(_DATA / "arb_constellations.json") as f:
+        raw = json.load(f)
+    return {
+        k: np.array([complex(a, b) for a, b in v], dtype=np.complex64)
+        for k, v in raw.items()
+    }
+
+
+@lru_cache(maxsize=1)
+def _apsk_defs() -> dict:
+    with open(_DATA / "apsk.json") as f:
+        return json.load(f)
+
+
+_ASK_ALPHA = {
+    2: 1.0, 4: 1 / np.sqrt(5), 8: 1 / np.sqrt(21), 16: 1 / np.sqrt(85),
+    32: 1 / np.sqrt(341), 64: 1 / np.sqrt(1365), 128: 1 / np.sqrt(5461),
+    256: 1 / np.sqrt(21845),
+}
+_QAM_ALPHA = {
+    4: 1 / np.sqrt(2), 8: 1 / np.sqrt(6), 16: 1 / np.sqrt(10),
+    32: 1 / np.sqrt(26), 64: 1 / np.sqrt(42), 128: 1 / np.sqrt(106),
+    256: 1 / np.sqrt(170),
+}
+
+
+def _expand_quadrant(submap: np.ndarray, bits_sub: int) -> np.ndarray:
+    """sqam32/128 full table: quadrant bits select conj/negation
+    (sqam32.rs:17-35)."""
+    M = 4 << bits_sub
+    table = np.empty(M, dtype=np.complex64)
+    for sym in range(M):
+        quad = (sym >> bits_sub) & 0x03
+        p = submap[sym & ((1 << bits_sub) - 1)]
+        table[sym] = [p, np.conj(p), -np.conj(p), -p][quad]
+    return table
+
+
+def build_constellation(scheme: ModulationScheme, table=None) -> np.ndarray:
+    """Constellation table[sym] (numpy complex64) for every memoryless scheme."""
+    name = scheme.value
+    if scheme == ModulationScheme.ARB:
+        if table is None:
+            raise ConfigError("arbitrary scheme requires a table")
+        t = np.asarray(table, dtype=np.complex64)
+        if len(t) & (len(t) - 1):
+            raise ConfigError("table size must be power of 2")
+        return t
+
+    if name.startswith("psk"):
+        M = int(name[3:])
+        return np.exp(2j * np.pi * gray_decode(np.arange(M)) / M).astype(np.complex64)
+
+    if name.startswith("ask"):
+        M = int(name[3:])
+        syms = gray_decode(np.arange(M))
+        return ((2 * syms - M + 1) * _ASK_ALPHA[M]).astype(np.complex64)
+
+    if name.startswith("qam"):
+        M = int(name[3:])
+        bps = int(np.log2(M))
+        alpha = _QAM_ALPHA[M]
+        m_i = (bps + 1) // 2 if bps % 2 else bps // 2
+        m_q = bps - m_i
+        Mi, Mq = 1 << m_i, 1 << m_q
+        syms = np.arange(M)
+        s_i = gray_decode(syms >> m_q)
+        s_q = gray_decode(syms & (Mq - 1))
+        return (
+            (2 * s_i - Mi + 1) * alpha + 1j * (2 * s_q - Mq + 1) * alpha
+        ).astype(np.complex64)
+
+    if name.startswith("apsk"):
+        M = int(name[4:])
+        d = _apsk_defs()[str(M)]
+        p, r, phi, mp = d["p"], d["r"], d["phi"], d["map"]
+        table = np.empty(M, dtype=np.complex64)
+        for sym in range(M):
+            s = mp[sym]
+            t = 0
+            level = 0
+            for i, pi in enumerate(p):
+                if s < t + pi:
+                    level = i
+                    break
+                t += pi
+            ang = phi[level] + (s - t) * 2.0 * np.pi / p[level]
+            table[sym] = r[level] * np.exp(1j * ang)
+        return table
+
+    if scheme == ModulationScheme.BPSK:
+        return np.array([1.0, -1.0], dtype=np.complex64)
+    if scheme == ModulationScheme.QPSK:
+        s = 1 / np.sqrt(2)
+        return np.array([s + 1j * s, -s + 1j * s, s - 1j * s, -s - 1j * s], dtype=np.complex64)
+    if scheme == ModulationScheme.OOK:
+        return np.array([np.sqrt(2.0), 0.0], dtype=np.complex64)
+    if scheme == ModulationScheme.SQAM32:
+        return _expand_quadrant(_arb_tables()["sqam32_quadrant"], 3)
+    if scheme == ModulationScheme.SQAM128:
+        return _expand_quadrant(_arb_tables()["sqam128_quadrant"], 5)
+    if scheme == ModulationScheme.V29:
+        return _arb_tables()["v29"]
+    if name.startswith("arb"):
+        return _arb_tables()[name]
+
+    raise ConfigError(f"scheme {scheme} has no static constellation")
+
+
+def _soft_neighbors(table: np.ndarray, p: int) -> np.ndarray:
+    """p nearest neighbors per constellation point (modem.rs init_demod_soft_tab)."""
+    d = np.abs(table[:, None] - table[None, :])
+    np.fill_diagonal(d, np.inf)
+    return np.argsort(d, axis=1)[:, :p].astype(np.int32)
+
+
+def _soft_p_for(scheme: ModulationScheme, bps: int) -> int:
+    """Neighbor count per scheme (psk.rs:44, qam.rs:71, apsk.rs:40)."""
+    name = scheme.value
+    if name.startswith("apsk"):
+        return {2: 3, 3: 3, 4: 4, 5: 4, 6: 4, 7: 5, 8: 5}[bps]
+    if name.startswith(("qam", "sqam", "arb")) or name == "V29":
+        return 3 if bps == 3 else 4 if bps >= 4 else 2
+    return 2
+
+
+_DIFFERENTIAL = {
+    ModulationScheme.DPSK2, ModulationScheme.DPSK4, ModulationScheme.DPSK8,
+    ModulationScheme.DPSK16, ModulationScheme.DPSK32, ModulationScheme.DPSK64,
+    ModulationScheme.DPSK128, ModulationScheme.DPSK256, ModulationScheme.PI4DQPSK,
+}
+
+
+def _increments(scheme: ModulationScheme) -> np.ndarray:
+    """Per-symbol phase increments e^{jΔφ[sym]} of a differential scheme."""
+    if scheme == ModulationScheme.PI4DQPSK:
+        return np.exp(1j * np.array([0.25, 0.75, -0.25, -0.75]) * np.pi).astype(np.complex64)
+    M = int(scheme.value[4:])
+    return np.exp(2j * np.pi * gray_decode(np.arange(M)) / M).astype(np.complex64)
+
+
+def _not_ported(what: str):
+    raise ConfigError(f"Modem.{what} is not ported yet")
+
+
+@struct.state
+class Modem:
+    """Modem state (modem.rs:82-121)."""
+
+    scheme: ModulationScheme = struct.static_field()
+    bits_per_symbol: int = struct.static_field()
+    table: torch.Tensor = struct.field()  # [M] constellation (increments for dpsk)
+    soft_neighbors: torch.Tensor = struct.field()  # [M, p] int32
+    r: torch.Tensor = struct.field()  # last received sample
+    x_hat: torch.Tensor = struct.field()  # its decided point
+    phi: torch.Tensor = struct.field()  # differential phase state
+    rand_state: torch.Tensor = struct.field()  # u32 as int64 (random_symbol, not ported)
+
+    def __post_init__(self):
+        # a scheme carried over from yagi_tpu (load_state) is its own enum
+        if not isinstance(self.scheme, ModulationScheme):
+            object.__setattr__(self, "scheme", ModulationScheme.from_str(self.scheme.value))
+
+    # ------------------------------------------------------------------ ctor
+    @classmethod
+    def create(cls, scheme, table=None, batch_shape: tuple = (), device=None) -> "Modem":
+        if isinstance(scheme, str):
+            scheme = ModulationScheme.from_str(scheme)
+        if scheme in _DIFFERENTIAL:
+            tab = _increments(scheme)
+            bps = int(np.log2(len(tab)))
+            neigh = np.zeros((len(tab), 1), dtype=np.int32)
+        else:
+            tab = build_constellation(scheme, table)
+            bps = int(np.log2(len(tab)))
+            neigh = _soft_neighbors(tab, _soft_p_for(scheme, bps))
+        one = torch.full(batch_shape, 1.0 + 0j, dtype=torch.complex64, device=device)
+        return cls(
+            scheme=scheme,
+            bits_per_symbol=bps,
+            table=torch.from_numpy(tab).to(device),
+            soft_neighbors=torch.from_numpy(neigh).to(device),
+            r=one,
+            x_hat=one.clone(),
+            phi=torch.zeros(batch_shape, dtype=torch.float32, device=device),
+            rand_state=torch.ones(batch_shape, dtype=torch.int64, device=device),
+        )
+
+    @classmethod
+    def from_table(cls, table, **kw) -> "Modem":
+        """Arbitrary constellation (modem.rs:209)."""
+        return cls.create(ModulationScheme.ARB, table=table, **kw)
+
+    # ------------------------------------------------------------ properties
+    @property
+    def constellation_size(self) -> int:
+        return 1 << self.bits_per_symbol
+
+    def get_bps(self) -> int:
+        return self.bits_per_symbol
+
+    def get_scheme(self) -> ModulationScheme:
+        return self.scheme
+
+    def reset(self) -> "Modem":
+        return self.replace(
+            r=torch.ones_like(self.r),
+            x_hat=torch.ones_like(self.x_hat),
+            phi=torch.zeros_like(self.phi),
+        )
+
+    # ------------------------------------------------------------- modulate
+    def modulate(self, symbols) -> tuple[torch.Tensor, "Modem"]:
+        """Map symbols [..., N] → complex64 samples (modem.rs:243).
+
+        Symbols out of range clip to [0, M−1], as yagi_tpu's ``take(...,
+        mode="clip")``. Differential schemes accumulate phase with a
+        cumulative product of increments seeded by the carried phase.
+        """
+        if not isinstance(symbols, torch.Tensor):
+            symbols = torch.from_numpy(np.asarray(symbols).astype(np.int64))
+        sym = symbols.to(device=self.table.device, dtype=torch.int64)
+        pts = self.table[sym.clamp(0, self.table.shape[0] - 1)]
+        if self.scheme not in _DIFFERENTIAL:
+            return pts, self
+        rot = torch.cumprod(pts, dim=-1)
+        y = torch.polar(torch.ones_like(self.phi), self.phi)[..., None] * rot
+        return y, self.replace(phi=torch.angle(y[..., -1]))
+
+    # ------------------------------------------------------------ demodulate
+    def _nearest(self, x: torch.Tensor) -> torch.Tensor:
+        """argmin_s |x − table[s]|² over the block, first index on ties."""
+        d = (x[..., None] - self.table).abs().square()
+        return torch.argmin(d, dim=-1)
+
+    def demodulate(self, x) -> tuple[torch.Tensor, "Modem"]:
+        """Hard-decision demodulation of a block (modem.rs:255): int64
+        symbols [..., N]; the state keeps the last sample and its point."""
+        if self.scheme in _DIFFERENTIAL:
+            _not_ported("demodulate for differential schemes")
+        x = torch.as_tensor(x, device=self.table.device).to(torch.complex64)
+        sym = self._nearest(x)
+        return sym, self.replace(r=x[..., -1], x_hat=self.table[sym[..., -1]])
+
+    def get_demodulator_sample(self):
+        return self.x_hat
+
+    def get_demodulator_phase_error(self):
+        """Im(r·x̂*) (modem.rs:277)."""
+        return (self.r * self.x_hat.conj()).imag
+
+    def get_demodulator_evm(self):
+        """|x̂ − r| (modem.rs:281)."""
+        return (self.x_hat - self.r).abs()
+
+    def demodulate_with_stats(self, x):
+        _not_ported("demodulate_with_stats")
+
+    def demodulate_soft(self, x, compat: bool = False):
+        _not_ported("demodulate_soft")
+
+    def random_symbol(self, key):
+        _not_ported("random_symbol")
+
+    def random_symbols(self, key, shape):
+        _not_ported("random_symbols")
