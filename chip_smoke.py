@@ -25,29 +25,34 @@ Five paths of the port, yagi_tpu_torch, each at its real size:
   per block; besides the noise blocks, an impaired 16-QAM signal decoded
   in every channel.
 
-Six phases:
+Seven phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
-3. kernel vs plain: each kernel against its plain torch version on the same
-   CUDA tensors, at a small shape and at its path's shape;
-4. main paths: each streams 16 blocks with its state carried, held against
+3. default device: an entry point called with no device builds on the card;
+4. kernel vs plain: each kernel against its plain torch version on the same
+   CUDA tensors, at a small shape and at its path's shape (K3 and K4 also
+   at tap counts that are not a multiple of 4, qam_eq_scan also on ties
+   and NaNs with 4-, 16- and 64-point tables);
+5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
    for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
    8, the first 2 held bit for bit against the chain with every stage on
    its plain version); every launch count is set to 0 just before a path
    and read just after it; block-split invariance;
-5. signal: config[3] decodes an impaired 16-QAM signal in all 2048
+6. signal: config[3] decodes an impaired 16-QAM signal in all 2048
    channels (tail symbol error rate 0, tail EVM below −25 dB);
-6. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+7. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), and the config[0], config[4],
    config[1] and config[3] steps.
 
-Prints one line per check, a JSON line of per-kernel results, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed
-check raises, and the script exits non-zero; so does a machine without a
-CUDA device. Run it from anywhere: ``python3 chip_smoke.py``.
+Prints one line per check, a JSON line of per-kernel results (with each
+kernel's bound at its path's shape: bytes at 3.35 TB/s or fp32 operations
+at 67 TFLOP/s, whichever is longer), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script exits non-zero; so does a machine without a CUDA device. Run it from
+anywhere: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     fused_channelizer_apply,
     fused_channelizer_reference,
 )
-from yagi_tpu_torch.filter import MsResamp, Symsync  # noqa: E402
+from yagi_tpu_torch.filter import Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
 from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
@@ -91,6 +96,18 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
 from yagi_tpu_torch.modem import Freqdem, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
+from yagi_tpu_torch.tools.paths import (  # noqa: E402
+    C1,
+    C3,
+    QAM_SEED,
+    T1,
+    T3,
+    complex_block,
+    make_msresamp,
+    make_qamrx,
+    make_symsync,
+)
+from yagi_tpu_torch.tools.timing import cuda_ms, graph_ms  # noqa: E402
 from yagi_tpu_torch.utils import compact_valid  # noqa: E402
 
 C, T = 16, 1 << 17  # config[0]: channels, samples per block
@@ -122,11 +139,9 @@ N_MIX = 1 << 21
 MIX_TOL = 1e-6
 MIX_PHASE = 1.1
 
-# config[1] (bench.py:160-192): 1024 channels, blocks of 4096
-C1, T1 = 1024, 1 << 12
-MS_RATE = 2.0 / 2.0663
-SYM = dict(ftype="rrcos", k=2, m=7, beta=0.3)
-LF_BW = 0.02
+# config[1] (bench.py:160-192) and config[3] (bench.py:221-242): the shapes
+# and constructors of yagi_tpu_torch/tools/paths.py, shared with the tools
+# that time these paths
 N_SYM_CHECK = 4  # config[1] blocks held against the XLA-form scan
 N_PALLAS = 4  # config[1] blocks through K4
 SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
@@ -135,16 +150,12 @@ SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
 # identity (kernels/symscan.py says why one order: through the loop's
 # feedback, dots an ulp apart part whole channels).
 
-# config[3] (bench.py:221-242): QamRx over 2048 channels, blocks of 4096,
-# input default_rng(4)-style standard-normal complex64
-C3, T3 = 2048, 1 << 12
 QAM_SMALL = (64, 512)  # the kernels' small check shape (C, n)
 N_QAM = 8  # main-path blocks
 N_QAM_PLAIN = 2  # of them held against the all-plain chain (~10 s a block)
 QAM_SPLIT = 2000  # where the block-split check cuts a block
 N_QAM_SIG = 3  # blocks of the impaired 16-QAM signal
 N_QAM_STEPS = 20  # eager steps timed
-QAM_SEED = 4
 # the impaired channel of tests/test_qamrx.py:69-88, and its pass marks
 QAM_GAIN, QAM_PHASE, QAM_CFO, QAM_NOISE = 0.5, 0.3, 1e-4, 0.002
 QAM_ECHO, QAM_ECHO_DELAY = 0.1 * np.exp(1j * 1.1), 3
@@ -159,6 +170,11 @@ QAM_FALSE_LOCK_MAX = 0.005
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
 # op rounded alone, one evaluation order.
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and fp32
+# FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 KERNELS = (fused_chain_apply, fused_channelizer_apply, mix_down_apply, symsync_fused_apply,
            symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply)
@@ -203,50 +219,28 @@ def fm_phase_err(fm_a, fm_b, y, y_prev_last) -> tuple[float, float]:
     return d.abs()[keep].max().item(), keep.double().mean().item()
 
 
-def complex_block(rng, shape, device) -> torch.Tensor:
-    re = rng.standard_normal(shape, dtype=np.float32)
-    im = rng.standard_normal(shape, dtype=np.float32)
-    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean time per call of ``fn`` in ms over ``iters`` eager calls, between
-    CUDA events: device time, or host time where launching is the slower."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def bound(work: tuple[float, float]) -> tuple[float, str]:
+    """The least time (ms) the card could take for (bytes, operations): each
+    input byte read once and each output byte written once at the HBM rate,
+    or the operations at the fp32 rate, whichever is longer, and which."""
+    t_bytes, t_ops = work[0] / HBM_BYTES_PER_S * 1e3, work[1] / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def graph_ms(fns, reps: int = 10) -> float:
-    """Mean device time per call in ms: the calls ``fns`` are captured once
-    into a CUDA graph, which is replayed ``reps`` times, so host launch cost
-    is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in fns:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * len(fns))
+def tensors_of(obj) -> list[torch.Tensor]:
+    """Every tensor of a state object, nested state objects included."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out += tensors_of(v)
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
 
 
 def phase_device() -> tuple[str, str]:
@@ -269,6 +263,16 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
+
+
+def phase_default_device() -> None:
+    """An entry point called without a device builds on the current card."""
+    rx = QamRx.create(batch_shape=(4,))
+    devices = sorted({str(t.device) for t in tensors_of(rx)})
+    want = str(torch.device("cuda", torch.cuda.current_device()))
+    print(f"[default-device] QamRx.create() with no device: its {len(tensors_of(rx))} tensors "
+          f"lie on {devices}")
+    require(devices == [want], f"default device {devices}, want [{want}]")
 
 
 def kernel_inputs(rng, c: int, t: int, mix_freq: float, device):
@@ -597,10 +601,6 @@ def phase_timing_mix(device, card: str) -> tuple[float, float]:
     return k_ms, p_ms
 
 
-def make_symsync(c: int, device) -> Symsync:
-    return Symsync.create_rnyquist(**SYM, batch_shape=(c,), device=device).set_lf_bw(LF_BW)
-
-
 def sym_same(what: str, got, want) -> bool:
     """Print and return whether (y, valid[, state]) equal bit for bit, with
     the number of channels whose emission mask differs."""
@@ -620,15 +620,23 @@ def sym_inputs(rng, ss: Symsync, c: int, n: int, device):
 
 def phase_kernel_vs_plain_symsync(device) -> tuple[float, float]:
     """K3 and K4 against their plain versions at C = 5, n = 9 (a partial
-    K3 block, a short tile), C = 128, n = 256 and at config[1]'s C = 1024,
-    n = 3976, with n_valid < n, bit for bit; returns (K3, K4) max |error| at
-    config[1]."""
+    K3 block, a short tile), C = 128, n = 256, three shapes with random taps
+    whose L is not a multiple of 4 (C = 13, n = 300, L = 13: C not a
+    multiple of K3's 8 channels per block, 3 tiles; C = 9, n = 129, L = 3:
+    lanes with no tap; C = 13, n = 300, L = 37: taps past K3's unrolled 32,
+    through its tail loop) and at config[1]'s C = 1024, n = 3976, with
+    n_valid < n, bit for bit; returns (K3, K4) max |error| at config[1]."""
     rng = np.random.default_rng(SEED + 20)
-    n1 = MsResamp.create(MS_RATE, arbitrary_interp="farrow").out_capacity(T1)
+    n1 = make_msresamp(C1, device).out_capacity(T1)
     errs = (0.0, 0.0)
-    for c, n, n_valid in [(5, 9, 6), (128, 256, None), (C1, n1, n1 - 11)]:
+    for c, n, n_valid, taps in [(5, 9, 6, None), (128, 256, None, None), (13, 300, None, 13),
+                                (9, 129, 100, 3), (13, 300, 250, 37), (C1, n1, n1 - 11, None)]:
         ss = make_symsync(c, device)
-        xa, g = sym_inputs(rng, ss, c, n, device)
+        if taps is None:
+            xa, g = sym_inputs(rng, ss, c, n, device)
+        else:  # random taps of another length, the same loop
+            xa = complex_block(rng, (c, n + taps), device)
+            g = 0.3 * planes(rng, (2 * ss.npfb, taps), device)
         nv = None if n_valid is None else torch.tensor(n_valid, device=device)
         kw = dict(E=2, **ss.kernel_args())
         xs4 = branch_outputs(xa, g)
@@ -638,22 +646,22 @@ def phase_kernel_vs_plain_symsync(device) -> tuple[float, float]:
         for name, (got, want) in (("symsync_fused (K3)", k3), ("symsync_scan (K4)", k4)):
             require(tuple(got[0].shape) == (c, n, 2) and bool(torch.isfinite(got[0]).all()),
                     f"{name} output shape and finiteness")
-            require(sym_same(f"[kernel-vs-plain] {name} C={c} n={n} n_valid={n_valid}", got,
-                             want), f"{name} vs plain at C={c} n={n}")
+            require(sym_same(f"[kernel-vs-plain] {name} C={c} n={n} L={g.shape[1]} "
+                             f"n_valid={n_valid}", got, want), f"{name} vs plain at C={c} n={n}")
         errs = tuple((got[0] - want[0]).abs().max().item() for got, want in (k3, k4))
     return errs
 
 
-def phase_main_path_config1(device) -> tuple[int, int]:
+def phase_main_path_config1(device) -> tuple[int, int, float]:
     """Stream N_BLOCKS config[1] blocks through MsResamp → Symsync (K3), then
     N_PALLAS through backend "pallas" (K4); returns (K3 launches, K4
-    launches), each from its own run."""
+    launches), each from its own run, and the emissions per K3 launch (the
+    mean over the blocks)."""
     rng = np.random.default_rng(SEED + 21)
     blocks = [complex_block(rng, (C1, T1), device) for _ in range(N_BLOCKS)]
 
     def make():
-        return (MsResamp.create(MS_RATE, batch_shape=(C1,), arbitrary_interp="farrow",
-                                device=device), make_symsync(C1, device))
+        return make_msresamp(C1, device), make_symsync(C1, device)
 
     ms, ss = make()
     torch.cuda.synchronize()
@@ -727,14 +735,14 @@ def phase_main_path_config1(device) -> tuple[int, int]:
     want = [torch.cat([p[j] for p in plain[:N_PALLAS]], 1) for j in (0, 1)]
     require(sym_same(f"[main-path] Symsync K4 vs the XLA-form scan over {N_PALLAS} blocks",
                      got, want), "K4 route vs XLA-form scan")
-    return k3, k4
+    return k3, k4, sum(int(o[3].sum()) for o in outs) / len(outs)
 
 
 def phase_timing_config1(device, card: str) -> dict:
     """K3 and K4 by graph replay, their plain versions by eager calls, and
     the config[1] step; returns {name: (kernel ms, plain ms)}."""
     rng = np.random.default_rng(SEED + 22)
-    ms = MsResamp.create(MS_RATE, batch_shape=(C1,), arbitrary_interp="farrow", device=device)
+    ms = make_msresamp(C1, device)
     n1 = ms.out_capacity(T1)
     ss = make_symsync(C1, device)
     kw = dict(E=2, **ss.kernel_args())
@@ -773,10 +781,6 @@ def phase_timing_config1(device, card: str) -> dict:
           f"steps), {p_msps:.2f} Msps (XLA-form scan, 2 eager steps) (input complex "
           f"Msamples/s, [{C1}, {T1}] blocks)")
     return {"symsync_fused": ((k3_1 + k3_2) / 2, p3), "symsync_scan": ((k4_1 + k4_2) / 2, p4)}
-
-
-def make_qamrx(c: int, device) -> QamRx:
-    return QamRx.create(batch_shape=(c,), device=device)
 
 
 def state_diff(a, b, prefix: str = "") -> list[str]:
@@ -864,20 +868,35 @@ def phase_kernel_vs_plain_qam(device) -> dict:
         require(all(same) and not bad, f"qam_eq_scan vs plain at C={c} n={n}")
         if big:
             out["qam_eq_scan"] = (err, p_ms)
-        else:  # the other table paths (registers ≤ 16 points, shared memory
-            # past that) and NaN slots, which take the argmin's first-NaN rule
+        else:  # other tables (M = 4 and 64 split over the lanes unevenly and
+            # in several rounds) and NaN slots, which take the first-NaN rule;
+            # then the fresh equalizer on zero slots, whose output 0 is
+            # equidistant from the nearest 4 points (a tie, to the first)
+            # except where a NaN slot sits in its window (every distance NaN)
             yn = slots[0].clone()
             yn[::7, 100::97] = float("nan")
-            for scheme, y_in in (("qpsk", slots[0]), ("qam64", slots[0]), ("qam16", yn)):
+            y0 = torch.zeros_like(slots[0])
+            y0[::5, 50::61] = float("nan")
+            for scheme, y_in in (("qpsk", slots[0]), ("qam64", slots[0]), ("qam16", yn),
+                                 ("qpsk", y0), ("qam16", y0), ("qam64", y0)):
                 table = Modem.create(scheme, device=device).table
                 k = qam_eq_scan_apply(y_in, slots[1], table, *args[1:], k_eq=rx.k_eq)
                 p = qam_eq_scan_reference(y_in, slots[1], table, *args[1:], k_eq=rx.k_eq)
                 same = [same_bits(a, b) for a, b in zip(k[:3], p[:3])]
                 bad = [f for f in k[3] if not same_bits(k[3][f], p[3][f])]
+                what = {id(yn): " with NaN slots", id(y0): " on zero and NaN slots (ties)"}
                 print(f"[kernel-vs-plain] qam_eq_scan C={c} S={n * 2} M={table.shape[0]}"
-                      f"{' with NaN slots' if y_in is yn else ''}: bit-identical (syms, soft, "
-                      f"mask) {same}, state fields that differ {bad}")
+                      f"{what.get(id(y_in), '')}: bit-identical (syms, soft, mask) {same}, "
+                      f"state fields that differ {bad}")
                 require(all(same) and not bad, f"qam_eq_scan vs plain, {scheme}")
+                if y_in is y0:
+                    first = int(torch.argmin(table.real ** 2 + table.imag ** 2))  # nearest 0
+                    want = torch.where(k[1].isnan(), 0, first)
+                    ties = int((k[1] == 0).sum())
+                    print(f"[kernel-vs-plain] qam_eq_scan M={table.shape[0]}: {ties} tied "
+                          f"decisions all index {first}, {int(k[1].isnan().sum())} NaN ones "
+                          f"index 0")
+                    require(ties > 0 and bool((k[0] == want).all()), "ties and NaNs decided")
         del got, slots, k, p
 
         a_args = agc_inputs(rng, c, n, device)
@@ -1098,6 +1117,45 @@ def phase_timing_config3(device, card: str, plain_ms: dict) -> dict:
             "qam_eq_scan": ((eq_1 + eq_2) / 2, plain_ms["qam_eq_scan"])}
 
 
+def kernel_work(device, sym_emitted: float) -> dict:
+    """(bytes, operations) of one launch of each kernel at its path's shape:
+    the bytes of its inputs and outputs, each once; the fewest real
+    multiplies and adds that compute its function (a transcendental or a
+    division counts as one), for the symsync loops the dots of the slots that
+    emit (``sym_emitted`` per config[1] block) and ~20 loop ops per slot."""
+    fused = FusedRxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
+    pfb1 = 2 * 7  # taps of a polyphase branch of the interpolator (m = 7)
+    fz = FusedChannelizer.create_kaiser(**CHZ, device=device)
+    fft4 = 5 * M4 * int(np.log2(M4))  # real operations of a radix-2 64-point FFT
+    ss = make_symsync(C1, device)
+    n1 = make_msresamp(C1, device).out_capacity(T1)
+    L, P = ss.mf.shape[1], ss.npfb
+    sym_out = C1 * n1 * 2 * 9 + C1 * 9 * 4 * 2 + C1 * 4  # y, valid; state in and out; deferred
+    sym_ops = sym_emitted * 8 * L + C1 * n1 * 2 * 20
+    rx = make_qamrx(C3, device)
+    S, h, m = 2 * T3, rx.eq.h_len, rx.table.shape[0]
+    eq_state = nbytes(*rx.eq_scan_args()[4].values())
+    return {
+        # planar in, planar out at rate p; the FIR's 2·n_taps MACs per input
+        # sample, then per output a branch's 2·pfb1 MACs, the rotation, sin and cos
+        "chain_fp32": (4 * C * T * 2 * (1 + fused.p) + nbytes(fused.g, fused.hist_r, fused.hist_i),
+                       C * T * (4 * CHAIN["n_taps"] + fused.p * (4 * pfb1 + 8))),
+        # per analyzer step 64 branches of p taps on both planes, a 64-point FFT
+        "channelizer_fp32": (2 * 4 * T4 * M4 * 2
+                             + nbytes(fz.taps, fz.hr, fz.hi, fz.hist_r, fz.hist_i),
+                             T4 * (M4 * fz.p * 4 + fft4)),
+        "mix_down": (N_MIX * 8 * 2, N_MIX * 8),
+        "symsync_fused": (C1 * (n1 + L) * 8 + 2 * P * L * 4 + sym_out, sym_ops),
+        "symsync_scan": (C1 * n1 * 4 * P * 4 + sym_out, sym_ops),
+        # y in and out, the AGC's state; per sample ~12 ops, an exp and a log
+        "agc_scan": (C3 * T3 * 8 * 2 + C3 * 4 * 8 * 2, C3 * T3 * 14),
+        # y, valid in; syms, soft, mask out; the eq state in and out; per slot
+        # the dot, M distances, the LMS update, ~30 ops of PLL and derotation
+        "qam_eq_scan": (C3 * S * (8 + 1 + 8 + 8 + 1) + 2 * eq_state + m * 8 + C3 * 3 * 4,
+                        C3 * S * (8 * h + 5 * m + 10 * h + 30)),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch sees none")
@@ -1108,6 +1166,7 @@ def main() -> None:
 
     name, smi = phase_device()
     phase_build()
+    phase_default_device()
     errs = {
         "chain_fp32": phase_kernel_vs_plain(device),
         "channelizer_fp32": phase_kernel_vs_plain_channelizer(device),
@@ -1119,7 +1178,7 @@ def main() -> None:
         "channelizer_fp32": phase_main_path_config4(device),
         "mix_down": phase_mix_path(device),
     }
-    launches["symsync_fused"], launches["symsync_scan"] = phase_main_path_config1(device)
+    launches["symsync_fused"], launches["symsync_scan"], emitted = phase_main_path_config1(device)
     qam = phase_kernel_vs_plain_qam(device)
     errs.update({k: v[0] for k, v in qam.items()})
     launches.update(phase_main_path_config3(device))
@@ -1142,6 +1201,10 @@ def main() -> None:
         "agc_scan": ("yagi_tpu_torch/csrc/agc.cu", "yagi_tpu/agc/agc.py:260"),
         "qam_eq_scan": ("yagi_tpu_torch/csrc/qam.cu", "yagi_tpu/chains/qam.py:173"),
     }
+    bounds = {k: bound(w) for k, w in kernel_work(device, emitted).items()}
+    # no single PyTorch call computes any of these functions: FIR ⊛ PFB with
+    # a u32 NCO, PFB + DFT, a u32-exact mix, and loops that feed their
+    # decisions back (PERF.md §6)
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
@@ -1151,6 +1214,9 @@ def main() -> None:
         "max_abs_err": errs[k],
         "ms": times[k][0],
         "plain_ms": times[k][1],
+        "bound_ms": bounds[k][0],
+        "bound_by": bounds[k][1],
+        "library_ms": None,
     } for k, (src, replaces) in sources.items()]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

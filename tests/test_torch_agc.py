@@ -25,6 +25,8 @@ from yagi_tpu_torch.kernels.agc import agc_scan_apply, agc_scan_reference
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 REL = 1e-5
 
 
@@ -55,7 +57,7 @@ def test_execute_block_matches_yagi_tpu(real):
     """Four channels at different levels, two blocks, bandwidth 0.05."""
     x = _noise(1, (4, 600), real=real) * np.array([[0.01], [0.3], [1.0], [20.0]], np.float32)
     j = JAgc.create(bandwidth=0.05, batch_shape=(4,))
-    t = Agc.create(bandwidth=0.05, batch_shape=(4,))
+    t = Agc.create(bandwidth=0.05, batch_shape=(4,), device=DEV)
     for blk in np.split(x, [250], axis=-1):
         yj, j = j.execute_block(jnp.asarray(blk))
         yt, t = t.execute_block(torch.from_numpy(blk))
@@ -69,7 +71,7 @@ def test_reference_matches_yagi_scan_and_wrapper_runs_it_on_cpu():
     the wrapper runs it on CPU tensors, bit for bit, with no launch."""
     x = _noise(2, (3, 400), 0.2)
     j = JAgc.create(bandwidth=0.02, batch_shape=(3,)).squelch_enable().squelch_set_threshold(-10.0)
-    t = load_state(Agc, j)
+    t = load_state(Agc, j, device=DEV)
     args = (torch.from_numpy(x), t.g, t.y2_prime, t.alpha, t.scale, t.squelch_threshold, t.locked,
             t.squelch_mode, t.squelch_timer)
     launches = agc_scan_apply.launches
@@ -88,7 +90,7 @@ def test_reference_matches_yagi_scan_and_wrapper_runs_it_on_cpu():
 def test_dc_level_locks_to_unity():
     """tests/test_modem.py TestAgc: a DC level of 0.1 at bandwidth 0.1."""
     x = np.full(256, 0.1 + 0j, dtype=np.complex64)
-    yt, t = Agc.create(bandwidth=0.1).execute_block(torch.from_numpy(x))
+    yt, t = Agc.create(bandwidth=0.1, device=DEV).execute_block(torch.from_numpy(x))
     yj, j = JAgc.create(bandwidth=0.1).execute_block(jnp.asarray(x))
     assert abs(complex(yt[-1]) - 1.0) < 1e-3
     assert float(t.get_gain()) == pytest.approx(10.0, abs=1e-2)
@@ -109,11 +111,11 @@ def test_squelch_scenario_matches_yagi_tpu():
     gamma[f] = 1e-3 + (1e-2 - 1e-3) * (0.5 + 0.5 * np.cos(np.pi * (i[f] - 1450) / 50.0))
     x = (gamma * np.exp(2j * np.pi * 0.0193 * i)).astype(np.complex64)
 
-    def setup(a):
-        return (a.create(bandwidth=0.25).set_signal_level(1e-3).squelch_enable()
+    def setup(a, **kw):
+        return (a.create(bandwidth=0.25, **kw).set_signal_level(1e-3).squelch_enable()
                 .squelch_set_threshold(-50.0).squelch_set_timeout(100))
 
-    t, j = setup(Agc), setup(JAgc)
+    t, j = setup(Agc, device=DEV), setup(JAgc)
     assert bool(t.squelch_is_enabled()) and t.squelch_get_timeout() == 100
     expect = {0: AgcSquelchMode.ENABLED, 500: AgcSquelchMode.ENABLED,
               600: AgcSquelchMode.SIGNAL_HI, 1400: AgcSquelchMode.SIGNAL_HI,
@@ -132,11 +134,11 @@ def test_squelch_timeout_path():
     """Rise on a strong signal, then fall through SIGNAL_LO to TIMEOUT and
     back to ENABLED on silence (tests/test_modem.py:440): the port one sample
     at a time, its state against yagi_tpu's every five samples."""
-    def setup(a):
-        return a.create(bandwidth=0.25).squelch_enable().squelch_set_threshold(0.0) \
+    def setup(a, **kw):
+        return a.create(bandwidth=0.25, **kw).squelch_enable().squelch_set_threshold(0.0) \
             .set_rssi(-40.0).squelch_set_timeout(5)
 
-    t, j = setup(Agc), setup(JAgc)
+    t, j = setup(Agc, device=DEV), setup(JAgc)
     x = np.concatenate([np.full(40, 1.0), np.full(60, 1e-4)]).astype(np.complex64)
     seen = set()
     for blk in np.split(x, 20):
@@ -151,7 +153,7 @@ def test_squelch_timeout_path():
 
 def test_block_split_is_exact():
     x = torch.from_numpy(_noise(8, (2, 400), 0.05))
-    t = Agc.create(batch_shape=(2,)).squelch_enable()
+    t = Agc.create(batch_shape=(2,), device=DEV).squelch_enable()
     y1, s1 = t.execute_block(x)
     parts, s2 = [], t
     for c in torch.split(x, [100, 1, 199, 100], dim=-1):
@@ -165,7 +167,8 @@ def test_block_split_is_exact():
 def test_controls_match_yagi_tpu():
     """lock (no tracking), scale, set_gain, set_rssi, init, reset."""
     x = _noise(3, (2, 64), 0.1)
-    t, j = Agc.create(bandwidth=0.1, batch_shape=(2,)), JAgc.create(bandwidth=0.1, batch_shape=(2,))
+    t = Agc.create(bandwidth=0.1, batch_shape=(2,), device=DEV)
+    j = JAgc.create(bandwidth=0.1, batch_shape=(2,))
     t, j = t.set_scale(4.0).set_rssi(0.0).lock(), j.set_scale(4.0).set_rssi(0.0).lock()
     yt, t = t.execute_block(torch.from_numpy(x))
     yj, j = j.execute_block(jnp.asarray(x))
@@ -187,7 +190,7 @@ def test_controls_match_yagi_tpu():
 def test_state_round_trip_from_yagi_tpu():
     x = _noise(4, (5, 50), 3.0)
     _, j = JAgc.create(bandwidth=0.03, batch_shape=(5,)).execute_block(jnp.asarray(x))
-    t = load_state(Agc, j)
+    t = load_state(Agc, j, device=DEV)
     assert t.locked.dtype == torch.bool and t.squelch_mode.dtype == torch.int32
     x2 = _noise(5, (5, 80), 3.0)
     yt, t = t.execute_block(torch.from_numpy(x2))
@@ -197,12 +200,14 @@ def test_state_round_trip_from_yagi_tpu():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: Agc.create(bandwidth=1.5), lambda: Agc.create(bandwidth=-0.1),
-    lambda: Agc.create().set_bandwidth(2.0), lambda: Agc.create().set_signal_level(0.0),
-    lambda: Agc.create().set_gain(-1.0), lambda: Agc.create().set_scale(0.0),
-    lambda: Agc.create().squelch_set_timeout(0),
-    lambda: Agc.create().init(torch.zeros(0, dtype=torch.complex64)),
-    lambda: Agc.create().execute_block(torch.zeros(10, dtype=torch.complex64), samples_per_step=3),
+    lambda: Agc.create(bandwidth=1.5, device=DEV), lambda: Agc.create(bandwidth=-0.1, device=DEV),
+    lambda: Agc.create(device=DEV).set_bandwidth(2.0),
+    lambda: Agc.create(device=DEV).set_signal_level(0.0),
+    lambda: Agc.create(device=DEV).set_gain(-1.0), lambda: Agc.create(device=DEV).set_scale(0.0),
+    lambda: Agc.create(device=DEV).squelch_set_timeout(0),
+    lambda: Agc.create(device=DEV).init(torch.zeros(0, dtype=torch.complex64)),
+    lambda: Agc.create(device=DEV).execute_block(torch.zeros(10, dtype=torch.complex64),
+                                                 samples_per_step=3),
 ])
 def test_rejects_bad_config(make):
     with pytest.raises(ConfigError):
@@ -211,7 +216,7 @@ def test_rejects_bad_config(make):
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "g_shape", "locked", "mode"])
 def test_apply_rejects_bad_input(bad):
-    t = Agc.create(batch_shape=(2,))
+    t = Agc.create(batch_shape=(2,), device=DEV)
     kw = dict(x=torch.zeros(2, 8, dtype=torch.complex64), g=t.g, y2_prime=t.y2_prime,
               alpha=t.alpha, scale=t.scale, squelch_threshold=t.squelch_threshold,
               locked=t.locked, squelch_mode=t.squelch_mode, squelch_timer=t.squelch_timer)

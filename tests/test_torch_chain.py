@@ -35,6 +35,8 @@ from yagi_tpu_torch.nco import Osc
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 C, T = 3, 2048
 
 
@@ -58,7 +60,7 @@ def _jfused(mix_freq, c=C):
 @pytest.mark.parametrize("mix_freq", [0.0, 0.35])
 def test_reference_matches_pallas_kernel(mix_freq):
     rng = np.random.default_rng(21)
-    chain = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,))
+    chain = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,), device=DEV)
     xr, xi = (rng.standard_normal((C, T)).astype(np.float32) for _ in range(2))
     hr, hi = (rng.standard_normal((C, 128)).astype(np.float32) for _ in range(2))
     theta0 = np.uint32(0x9E3779B9)
@@ -78,7 +80,7 @@ def test_reference_matches_pallas_kernel(mix_freq):
 def test_rxchain_matches_yagi_tpu():
     rng = np.random.default_rng(22)
     j = JRx.create(batch_shape=(C,))
-    t = RxChain.create(batch_shape=(C,))
+    t = RxChain.create(batch_shape=(C,), device=DEV)
     for _ in range(3):
         x = _cplx(rng, (C, T))
         yj, kj, j = j.step(jnp.asarray(x))
@@ -95,9 +97,9 @@ def test_rxchain_state_carries_over_from_yagi_tpu():
     j = JRx.create(mix_freq=0.2, batch_shape=(C,))
     _, _, j = j.step(jnp.asarray(_cplx(rng, (C, 640))))
     t = RxChain(
-        fir=load_state(FirFilter, _fields(j.fir)),
-        resamp=load_state(Resamp, _fields(j.resamp)),
-        osc=load_state(Osc, _fields(j.osc)),
+        fir=load_state(FirFilter, _fields(j.fir), device=DEV),
+        resamp=load_state(Resamp, _fields(j.resamp), device=DEV),
+        osc=load_state(Osc, _fields(j.osc), device=DEV),
     )
     x = _cplx(rng, (C, 512))
     yj, kj, _ = j.step(jnp.asarray(x))
@@ -110,8 +112,8 @@ def test_rxchain_state_carries_over_from_yagi_tpu():
 def test_fused_matches_yagi_tpu_and_rxchain(mix_freq):
     rng = np.random.default_rng(7)
     jf = _jfused(mix_freq)
-    tf = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,))
-    rx = RxChain.create(mix_freq=mix_freq, batch_shape=(C,))
+    tf = FusedRxChain.create(mix_freq=mix_freq, batch_shape=(C,), device=DEV)
+    rx = RxChain.create(mix_freq=mix_freq, batch_shape=(C,), device=DEV)
     np.testing.assert_array_equal(tf.g.numpy(), np.asarray(jf.g))
     for blk in range(3):  # streaming state carry across blocks
         x = _cplx(rng, (C, T))
@@ -129,7 +131,7 @@ def test_fused_state_carries_over_from_yagi_tpu():
     rng = np.random.default_rng(24)
     jf = _jfused(0.35)
     _, _, jf = jf.step(jnp.asarray(_cplx(rng, (C, 1024))))
-    tf = load_state(FusedRxChain, _fields(jf))
+    tf = load_state(FusedRxChain, _fields(jf), device=DEV)
     assert tf.theta.dtype == torch.int64 and tf.r == jf.r
     x = _cplx(rng, (C, 1024))
     yj, _, _ = jf.step(jnp.asarray(x))
@@ -141,8 +143,8 @@ def test_block_split_invariance():
     """One 4096 block == two 2048 blocks (state carry exact)."""
     rng = np.random.default_rng(8)
     x = torch.from_numpy(_cplx(rng, (2, 4096)))
-    y_all, _, _ = FusedRxChain.create(batch_shape=(2,)).step(x)
-    c2 = FusedRxChain.create(batch_shape=(2,))
+    y_all, _, _ = FusedRxChain.create(batch_shape=(2,), device=DEV).step(x)
+    c2 = FusedRxChain.create(batch_shape=(2,), device=DEV)
     y_a, _, c2 = c2.step(x[:, :2048])
     y_b, _, c2 = c2.step(x[:, 2048:])
     np.testing.assert_allclose(
@@ -153,7 +155,7 @@ def test_block_split_invariance():
 def test_planar_step_matches_complex_step():
     rng = np.random.default_rng(9)
     x = torch.from_numpy(_cplx(rng, (2, 1024)))
-    c = FusedRxChain.create(batch_shape=(2,))
+    c = FusedRxChain.create(batch_shape=(2,), device=DEV)
     y, k, _ = c.step(x)
     yr, yi, k2, _ = c.step_planar(x.real.contiguous(), x.imag.contiguous())
     assert k == k2 == 2048
@@ -168,15 +170,15 @@ def test_planar_step_matches_complex_step():
 )
 def test_rejects_bad_config(kw):
     with pytest.raises(ConfigError):
-        FusedRxChain.create(**kw)
+        FusedRxChain.create(**kw, device=DEV)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default", "bf16x3"])
 def test_every_precision_mode_runs_fp32(precision):
     rng = np.random.default_rng(10)
     x = torch.from_numpy(_cplx(rng, (2, 256)))
-    y, _, _ = FusedRxChain.create(batch_shape=(2,), precision=precision).step(x)
-    y0, _, _ = FusedRxChain.create(batch_shape=(2,)).step(x)
+    y, _, _ = FusedRxChain.create(batch_shape=(2,), precision=precision, device=DEV).step(x)
+    y0, _, _ = FusedRxChain.create(batch_shape=(2,), device=DEV).step(x)
     np.testing.assert_array_equal(y.numpy(), y0.numpy())
 
 
@@ -188,7 +190,7 @@ def test_dispatch_by_device():
 
 
 def _apply_args(c=2, t=256):
-    chain = FusedRxChain.create(batch_shape=(c,))
+    chain = FusedRxChain.create(batch_shape=(c,), device=DEV)
     z = torch.zeros((c, t))
     return [z, z.clone(), chain.g, chain.hist_r, chain.hist_i, chain.theta, chain.d_theta]
 

@@ -46,6 +46,8 @@ from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 M, T, R2 = 64, 256, 32  # the fused bank's channels, steps per block, TPU tile rows
 KF = 0.1  # config[4]'s FM modulation factor
 
@@ -81,7 +83,7 @@ def _jfused(**kw):
 def test_firpfbch_analysis_matches_yagi_tpu(channels, rtol):
     rng = np.random.default_rng(channels)
     j = JFirpfbch.create_kaiser(channels, 4, 60.0)
-    t = Firpfbch.create_kaiser(channels, 4, 60.0)
+    t = Firpfbch.create_kaiser(channels, 4, 60.0, device=DEV)
     np.testing.assert_array_equal(t.branches.numpy(), np.asarray(j.branches))
     assert t.p == j.p and t.get_delay() == j.get_delay()
     for _ in range(3):  # streaming state carry across blocks
@@ -98,7 +100,7 @@ def test_firpfbch_analysis_matches_yagi_tpu(channels, rtol):
 def test_firpfbch_synthesis_matches_yagi_tpu(channels):
     rng = np.random.default_rng(30 + channels)
     j = JFirpfbch.create_kaiser(channels, 4, 80.0)
-    t = Firpfbch.create_kaiser(channels, 4, 80.0)
+    t = Firpfbch.create_kaiser(channels, 4, 80.0, device=DEV)
     for _ in range(2):
         ych = _cplx(rng, (channels, 50))
         xj, j = j.synthesizer_execute(jnp.asarray(ych))
@@ -111,7 +113,7 @@ def test_firpfbch_synthesis_matches_yagi_tpu(channels):
 def test_firpfbch_batched_matches_yagi_tpu():
     rng = np.random.default_rng(40)
     j = JFirpfbch.create_kaiser(8, 3, 60.0, batch_shape=(2,))
-    t = Firpfbch.create_kaiser(8, 3, 60.0, batch_shape=(2,))
+    t = Firpfbch.create_kaiser(8, 3, 60.0, batch_shape=(2,), device=DEV)
     for _ in range(2):
         x = _cplx(rng, (2, 8 * 40))
         yj, j = j.analyzer_execute(jnp.asarray(x))
@@ -124,8 +126,8 @@ def test_firpfbch_uneven_block_split():
     one block of 96 (and yagi_tpu's single block)."""
     rng = np.random.default_rng(2)
     x = _cplx(rng, 8 * 96)
-    y1, _ = Firpfbch.create_kaiser(8, 4, 60.0).analyzer_execute(torch.from_numpy(x))
-    ch2, parts = Firpfbch.create_kaiser(8, 4, 60.0), []
+    y1, _ = Firpfbch.create_kaiser(8, 4, 60.0, device=DEV).analyzer_execute(torch.from_numpy(x))
+    ch2, parts = Firpfbch.create_kaiser(8, 4, 60.0, device=DEV), []
     for c in np.split(x, [8 * 16, 8 * 17, 8 * 60]):
         y, ch2 = ch2.analyzer_execute(torch.from_numpy(c))
         parts.append(y.numpy())
@@ -138,7 +140,7 @@ def test_firpfbch_state_carries_over_from_yagi_tpu():
     rng = np.random.default_rng(41)
     j = JFirpfbch.create_kaiser(M, 4, 60.0)
     _, j = j.analyzer_execute(jnp.asarray(_cplx(rng, M * 20)))
-    t = load_state(Firpfbch, _fields(j))
+    t = load_state(Firpfbch, _fields(j), device=DEV)
     assert t.window.dtype == torch.complex64 and t.raw_tail.dtype == torch.complex64
     assert t.num_channels == M and t.scale.dtype == torch.float32
     x = _cplx(rng, M * 30)
@@ -150,7 +152,7 @@ def test_firpfbch_state_carries_over_from_yagi_tpu():
 def test_firpfbch_scale_and_reset():
     rng = np.random.default_rng(42)
     x = torch.from_numpy(_cplx(rng, 8 * 32))
-    ch = Firpfbch.create_kaiser(8, 4, 60.0)
+    ch = Firpfbch.create_kaiser(8, 4, 60.0, device=DEV)
     y1, used = ch.analyzer_execute(x)
     y2, _ = ch.set_scale(2.0).analyzer_execute(x)
     np.testing.assert_allclose(y2.numpy(), 2 * y1.numpy(), rtol=1e-6, atol=1e-6)
@@ -162,9 +164,10 @@ def test_firpfbch_scale_and_reset():
 
 @pytest.mark.parametrize(
     "make",
-    [lambda: Firpfbch.create_kaiser(1), lambda: Firpfbch.create_kaiser(8, m=0),
-     lambda: Firpfbch.create_kaiser(8, 3).analyzer_execute(torch.zeros(13, dtype=torch.complex64)),
-     lambda: Firpfbch.create_rnyquist(FirFilterShape.GMSKTX, 8, 3, 0.3)],
+    [lambda: Firpfbch.create_kaiser(1, device=DEV), lambda: Firpfbch.create_kaiser(8, m=0, device=DEV),
+     lambda: Firpfbch.create_kaiser(8, 3, device=DEV).analyzer_execute(
+         torch.zeros(13, dtype=torch.complex64)),
+     lambda: Firpfbch.create_rnyquist(FirFilterShape.GMSKTX, 8, 3, 0.3, device=DEV)],
 )
 def test_firpfbch_rejects_bad_config(make):
     with pytest.raises(ConfigError):
@@ -177,7 +180,7 @@ def test_firpfbch_rnyquist_matches_yagi_tpu(shape):
     and outputs as yagi_tpu's."""
     x = _cplx(np.random.default_rng(9), 8 * 40)
     j = JFirpfbch.create_rnyquist(JFirFilterShape.from_str(shape), 8, 3, 0.3)
-    t = Firpfbch.create_rnyquist(FirFilterShape.from_str(shape), 8, 3, 0.3)
+    t = Firpfbch.create_rnyquist(FirFilterShape.from_str(shape), 8, 3, 0.3, device=DEV)
     np.testing.assert_array_equal(t.branches.numpy(), np.asarray(j.branches))
     yj, _ = j.analyzer_execute(jnp.asarray(x))
     yt, _ = t.analyzer_execute(torch.from_numpy(x))
@@ -187,7 +190,7 @@ def test_firpfbch_rnyquist_matches_yagi_tpu(shape):
 # ------------------------------------------------------------ fused kernel
 @pytest.mark.parametrize("m, scale", [(4, 1.0), (2, 0.5), (3, 2.0)])
 def test_tables_match_yagi_tpu(m, scale):
-    branches = Firpfbch.create_kaiser(M, m, 60.0).branches.numpy().astype(np.float64)
+    branches = Firpfbch.create_kaiser(M, m, 60.0, device=DEV).branches.numpy().astype(np.float64)
     for mine, theirs in zip(channelizer_tables(branches, scale), j_tables(branches, scale)):
         np.testing.assert_array_equal(mine, theirs)
 
@@ -195,7 +198,7 @@ def test_tables_match_yagi_tpu(m, scale):
 @pytest.mark.parametrize("zero_hist", [False, True])
 def test_reference_matches_pallas_kernel(zero_hist):
     rng = np.random.default_rng(21)
-    fz = FusedChannelizer.create_kaiser()
+    fz = FusedChannelizer.create_kaiser(device=DEV)
     n = T * M
     xr, xi = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
     hr, hi = (rng.standard_normal(fz.hist_r.shape[0]).astype(np.float32) * (not zero_hist)
@@ -213,8 +216,8 @@ def test_reference_matches_pallas_kernel(zero_hist):
 def test_fused_matches_yagi_tpu_and_firpfbch():
     rng = np.random.default_rng(0)
     jf = _jfused()
-    tf = FusedChannelizer.create_kaiser(r2=R2)
-    ref = Firpfbch.create_kaiser(M, 4, 60.0)
+    tf = FusedChannelizer.create_kaiser(r2=R2, device=DEV)
+    ref = Firpfbch.create_kaiser(M, 4, 60.0, device=DEV)
     np.testing.assert_array_equal(tf.taps.numpy(), np.asarray(jf.taps))
     for blk in range(3):  # streaming state carry across blocks
         x = _cplx(rng, T * M)
@@ -231,8 +234,8 @@ def test_fused_matches_yagi_tpu_and_firpfbch():
 def test_fused_block_split_invariance():
     rng = np.random.default_rng(1)
     x = torch.from_numpy(_cplx(rng, T * M))
-    y_all, _ = FusedChannelizer.create_kaiser(r2=R2).analyzer_execute(x)
-    fz = FusedChannelizer.create_kaiser(r2=R2)
+    y_all, _ = FusedChannelizer.create_kaiser(r2=R2, device=DEV).analyzer_execute(x)
+    fz = FusedChannelizer.create_kaiser(r2=R2, device=DEV)
     ya, fz = fz.analyzer_execute(x[: 128 * M])
     yb, fz = fz.analyzer_execute(x[128 * M :])
     np.testing.assert_allclose(y_all.numpy(), torch.cat([ya, yb], dim=-1).numpy(),
@@ -242,7 +245,7 @@ def test_fused_block_split_invariance():
 def test_fused_planar_matches_complex():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(_cplx(rng, 128 * M))
-    fz = FusedChannelizer.create_kaiser(r2=R2)
+    fz = FusedChannelizer.create_kaiser(r2=R2, device=DEV)
     y, _ = fz.analyzer_execute(x)
     yr, yi, _ = fz.analyzer_execute_planar(x.real.contiguous(), x.imag.contiguous())
     np.testing.assert_array_equal(y.real.numpy(), yr.numpy().T)
@@ -253,7 +256,7 @@ def test_fused_state_carries_over_from_yagi_tpu():
     rng = np.random.default_rng(24)
     jf = _jfused()
     _, jf = jf.analyzer_execute(jnp.asarray(_cplx(rng, T * M)))
-    tf = load_state(FusedChannelizer, _fields(jf))
+    tf = load_state(FusedChannelizer, _fields(jf), device=DEV)
     assert (tf.p, tf.r2, tf.precision) == (jf.p, jf.r2, jf.precision)
     x = _cplx(rng, T * M)
     yj, _ = jf.analyzer_execute(jnp.asarray(x))
@@ -264,7 +267,7 @@ def test_fused_state_carries_over_from_yagi_tpu():
 def test_fused_state_does_not_alias_the_input():
     rng = np.random.default_rng(25)
     xr, xi = (torch.from_numpy(rng.standard_normal(T * M).astype(np.float32)) for _ in range(2))
-    _, _, fz = FusedChannelizer.create_kaiser(r2=R2).analyzer_execute_planar(xr, xi)
+    _, _, fz = FusedChannelizer.create_kaiser(r2=R2, device=DEV).analyzer_execute_planar(xr, xi)
     tail = fz.hist_r.clone()
     xr.zero_()  # the caller refills its buffer with the next block
     np.testing.assert_array_equal(fz.hist_r.numpy(), tail.numpy())
@@ -274,8 +277,8 @@ def test_fused_state_does_not_alias_the_input():
 def test_every_precision_mode_runs_fp32(precision):
     rng = np.random.default_rng(10)
     x = torch.from_numpy(_cplx(rng, 128 * M))
-    y, _ = FusedChannelizer.create_kaiser(r2=R2, precision=precision).analyzer_execute(x)
-    y0, _ = FusedChannelizer.create_kaiser(r2=R2).analyzer_execute(x)
+    y, _ = FusedChannelizer.create_kaiser(r2=R2, precision=precision, device=DEV).analyzer_execute(x)
+    y0, _ = FusedChannelizer.create_kaiser(r2=R2, device=DEV).analyzer_execute(x)
     np.testing.assert_array_equal(y.numpy(), y0.numpy())
 
 
@@ -284,11 +287,11 @@ def test_every_precision_mode_runs_fp32(precision):
 )
 def test_fused_rejects_bad_config(kw):
     with pytest.raises(ConfigError):
-        FusedChannelizer.create_kaiser(**kw)
+        FusedChannelizer.create_kaiser(**kw, device=DEV)
 
 
 def _apply_args(n=128 * M):
-    fz = FusedChannelizer.create_kaiser(r2=R2)
+    fz = FusedChannelizer.create_kaiser(r2=R2, device=DEV)
     z = torch.zeros(n)
     return [z, z.clone(), fz.taps, fz.hr, fz.hi, fz.hist_r, fz.hist_i], fz.p
 
@@ -342,7 +345,8 @@ def test_slice_channelize_fm_matches_yagi_tpu():
     states carried over 3 blocks, port against the yagi_tpu composition."""
     rng = np.random.default_rng(50)
     jf, jd = _jfused(), JFreqdem.create(KF, batch_shape=(M,))
-    tf, td = FusedChannelizer.create_kaiser(r2=R2), Freqdem.create(KF, batch_shape=(M,))
+    tf = FusedChannelizer.create_kaiser(r2=R2, device=DEV)
+    td = Freqdem.create(KF, batch_shape=(M,), device=DEV)
     prev = np.zeros(M, np.complex64)
     for blk in range(3):
         x = _cplx(rng, T * M)
@@ -365,7 +369,8 @@ def test_slice_block_split_invariance():
     x = torch.from_numpy(_cplx(rng, T * M))
 
     def run(blocks):
-        fz, dem, ys, ms = FusedChannelizer.create_kaiser(r2=R2), Freqdem.create(KF, (M,)), [], []
+        fz, dem = FusedChannelizer.create_kaiser(r2=R2, device=DEV), Freqdem.create(KF, (M,), device=DEV)
+        ys, ms = [], []
         for b in blocks:
             y, fz = fz.analyzer_execute(b)
             m, dem = dem.demodulate(y)

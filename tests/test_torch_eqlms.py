@@ -22,9 +22,11 @@ from yagi_tpu.filter import FirFilter, FirInterpolationFilter
 from yagi_tpu.modem import Modem as JModem
 from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.equalization import Eqlms
-from yagi_tpu_torch.errors import ConfigError
+from yagi_tpu_torch.errors import ConfigError, DeviceError
 
 torch.set_num_threads(1)
+
+DEV = "cpu"  # the objects of these tests are built on the CPU
 
 TOL = 1e-4
 
@@ -45,7 +47,7 @@ def _channel(sym, taps):
 
 def test_identity_default_passes_through():
     """h_len = 9 identity: y[n] = x[n − 4] (tests/test_equalization.py:25)."""
-    t, j = Eqlms.create(h_len=9), JEqlms.create(h_len=9)
+    t, j = Eqlms.create(h_len=9, device=DEV), JEqlms.create(h_len=9)
     x = np.arange(1, 30, dtype=np.float32).astype(np.complex64)
     yt, yj = [], []
     for xi in x:
@@ -64,7 +66,7 @@ def test_train_block_matches_yagi_tpu():
     d = _qpsk(0, 2000)
     x = _channel(d, np.array([1.0, 0.0, -0.25 + 0.15j, 0.1], dtype=np.complex64))
     d_ref = np.roll(d, 13 // 2)
-    t, j = Eqlms.create(h_len=13).set_bw(0.3), JEqlms.create(h_len=13).set_bw(0.3)
+    t, j = Eqlms.create(h_len=13, device=DEV).set_bw(0.3), JEqlms.create(h_len=13).set_bw(0.3)
     yt, t = t.train_block(torch.from_numpy(x), torch.from_numpy(d_ref))
     yj, j = j.train_block(jnp.asarray(x), jnp.asarray(d_ref))
     assert yt.dtype == torch.complex64 and yt.shape == (2000,)
@@ -84,7 +86,7 @@ def test_execute_block_blind_matches_yagi_tpu():
     taps = np.array([1.0, 0.0, 0.2 - 0.1j], dtype=np.complex64)
     x = np.stack([_channel(_qpsk(s, 600), taps) for s in (1, 2, 3)])
     for k in (1, 2):
-        t = Eqlms.create(h_len=11, batch_shape=(3,)).set_bw(0.1)
+        t = Eqlms.create(h_len=11, batch_shape=(3,), device=DEV).set_bw(0.1)
         yt, t = t.execute_block(k, torch.from_numpy(x))
         assert yt.shape == (3, 600)
         for c in range(3):
@@ -108,9 +110,9 @@ def test_decim_execute_and_step_match_yagi_tpu():
     x_c = np.array(FirFilter.create(h, dtype=jnp.complex64).execute_block(x_i)[0])
     step = jax.jit(lambda e, xk, d: (lambda y_e: (y_e[0], y_e[1].step(d, y_e[0])))(
         e.decim_execute(xk, k)))
-    for make in (lambda a: a.create_lowpass(2 * k * p + 1, 0.5 / k),
-                 lambda a: a.create(h_len=2 * k * p + 1)):
-        t, j = make(Eqlms).set_bw(0.3), make(JEqlms).set_bw(0.3)
+    for make in (lambda a, **kw: a.create_lowpass(2 * k * p + 1, 0.5 / k, **kw),
+                 lambda a, **kw: a.create(h_len=2 * k * p + 1, **kw)):
+        t, j = make(Eqlms, device=DEV).set_bw(0.3), make(JEqlms).set_bw(0.3)
         np.testing.assert_array_equal(t.w.numpy(), np.asarray(j.w))
         for i in range(m + p, 300):
             xk = x_c[i * k:(i + 1) * k]
@@ -124,10 +126,10 @@ def test_decim_execute_and_step_match_yagi_tpu():
 
 
 def test_constructors_bit_equal():
-    for t, j in ((Eqlms.create_lowpass(21, 0.2), JEqlms.create_lowpass(21, 0.2)),
-                 (Eqlms.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(2,)),
+    for t, j in ((Eqlms.create_lowpass(21, 0.2, device=DEV), JEqlms.create_lowpass(21, 0.2)),
+                 (Eqlms.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(2,), device=DEV),
                   JEqlms.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(2,))),
-                 (Eqlms.create(h=np.array([0.5, 1j, -0.25]), batch_shape=(3,)),
+                 (Eqlms.create(h=np.array([0.5, 1j, -0.25]), batch_shape=(3,), device=DEV),
                   JEqlms.create(h=np.array([0.5, 1j, -0.25]), batch_shape=(3,)))):
         assert t.h_len == j.h_len
         for f in ("h0", "w", "buffer", "x2", "x2_sum", "count", "mu"):
@@ -135,11 +137,11 @@ def test_constructors_bit_equal():
             assert got.shape == want.shape and got.dtype == want.dtype, f
             np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(t.get_weights().numpy(), np.asarray(j.get_weights()))
-    assert Eqlms.create_rnyquist("rrcos", 2, 7, 0.3).h_len == 2 * 2 * 7 + 1
+    assert Eqlms.create_rnyquist("rrcos", 2, 7, 0.3, device=DEV).h_len == 2 * 2 * 7 + 1
 
 
 def test_reset_restores_weights_and_bw():
-    eq = Eqlms.create_lowpass(21, 0.2)
+    eq = Eqlms.create_lowpass(21, 0.2, device=DEV)
     w0 = eq.get_weights()
     assert w0.shape == (21,)
     eq2 = eq.push(torch.tensor(1.0 + 0j)).step(torch.tensor(1.0 + 0j), torch.tensor(0.5 + 0j))
@@ -154,7 +156,7 @@ def test_state_round_trip_from_yagi_tpu():
     dd = (np.sign(rng.normal(size=(2, 30))) + 0j).astype(np.complex64)
     _, j = JEqlms.create(h_len=7, batch_shape=(2,)).set_bw(0.1).train_block(jnp.asarray(x),
                                                                             jnp.asarray(dd))
-    t = load_state(Eqlms, j)
+    t = load_state(Eqlms, j, device=DEV)
     assert t.h_len == 7 and t.count.dtype == torch.int32 and t.w.dtype == torch.complex64
     yt, t = t.train_block(torch.from_numpy(x), torch.from_numpy(dd))
     yj, j = j.train_block(jnp.asarray(x), jnp.asarray(dd))
@@ -163,12 +165,27 @@ def test_state_round_trip_from_yagi_tpu():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: Eqlms.create(), lambda: Eqlms.create(h_len=5).set_bw(-1.0),
-    lambda: Eqlms.create_rnyquist(None, 1, 7, 0.3), lambda: Eqlms.create_rnyquist("rrcos", 2, 0, 0.3),
-    lambda: Eqlms.create_rnyquist("rrcos", 2, 7, 1.3), lambda: Eqlms.create_rnyquist("rrcos", 2, 7, 0.3, dt=2.0),
-    lambda: Eqlms.create_lowpass(0, 0.1), lambda: Eqlms.create_lowpass(7, 0.7),
-    lambda: Eqlms.create(h_len=5).execute_block(0, torch.zeros(4, dtype=torch.complex64)),
+    lambda: Eqlms.create(device=DEV), lambda: Eqlms.create(h_len=5, device=DEV).set_bw(-1.0),
+    lambda: Eqlms.create_rnyquist(None, 1, 7, 0.3, device=DEV),
+    lambda: Eqlms.create_rnyquist("rrcos", 2, 0, 0.3, device=DEV),
+    lambda: Eqlms.create_rnyquist("rrcos", 2, 7, 1.3, device=DEV),
+    lambda: Eqlms.create_rnyquist("rrcos", 2, 7, 0.3, dt=2.0, device=DEV),
+    lambda: Eqlms.create_lowpass(0, 0.1, device=DEV), lambda: Eqlms.create_lowpass(7, 0.7, device=DEV),
+    lambda: Eqlms.create(h_len=5, device=DEV).execute_block(0, torch.zeros(4, dtype=torch.complex64)),
 ])
 def test_rejects_bad_config(make):
     with pytest.raises(ConfigError):
         make()
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device the factory and load_state build on the card; with
+    the card hidden they raise DeviceError rather than fall back to the CPU,
+    and device="cpu" still works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError, match="device='cpu'"):
+        Eqlms.create(h_len=7)
+    with pytest.raises(DeviceError):
+        load_state(Eqlms, JEqlms.create(h_len=7))
+    t = load_state(Eqlms, JEqlms.create(h_len=7), device=DEV)
+    assert t.w.device.type == "cpu" and Eqlms.create(h_len=7, device=DEV).w.device.type == "cpu"

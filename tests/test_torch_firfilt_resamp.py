@@ -25,6 +25,8 @@ from yagi_tpu_torch.nco import Osc
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 _GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "firfilt.npz")
 ATOL = 1e-5
 GOLDEN_TOL = 2e-3  # tests/test_firfilt.py
@@ -49,7 +51,7 @@ def test_firfilt_golden(variant, case):
     h = g[f"FIRFILT_{variant}_DATA_{case}_H"]
     x = g[f"FIRFILT_{variant}_DATA_{case}_X"]
     y_want = g[f"FIRFILT_{variant}_DATA_{case}_Y"]
-    f = FirFilter.create(h, dtype=_torch_dtype(x.dtype))
+    f = FirFilter.create(h, dtype=_torch_dtype(x.dtype), device=DEV)
     y, _ = f.execute_block(torch.from_numpy(x))
     np.testing.assert_allclose(y.numpy(), y_want, atol=GOLDEN_TOL)
 
@@ -61,7 +63,7 @@ def test_firfilt_matches_yagi_tpu_across_blocks():
     x = _cplx(rng, (3, 1200))
     j = JFir.create_kaiser(64, 0.2, 60.0, 0.0, batch_shape=(3,), dtype=jnp.complex64)
     j = j.set_scale(0.4)
-    t = FirFilter.create_kaiser(64, 0.2, 60.0, 0.0, batch_shape=(3,), dtype=torch.complex64)
+    t = FirFilter.create_kaiser(64, 0.2, 60.0, 0.0, batch_shape=(3,), dtype=torch.complex64, device=DEV)
     t = t.set_scale(0.4)
     for i, blk in enumerate(np.split(x, [400, 401], axis=-1)):
         yj, j = j.execute_block(jnp.asarray(blk))
@@ -70,17 +72,17 @@ def test_firfilt_matches_yagi_tpu_across_blocks():
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=ATOL)
         np.testing.assert_array_equal(t.window.numpy(), np.asarray(j.window))
         if i == 0:
-            t = load_state(FirFilter, _fields(j))
+            t = load_state(FirFilter, _fields(j), device=DEV)
 
 
 def test_firfilt_rejects_empty():
     with pytest.raises(ConfigError):
-        FirFilter.create(np.zeros(0, np.float32))
+        FirFilter.create(np.zeros(0, np.float32), device=DEV)
 
 
 def _resamp_pair(rate):
     j = JResamp.create(rate, batch_shape=(3,))
-    t = Resamp.create(rate, batch_shape=(3,))
+    t = Resamp.create(rate, batch_shape=(3,), device=DEV)
     np.testing.assert_array_equal(t.branches.numpy(), np.asarray(j.branches))
     assert int(t.step) == int(np.asarray(j.step)) and t.exact_sched == j.exact_sched
     return j, t
@@ -99,7 +101,7 @@ def test_resamp_mix_down_matches(rate):
     x = _cplx(rng, (3, 1200))
     j, t = _resamp_pair(rate)
     jo = JOsc.create("exact", batch_shape=(3,)).set_frequency(0.2)
-    to = Osc.create("exact", batch_shape=(3,)).set_frequency(0.2)
+    to = Osc.create("exact", batch_shape=(3,), device=DEV).set_frequency(0.2)
     for blk in np.split(x, [400, 401], axis=-1):
         yj, kj, j, jo = j.execute_block_mix_down(jnp.asarray(blk), jo)
         yt, kt, t, to = t.execute_block_mix_down(torch.from_numpy(blk), to)
@@ -130,7 +132,7 @@ def test_resamp_u32_path_from_nonzero_phase():
     x = _cplx(rng, (3, 900))
     j = JResamp.create(1.7, batch_shape=(3,))
     _, _, j = j.execute_block(jnp.asarray(x[:, :333]))
-    t = load_state(Resamp, _fields(j))
+    t = load_state(Resamp, _fields(j), device=DEV)
     assert int(t.phase) != 0 and t.exact_sched is None
     for blk in np.split(x[:, 333:], [1, 290], axis=-1):
         yj, kj, j = j.execute_block(jnp.asarray(blk))
@@ -146,4 +148,4 @@ def test_resamp_u32_path_from_nonzero_phase():
 )
 def test_resamp_rejects(kw):
     with pytest.raises(ConfigError):
-        Resamp.create(**kw)
+        Resamp.create(**kw, device=DEV)

@@ -43,6 +43,11 @@ _MODULES = (
     "yagi_tpu_torch.kernels.agc",
     "yagi_tpu_torch.kernels.qam",
     "yagi_tpu_torch.chains.qam",
+    "yagi_tpu_torch._src.device",
+    "yagi_tpu_torch.tools.timing",
+    "yagi_tpu_torch.tools.paths",
+    "yagi_tpu_torch.tools.kernel_ab",
+    "yagi_tpu_torch.tools.step_profile",
 )
 
 
@@ -70,8 +75,13 @@ def _error_classes(mod):
     }
 
 
+# the port's own: no CUDA device for an entry point called without a device
+_PORT_ONLY = {"DeviceError"}
+
+
 def test_error_names_match():
-    assert sorted(_error_classes(terr)) == sorted(_error_classes(jerr))
+    assert sorted(set(_error_classes(terr)) - _PORT_ONLY) == sorted(_error_classes(jerr))
+    assert all(issubclass(getattr(terr, n), terr.YagiError) for n in _PORT_ONLY)
 
 
 @pytest.mark.parametrize("name", sorted(_error_classes(jerr)))

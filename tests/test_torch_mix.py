@@ -25,6 +25,8 @@ from yagi_tpu_torch.nco import Osc
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 N = 32768  # the TPU kernel's tile: block lengths are multiples of it
 
 
@@ -37,7 +39,7 @@ def test_reference_matches_pallas_and_osc(freq, phase):
     rng = np.random.default_rng(0)
     x = _cplx(rng, N)
     j = JOsc.create("exact").set_frequency(freq).set_phase(phase)
-    t = Osc.create("exact").set_frequency(freq).set_phase(phase)
+    t = Osc.create("exact", device=DEV).set_frequency(freq).set_phase(phase)
     y_pl = np.asarray(pallas_mix_down(jnp.asarray(x), j.theta, j.d_theta, interpret=True))
     y = mix_down_reference(torch.from_numpy(x), t.theta, t.d_theta)
     assert y.dtype == torch.complex64 and y.shape == (N,)
@@ -50,7 +52,7 @@ def test_streaming_with_carried_phase():
     """Two blocks with θ0' = θ0 + N·dθ (mod 2^32) equal one block of 2N."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(_cplx(rng, 2 * N))
-    osc = Osc.create("exact").set_frequency(0.91).set_phase(2.0)
+    osc = Osc.create("exact", device=DEV).set_frequency(0.91).set_phase(2.0)
     y_all = mix_down_apply(x, osc.theta, osc.d_theta)
     theta1 = (osc.theta + N * osc.d_theta) & 0xFFFFFFFF
     y_a = mix_down_apply(x[:N], osc.theta, osc.d_theta)
@@ -61,7 +63,7 @@ def test_streaming_with_carried_phase():
 def test_cpu_routing_counts_no_launch():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(_cplx(rng, N))
-    osc = Osc.create("exact").set_frequency(0.2)
+    osc = Osc.create("exact", device=DEV).set_frequency(0.2)
     before = mix_down_apply.launches
     y = mix_down_apply(x, osc.theta, osc.d_theta)
     assert mix_down_apply.launches == before
@@ -70,14 +72,14 @@ def test_cpu_routing_counts_no_launch():
 
 @pytest.mark.parametrize("n", [1000, N + 1, N // 2, 0])
 def test_rejects_length_not_a_multiple_of_the_tile(n):
-    osc = Osc.create("exact")
+    osc = Osc.create("exact", device=DEV)
     with pytest.raises(ValueError):
         mix_down_apply(torch.zeros(n, dtype=torch.complex64), osc.theta, osc.d_theta)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "layout", "device", "phase"])
 def test_rejects_bad_input(bad):
-    osc = Osc.create("exact")
+    osc = Osc.create("exact", device=DEV)
     x, theta0 = torch.zeros(N, dtype=torch.complex64), osc.theta
     if bad == "dtype":
         x = x.to(torch.complex128)

@@ -29,6 +29,8 @@ from yagi_tpu_torch.modem.modem import build_constellation
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 ALL_TABLE_SCHEMES = [  # tests/test_modem.py:29-37
     "psk2", "psk4", "psk8", "psk16", "psk32", "psk64", "psk128", "psk256",
     "ask2", "ask4", "ask8", "ask16", "ask32", "ask64", "ask128", "ask256",
@@ -50,7 +52,7 @@ def test_constellation_bit_equal(scheme):
     j = jbuild(JScheme.from_str(scheme))
     assert t.dtype == np.complex64
     np.testing.assert_array_equal(t, j)
-    tm, jm = Modem.create(scheme), JModem.create(scheme)
+    tm, jm = Modem.create(scheme, device=DEV), JModem.create(scheme)
     np.testing.assert_array_equal(tm.table.numpy(), np.asarray(jm.table))
     np.testing.assert_array_equal(tm.soft_neighbors.numpy(), np.asarray(jm.soft_neighbors))
     assert tm.bits_per_symbol == jm.bits_per_symbol
@@ -59,7 +61,7 @@ def test_constellation_bit_equal(scheme):
 @pytest.mark.parametrize("scheme", DIFFERENTIAL_SCHEMES)
 def test_differential_tables_and_modulate(scheme):
     rng = np.random.default_rng(1)
-    tm, jm = Modem.create(scheme, batch_shape=(2,)), JModem.create(scheme, batch_shape=(2,))
+    tm, jm = Modem.create(scheme, batch_shape=(2,), device=DEV), JModem.create(scheme, batch_shape=(2,))
     np.testing.assert_array_equal(tm.table.numpy(), np.asarray(jm.table))
     assert tm.bits_per_symbol == jm.bits_per_symbol
     syms = rng.integers(0, tm.constellation_size, size=(2, 64)).astype(np.uint32)
@@ -77,7 +79,7 @@ def test_differential_tables_and_modulate(scheme):
                                     "arb64vt", "bpsk", "ook"])
 def test_modulate_demodulate_match(scheme):
     rng = np.random.default_rng(2)
-    tm, jm = Modem.create(scheme, batch_shape=(3,)), JModem.create(scheme, batch_shape=(3,))
+    tm, jm = Modem.create(scheme, batch_shape=(3,), device=DEV), JModem.create(scheme, batch_shape=(3,))
     M = tm.constellation_size
     syms = rng.integers(0, M, size=(3, 200)).astype(np.uint32)
     yt, _ = tm.modulate(syms)
@@ -101,7 +103,7 @@ def test_modulate_demodulate_match(scheme):
 @pytest.mark.parametrize("scheme", ALL_TABLE_SCHEMES)
 def test_noise_free_roundtrip(scheme):
     """Every symbol demodulates to itself (tests/test_modem.py:58)."""
-    m = Modem.create(scheme)
+    m = Modem.create(scheme, device=DEV)
     syms = torch.arange(m.constellation_size)
     y, m = m.modulate(syms)
     out, _ = m.demodulate(y)
@@ -109,7 +111,7 @@ def test_noise_free_roundtrip(scheme):
 
 
 def test_ties_take_the_first_index_and_symbols_clip():
-    m = Modem.from_table(np.array([1, 1j, -1, 1], dtype=np.complex64))  # 0 and 3 coincide
+    m = Modem.from_table(np.array([1, 1j, -1, 1], dtype=np.complex64), device=DEV)  # 0 and 3 coincide
     out, _ = m.demodulate(torch.tensor([1.0 + 0j, 0.0 + 0j]))
     assert out.tolist() == [0, 0]
     y, _ = m.modulate(torch.tensor([-3, 7]))
@@ -127,12 +129,12 @@ def test_gray_codes_match():
 
 def test_from_table_and_config_errors():
     table = np.exp(2j * np.pi * np.arange(4) / 4).astype(np.complex64)
-    m = Modem.from_table(table)
+    m = Modem.from_table(table, device=DEV)
     assert m.bits_per_symbol == 2 and m.get_scheme() is ModulationScheme.ARB
     with pytest.raises(ConfigError):
-        Modem.from_table(np.ones(5, dtype=np.complex64))
+        Modem.from_table(np.ones(5, dtype=np.complex64), device=DEV)
     with pytest.raises(ConfigError):
-        Modem.create("not_a_scheme")
+        Modem.create("not_a_scheme", device=DEV)
     assert len(list(ModulationScheme)) >= 52
     for s in ModulationScheme:
         assert ModulationScheme.from_str(s.value) is s
@@ -146,13 +148,13 @@ def test_from_table_and_config_errors():
 ])
 def test_unported_entry_points_raise(call):
     with pytest.raises(ConfigError, match="not ported"):
-        call(Modem.create("qam16"))
+        call(Modem.create("qam16", device=DEV))
 
 
 def test_state_loads_from_yagi_tpu():
     jm = JModem.create("qam16", batch_shape=(2,))
     _, jm = jm.demodulate(jnp.asarray(np.full((2, 3), 0.3 + 0.1j, np.complex64)))
-    tm = load_state(Modem, jm)
+    tm = load_state(Modem, jm, device=DEV)
     assert tm.scheme is ModulationScheme.QAM16 and tm.rand_state.dtype == torch.int64
     np.testing.assert_array_equal(tm.x_hat.numpy(), np.asarray(jm.x_hat))
     tm = tm.reset()

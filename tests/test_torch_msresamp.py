@@ -29,6 +29,8 @@ from yagi_tpu_torch.utils import compact_valid
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 RATE1 = 2.0 / 2.0663  # config[1] (bench.py:179)
 TOL = 1e-5
 SLOT_TOL = 1e-4
@@ -64,7 +66,7 @@ _RATES = [(RATE1, "farrow"), (0.3, "pfb"), (3.0, "pfb")]
 def test_msresamp_matches_yagi_tpu_across_blocks(rate, interp):
     x = _sig(1, 16, 3 * 512)
     j = JMsResamp.create(rate, batch_shape=(16,), arbitrary_interp=interp)
-    t = MsResamp.create(rate, batch_shape=(16,), arbitrary_interp=interp)
+    t = MsResamp.create(rate, batch_shape=(16,), arbitrary_interp=interp, device=DEV)
     assert t.num_halfband_stages == j.num_halfband_stages
     assert t.out_capacity(512) == j.out_capacity(512)
     for st, sj in zip(t.halfband.stages, j.halfband.stages):
@@ -86,7 +88,7 @@ def test_msresamp_state_carries_over_from_yagi_tpu(rate, interp):
     x = _sig(2, 4, 700)
     j = JMsResamp.create(rate, batch_shape=(4,), arbitrary_interp=interp)
     _, _, j = j.execute_block(jnp.asarray(x[:, :333]))
-    t = load_state(MsResamp, j)
+    t = load_state(MsResamp, j, device=DEV)
     assert t.arbitrary.interp == interp and len(t.halfband.stages) == j.num_halfband_stages
     yj, kj, j = j.execute_block(jnp.asarray(x[:, 333:]))
     yt, kt, t = t.execute_block(torch.from_numpy(x[:, 333:]))
@@ -98,7 +100,7 @@ def test_msresamp_state_carries_over_from_yagi_tpu(rate, interp):
 def test_msresamp_execute_compacts():
     x = _sig(3, 2, 300)
     j = JMsResamp.create(0.3, batch_shape=(2,))
-    t = MsResamp.create(0.3, batch_shape=(2,))
+    t = MsResamp.create(0.3, batch_shape=(2,), device=DEV)
     yj, _ = j.execute(jnp.asarray(x))
     yt, _ = t.execute(torch.from_numpy(x))
     _close(yt, yj, TOL)
@@ -110,7 +112,7 @@ def test_resamp_execute_block_n_matches_yagi_tpu(n_valid):
     x = _sig(4, 3, 400)
     j = JResamp.create(RATE1, batch_shape=(3,))
     _, _, j = j.execute_block(jnp.asarray(x[:, :37]))
-    t = load_state(Resamp, j)
+    t = load_state(Resamp, j, device=DEV)
     yj, kj, j = j.execute_block_n(jnp.asarray(x), n_valid)
     yt, kt, t = t.execute_block_n(torch.from_numpy(x), torch.tensor(n_valid))
     assert int(kt) == int(np.asarray(kj)) and t.exact_sched is None
@@ -120,11 +122,11 @@ def test_resamp_execute_block_n_matches_yagi_tpu(n_valid):
 
 
 def test_resamp_farrow_is_stored_but_execute_block_raises():
-    t = Resamp.create(RATE1, interp="farrow")
+    t = Resamp.create(RATE1, interp="farrow", device=DEV)
     assert t.interp == "farrow"
     with pytest.raises(ConfigError, match="Farrow"):
         t.execute_block(torch.zeros(64, dtype=torch.complex64))
-    ms = MsResamp.create(1.5, arbitrary_interp="farrow")
+    ms = MsResamp.create(1.5, arbitrary_interp="farrow", device=DEV)
     with pytest.raises(ConfigError, match="Farrow"):
         ms.execute_block(torch.zeros(64, dtype=torch.complex64))
 
@@ -147,9 +149,9 @@ def test_compact_valid_bit_identical(kind):
 
 def _slice_pair(c):
     jm = JMsResamp.create(RATE1, batch_shape=(c,), arbitrary_interp="farrow")
-    tm = MsResamp.create(RATE1, batch_shape=(c,), arbitrary_interp="farrow")
+    tm = MsResamp.create(RATE1, batch_shape=(c,), arbitrary_interp="farrow", device=DEV)
     js = JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
-    ts = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
+    ts = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(c,), device=DEV).set_lf_bw(0.02)
     return jm, js, tm, ts
 
 

@@ -22,6 +22,8 @@ from yagi_tpu_torch.nco.osc import PHASE_TO_RAD
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 
 def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
@@ -50,7 +52,7 @@ def test_constrain_phase_bit_exact():
 @pytest.mark.parametrize("phase", [0.0, 0.7, -2.5])
 def test_phase_ramp_bit_exact(freq, phase):
     j = JOsc.create("exact", batch_shape=(2,)).set_frequency(freq).set_phase(phase)
-    t = Osc.create("exact", batch_shape=(2,)).set_frequency(freq).set_phase(phase)
+    t = Osc.create("exact", batch_shape=(2,), device=DEV).set_frequency(freq).set_phase(phase)
     np.testing.assert_array_equal(t.d_theta.numpy(), np.asarray(j.d_theta).astype(np.int64))
     np.testing.assert_array_equal(
         t._phase_ramp(5000).numpy(), np.asarray(j._phase_ramp(5000)).astype(np.int64)
@@ -73,7 +75,7 @@ def test_u32_to_f32_bit_exact():
 def test_mix_block_down_matches(freq):
     rng = np.random.default_rng(11)
     j = JOsc.create("exact", batch_shape=(3,)).set_frequency(freq).set_phase(0.4)
-    t = load_state(Osc, _fields(j))
+    t = load_state(Osc, _fields(j), device=DEV)
     for n in (100, 1, 513):
         x = _cplx(rng, (3, n))
         yj, j = j.mix_block_down(jnp.asarray(x))
@@ -85,7 +87,7 @@ def test_mix_block_down_matches(freq):
 def test_mix_block_down_n_matches():
     rng = np.random.default_rng(12)
     j = JOsc.create("exact").set_frequency(0.3)
-    t = Osc.create("exact").set_frequency(0.3)
+    t = Osc.create("exact", device=DEV).set_frequency(0.3)
     for n_valid in (0, 37, 400):
         x = _cplx(rng, (2, 400))
         yj, j = j.mix_block_down_n(jnp.asarray(x), jnp.int32(n_valid))
@@ -96,7 +98,7 @@ def test_mix_block_down_n_matches():
 
 def test_load_state_keeps_u32_as_int64():
     j = JOsc.create("exact").set_frequency(-0.35).set_phase(-1.0)
-    t = load_state(Osc, _fields(j))
+    t = load_state(Osc, _fields(j), device=DEV)
     assert t.theta.dtype == torch.int64 and t.d_theta.dtype == torch.int64
     assert int(t.theta) == int(np.asarray(j.theta)) and int(t.d_theta) > (1 << 31)
 
@@ -104,4 +106,4 @@ def test_load_state_keeps_u32_as_int64():
 @pytest.mark.parametrize("mode", ["nco", "vco", "sideways"])
 def test_unported_and_unknown_modes_raise(mode):
     with pytest.raises(ConfigError):
-        Osc.create(mode)
+        Osc.create(mode, device=DEV)

@@ -32,11 +32,15 @@ from yagi_tpu.filter import FirInterpolationFilter
 from yagi_tpu.modem import Modem as JModem
 from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.chains import QamRx
-from yagi_tpu_torch.errors import ConfigError
+from yagi_tpu_torch._src.device import resolve_device
+from yagi_tpu_torch.errors import ConfigError, DeviceError
 from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference
+from yagi_tpu_torch.modem import Modem
 from yagi_tpu_torch.utils import compact_valid
 
 torch.set_num_threads(1)
+
+DEV = "cpu"  # the objects of these tests are built on the CPU
 
 K, M, BETA = 2, 7, 0.3
 C_SIG, NSYM = 4, 3000  # impaired 16-QAM channels and symbols sent in each
@@ -105,7 +109,7 @@ def test_step_masked_matches_yagi_tpu_on_impaired_qam(impaired):
     against yagi_tpu's fused (its CPU route) and decoupled formulations."""
     _, x = impaired
     j = jd = JQamRx.create(batch_shape=(C_SIG,))
-    t = QamRx.create(batch_shape=(C_SIG,))
+    t = QamRx.create(batch_shape=(C_SIG,), device=DEV)
     for i in range(2):
         blk = x[:, i * N_PARITY:(i + 1) * N_PARITY]
         *jo, j = j.step_masked(jnp.asarray(blk))
@@ -124,7 +128,7 @@ def test_step_masked_matches_yagi_tpu_on_noise():
     x = _noise()
     j = JQamRx.create(batch_shape=(8,))
     *jo, j = j.step_masked(jnp.asarray(x))
-    *to, t = QamRx.create(batch_shape=(8,)).step_masked(torch.from_numpy(x))
+    *to, t = QamRx.create(batch_shape=(8,), device=DEV).step_masked(torch.from_numpy(x))
     _same_outputs(to, jo)
     _same_state(t, j)
 
@@ -144,7 +148,7 @@ def test_decodes_impaired_qam(impaired):
     rate 0 and tail EVM < −25 dB in every channel, the carrier loop moved off
     0, no deferred emission (tests/test_qamrx.py::test_impaired_channel)."""
     sent, x = impaired
-    t = QamRx.create(batch_shape=(C_SIG,))
+    t = QamRx.create(batch_shape=(C_SIG,), device=DEV)
     syms, soft, cnt = [], [], []
     for blk in np.split(x, 4, axis=-1):
         s, v, n, t = t.step(torch.from_numpy(blk))
@@ -164,7 +168,7 @@ def test_decodes_impaired_qam(impaired):
 
 def test_block_split_is_exact():
     x = torch.from_numpy(_noise())
-    rx = QamRx.create(batch_shape=(8,))
+    rx = QamRx.create(batch_shape=(8,), device=DEV)
     *one, s1 = rx.step_masked(x)
     *a, s2 = rx.step_masked(x[:, :200])
     *b, s2 = s2.step_masked(x[:, 200:], samples_per_step=8)
@@ -178,7 +182,7 @@ def test_block_split_is_exact():
 
 def test_step_compacts_reset_and_evm():
     x = torch.from_numpy(_noise(seed=10))
-    rx = QamRx.create(batch_shape=(8,))
+    rx = QamRx.create(batch_shape=(8,), device=DEV)
     syms_m, soft_m, mask, _ = rx.step_masked(x)
     syms, soft, num, new = rx(x)
     assert torch.equal(num, mask.sum(-1))
@@ -187,7 +191,7 @@ def test_step_compacts_reset_and_evm():
     ms = new.evm_accum / torch.clamp(new.evm_count, min=1.0)
     assert torch.equal(new.get_evm(), 10.0 * torch.log10(torch.clamp(ms, min=1e-12)))
     r = new.reset()
-    fresh = QamRx.create(batch_shape=(8,))
+    fresh = QamRx.create(batch_shape=(8,), device=DEV)
     for f in ("theta", "dtheta", "sym_phase", "evm_accum", "evm_count", "overflow_count"):
         assert torch.equal(getattr(r, f), getattr(fresh, f)), f
     assert torch.equal(r.eq.w, fresh.eq.w) and torch.equal(r.agc.g, fresh.agc.g)
@@ -196,7 +200,7 @@ def test_step_compacts_reset_and_evm():
 
 def test_create_and_controls_match_yagi_tpu():
     j = JQamRx.create(batch_shape=(3,)).set_bandwidth(0.05)
-    t = QamRx.create(batch_shape=(3,)).set_bandwidth(0.05)
+    t = QamRx.create(batch_shape=(3,), device=DEV).set_bandwidth(0.05)
     assert (t.k, t.k_eq, t.slots, t.eq.h_len) == (j.k, j.k_eq, j.slots, j.eq.h_len)
     for f in ("table", "alpha", "beta", "sym_phase", "theta"):
         np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)))
@@ -207,11 +211,12 @@ def test_create_and_controls_match_yagi_tpu():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: QamRx.create("rrcos", 1, M, BETA), lambda: QamRx.create("rrcos", K, M, 1.5),
-    lambda: QamRx.create("rrcos", K, M, BETA, eq_len=6),
-    lambda: QamRx.create("rrcos", K, M, BETA).set_bandwidth(-0.1),
-    lambda: QamRx.create(batch_shape=(2,)).step_masked(torch.zeros(2, 10, dtype=torch.complex64),
-                                                       samples_per_step=3),
+    lambda: QamRx.create("rrcos", 1, M, BETA, device=DEV),
+    lambda: QamRx.create("rrcos", K, M, 1.5, device=DEV),
+    lambda: QamRx.create("rrcos", K, M, BETA, eq_len=6, device=DEV),
+    lambda: QamRx.create("rrcos", K, M, BETA, device=DEV).set_bandwidth(-0.1),
+    lambda: QamRx.create(batch_shape=(2,), device=DEV).step_masked(
+        torch.zeros(2, 10, dtype=torch.complex64), samples_per_step=3),
 ])
 def test_rejects_bad_config(make):
     """tests/test_qamrx.py:111-120, and samples_per_step not dividing n."""
@@ -226,7 +231,7 @@ def test_overflow_count_matches_yagi_fused_route():
     j = JQamRx.create(batch_shape=(8,))
     slow = jnp.full((8,), 0.4, jnp.float32)
     j = j.replace(symsync=j.symsync.replace(rate=slow, delta=slow))
-    t = load_state(QamRx, j)
+    t = load_state(QamRx, j, device=DEV)
     x = _noise(seed=11, n=256)
     *jo, j = j.step_masked(jnp.asarray(x))
     *to, t = t.step_masked(torch.from_numpy(x))
@@ -244,7 +249,7 @@ def test_eq_scan_reference_matches_yagi_eq_scan():
     y0, _ = j.agc.execute_block(jnp.asarray(x), samples_per_step=8)
     ys, vs, _ = j.symsync.execute_slots(y0, max_emit=j.slots)
     *jo, jn = j._step_masked_decoupled(jnp.asarray(x))
-    t = load_state(QamRx, j)
+    t = load_state(QamRx, j, device=DEV)
     slots = (torch.from_numpy(np.asarray(ys)).reshape(8, -1),
              torch.from_numpy(np.asarray(vs)).reshape(8, -1))
     launches = qam_eq_scan_apply.launches
@@ -268,7 +273,7 @@ def test_load_state_round_trip():
     table) and continues as yagi_tpu does."""
     x = _noise(seed=13)
     _, _, _, j = JQamRx.create(batch_shape=(8,)).step_masked(jnp.asarray(x[:, :256]))
-    t = load_state(QamRx, j)
+    t = load_state(QamRx, j, device=DEV)
     assert t.agc.squelch_mode.dtype == torch.int32 and t.eq.count.dtype == torch.int32
     assert t.symsync.b.dtype == torch.int32 and t.table.dtype == torch.complex64
     np.testing.assert_array_equal(t.eq.w.numpy(), np.asarray(j.eq.w))
@@ -280,7 +285,7 @@ def test_load_state_round_trip():
 
 @pytest.mark.parametrize("bad", ["rank", "keys", "y_dtype", "mu_shape", "count_dtype", "table"])
 def test_eq_scan_apply_rejects_bad_input(bad):
-    rx = QamRx.create(batch_shape=(2,))
+    rx = QamRx.create(batch_shape=(2,), device=DEV)
     table, mu, alpha, beta, state = rx.eq_scan_args()
     y = torch.zeros(2, 16, dtype=torch.complex64)
     valid = torch.ones(2, 16, dtype=torch.bool)
@@ -298,3 +303,81 @@ def test_eq_scan_apply_rejects_bad_input(bad):
         table = table[None]
     with pytest.raises((ValueError, TypeError)):
         qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state)
+
+
+def _serial_argmin(d):
+    """The decision as one thread takes it: a strict < from index 0, a NaN
+    distance counting as smallest (the first NaN wins)."""
+    best, arg = d[0], 0
+    for m in range(1, len(d)):
+        if d[m] < best or (np.isnan(d[m]) and not np.isnan(best)):
+            best, arg = d[m], m
+    return arg
+
+
+def _lane_argmin(d, lanes=16):
+    """The decision as lanes take it: lane l scans m ≡ l (mod lanes), then the
+    lexicographic minimum of (not NaN, distance, index) over the lanes."""
+    def key(m):
+        return (not np.isnan(d[m]), 0.0 if np.isnan(d[m]) else d[m], m)
+
+    return min((min(range(l, len(d), lanes), key=key) for l in range(min(lanes, len(d)))), key=key)
+
+
+@pytest.mark.parametrize("case", ["qpsk", "qam16", "qam64", "nan_points", "nan_slots"])
+def test_eq_scan_reference_takes_the_first_minimum(case):
+    """A fresh equalizer on zero slots outputs exactly 0, equidistant from the
+    nearest 4 points of a QPSK, 16- or 64-QAM table: ``qam_eq_scan_reference``
+    decides the first of them, as the serial scan and the lanes' rule both
+    do. A NaN distance is smallest and the first NaN wins: NaN table points
+    at indices 5 and 9, or NaN slots (every distance NaN, so index 0)."""
+    c, n = 3, 16
+    rx = QamRx.create(batch_shape=(c,), device=DEV)
+    table, mu, alpha, beta, state = rx.eq_scan_args()
+    scheme = case if case.startswith("q") else "qam16"
+    table = Modem.create(scheme, device=DEV).table.clone()
+    y = torch.zeros(c, n, dtype=torch.complex64)
+    if case == "nan_points":
+        table[[5, 9]] = complex("nan+nanj")
+    elif case == "nan_slots":
+        y[:, 3::4] = complex("nan+nanj")
+    valid = torch.ones(c, n, dtype=torch.bool)
+    syms, soft, mask, _ = qam_eq_scan_reference(y, valid, table, mu, alpha, beta, state, k_eq=2)
+    t = table.numpy()
+    for ci in range(c):
+        for s in range(n):
+            v = soft[ci, s].numpy()
+            d = ((v.real - t.real) ** 2 + (v.imag - t.imag) ** 2).astype(np.float32)
+            want = _serial_argmin(d)
+            assert _lane_argmin(d) == _lane_argmin(d, lanes=8) == want
+            assert int(syms[ci, s]) == want, (ci, s)
+    if case == "nan_points":
+        assert (syms == 5).all()
+    elif case == "nan_slots":
+        assert (syms[:, 3::4] == 0).all() and soft[:, 3::4].isnan().all()
+    else:  # a tie among the nearest points, broken to the lowest index
+        d = (np.abs(t) ** 2).astype(np.float32)
+        assert (d == d.min()).sum() == 4 and (syms == int(np.argmin(d))).all()
+
+
+def test_create_without_a_device_needs_the_card(monkeypatch):
+    """Entry points default to the card: with torch seeing no CUDA device,
+    QamRx.create() raises DeviceError naming the fix; device="cpu" builds
+    every tensor on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError, match="device='cpu'"):
+        QamRx.create()
+    with pytest.raises(DeviceError):
+        load_state(QamRx, JQamRx.create(batch_shape=(2,)))
+    rx = QamRx.create(batch_shape=(2,), device="cpu")
+    tensors = [rx.table, rx.theta, rx.agc.g, rx.symsync.tau, rx.symsync.mf, rx.eq.w, rx.overflow_count]
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_resolve_device_picks_the_current_card(monkeypatch):
+    """None is the current CUDA device; an explicit device passes through."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_device(None) == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 0)) == torch.device("cuda", 0)

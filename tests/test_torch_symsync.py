@@ -46,6 +46,8 @@ from yagi_tpu_torch.kernels.symscan import (
 
 torch.set_num_threads(1)
 
+DEV = "cpu"  # the objects of these tests are built on the CPU
+
 C, N = 128, 256
 P, L, LPAD = 32, 28, 32  # config[1]'s bank: 32 branches of 28 taps (TPU pad 32)
 SLOT_TOL = 1e-4  # tests/test_symscan.py::TestSymscanFused
@@ -59,7 +61,7 @@ def _sig(seed, c=C, n=N):
 
 def _pair(c=C, k_out=1):
     j = JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
-    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(c,)).set_lf_bw(0.02)
+    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(c,), device=DEV).set_lf_bw(0.02)
     if k_out != 1:
         j, t = j.set_output_rate(k_out), t.set_output_rate(k_out)
     return j, t
@@ -156,6 +158,47 @@ def test_fused_reference_matches_pallas_fused(n_valid):
     assert np.abs(y.numpy() - y_want).max() < FUSED_TOL * max(np.abs(y_want).max(), 1.0)
 
 
+def _lane_dots(xa, g):
+    """K3's dots in numpy float32, one rounded op at a time: lane l of a dot
+    sums the products of taps j ≡ l (mod 4) in increasing j (0 where it
+    has none), then the lanes combine as (s0 + s1) + (s2 + s3)."""
+    n = xa.shape[1] - g.shape[1]
+    out = []
+    for plane in (xa.real[:, 1:], xa.imag[:, 1:]):
+        sums = []
+        for lane in range(4):
+            acc = np.zeros((xa.shape[0], n, g.shape[0]), np.float32)
+            for i, j in enumerate(range(lane, g.shape[1], 4)):
+                term = plane[:, j:j + n, None] * g[:, j]
+                acc = term if i == 0 else acc + term
+            sums.append(acc)
+        out.append((sums[0] + sums[1]) + (sums[2] + sums[3]))
+    return np.concatenate(out, -1)
+
+
+@pytest.mark.parametrize("taps", [3, 13, 18, 37])
+def test_branch_outputs_are_the_dots_the_fused_loop_picks(taps):
+    """For L not a multiple of 4 (L < 4, lanes without a tap; L > 32, taps
+    past K3's unrolled ones):
+    ``branch_outputs`` equals K3's lane order worked out independently, and
+    ``symsync_fused_reference`` equals K4's loop over that stream, so the
+    fused loop picks exactly those dots."""
+    rng = np.random.default_rng(30 + taps)
+    c, n = 9, 40
+    _, t = _pair(c=c)
+    kw = t.kernel_args()
+    g = (0.3 * rng.standard_normal((2 * kw["P"], taps))).astype(np.float32)
+    xa = _sig(taps, c=c, n=n + taps)
+    want = _lane_dots(xa, g)
+    got = branch_outputs(torch.from_numpy(xa), torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), want)
+    fused = symsync_fused_reference(torch.from_numpy(xa), torch.from_numpy(g), _nv(30), E=2, **kw)
+    loop = symsync_scan_reference(torch.from_numpy(want), _nv(30), E=2, **kw)
+    assert int(fused[1].sum()) > 0
+    for a, b in zip(fused, loop):
+        assert torch.equal(a, b)
+
+
 def test_wrappers_run_plain_versions_on_cpu():
     """On CPU tensors the kernel wrappers run the plain versions and count no
     launch; K4's plain version and the XLA-form scan agree bit for bit at
@@ -225,7 +268,7 @@ def test_create_matches_yagi_tpu():
     np.testing.assert_array_equal(t.pll_b.numpy(), np.asarray(j.pll_b))
     np.testing.assert_array_equal(t.rate_adjustment.numpy(), np.asarray(j.rate_adjustment))
     jk = JSymsync.create_kaiser(2, 3, 0.4, num_filters=16, batch_shape=(2,))
-    tk = Symsync.create_kaiser(2, 3, 0.4, num_filters=16, batch_shape=(2,))
+    tk = Symsync.create_kaiser(2, 3, 0.4, num_filters=16, batch_shape=(2,), device=DEV)
     np.testing.assert_array_equal(tk.mf.numpy(), np.asarray(jk.mf))
     np.testing.assert_array_equal(tk.dmf.numpy(), np.asarray(jk.dmf))
 
@@ -281,7 +324,7 @@ def test_state_carries_over_from_yagi_tpu():
     x = _sig(10)
     j, _ = _pair()
     _, _, j = j.execute_slots(jnp.asarray(x[:, :96]), backend="xla")
-    t = load_state(Symsync, j)
+    t = load_state(Symsync, j, device=DEV)
     assert t.b.dtype == torch.int32 and t.locked.dtype == torch.bool
     yj, vj, j = j.execute_slots(jnp.asarray(x[:, 96:]), backend="xla")
     yt, vt, t = t.execute_slots(torch.from_numpy(x[:, 96:]), backend="xla")
@@ -293,7 +336,7 @@ def test_controls_match_yagi_tpu():
     """lock (no timing updates), set_output_rate, unlock, reset, get_tau."""
     x = _sig(11, c=4)
     j, t = (JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, batch_shape=(4,)),
-            Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(4,)))
+            Symsync.create_rnyquist("rrcos", 2, 7, 0.3, batch_shape=(4,), device=DEV))
     j, t = j.lock(), t.lock()
     yj, vj, j = j.execute_slots(jnp.asarray(x), backend="xla")
     yt, vt, t = t.execute_slots(torch.from_numpy(x), backend="auto")
@@ -312,7 +355,7 @@ def test_unbatched_and_real_input():
     """batch_shape () and a float32 stream, as yagi_tpu takes them."""
     x = _sig(12, c=1)[0].real.copy()
     j = JSymsync.create_rnyquist(JShape.RRCOS, 2, 7, 0.3, dtype=jnp.float32)
-    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, dtype=torch.float32)
+    t = Symsync.create_rnyquist("rrcos", 2, 7, 0.3, dtype=torch.float32, device=DEV)
     yj, vj, _ = j.execute_slots(jnp.asarray(x), backend="xla")
     yt, vt, _ = t.execute_slots(torch.from_numpy(x))
     assert yt.dtype == torch.float32 and yt.shape == (N, 2)
@@ -324,9 +367,9 @@ def test_unbatched_and_real_input():
     [lambda t: t.execute_slots(torch.zeros(C, 10, dtype=torch.complex64), samples_per_step=3),
      lambda t: t.execute_slots(torch.zeros(C, 8, dtype=torch.complex64), backend="mosaic"),
      lambda t: t.set_lf_bw(1.5), lambda t: t.set_output_rate(0),
-     lambda t: Symsync.create_rnyquist("rrcos", 1, 7, 0.3),
-     lambda t: Symsync.create_rnyquist("nyquist", 2, 7, 0.3),
-     lambda t: Symsync.create_rnyquist("gmsktx", 2, 7, 0.3)],
+     lambda t: Symsync.create_rnyquist("rrcos", 1, 7, 0.3, device=DEV),
+     lambda t: Symsync.create_rnyquist("nyquist", 2, 7, 0.3, device=DEV),
+     lambda t: Symsync.create_rnyquist("gmsktx", 2, 7, 0.3, device=DEV)],
 )
 def test_rejects_bad_config(make):
     _, t = _pair()
@@ -350,7 +393,7 @@ def _deferring(c=C, k_out=2, rate=0.5):
     below, after every sample)."""
     j, _ = _pair(c, k_out=k_out)
     j = j.replace(rate=jnp.full((c,), rate, jnp.float32), delta=jnp.full((c,), rate, jnp.float32))
-    return j, load_state(Symsync, j)
+    return j, load_state(Symsync, j, device=DEV)
 
 
 @pytest.mark.parametrize("k_out", [1, 2])

@@ -19,6 +19,8 @@ from typing import Any, TypeVar
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 _T = TypeVar("_T")
 
 U32 = 0xFFFFFFFF
@@ -82,6 +84,7 @@ def load_state(cls: type[_T], arrays, device=None) -> _T:
     Symsync's ``bank_g``) are ignored; a missing field falls back to its
     default or raises ``KeyError``.
     """
+    device = resolve_device(device)
     if not isinstance(arrays, dict):
         arrays = {f.name: getattr(arrays, f.name) for f in dataclasses.fields(arrays)}
     hints = typing.get_type_hints(cls)

@@ -16,6 +16,7 @@ import math
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from ..kernels.agc import agc_scan_apply, agc_scan_reference
 
@@ -53,6 +54,7 @@ class Agc:
     @classmethod
     def create(cls, bandwidth: float = _AGC_DEFAULT_BW, batch_shape: tuple = (),
                device=None) -> "Agc":
+        device = resolve_device(device)
         if not 0.0 <= bandwidth <= 1.0:
             raise ConfigError("bandwidth must be in [0, 1]")
 

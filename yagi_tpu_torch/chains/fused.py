@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from .._src.struct import U32
 from .. import design
 from ..errors import ConfigError
@@ -64,6 +65,7 @@ class FusedRxChain:
         precision: str = "highest",
         device=None,
     ) -> "FusedRxChain":
+        device = resolve_device(device)
         p = int(round(rate))
         if p != rate or p < 1:
             raise ConfigError("FusedRxChain requires an integer rate")

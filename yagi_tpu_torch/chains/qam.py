@@ -27,6 +27,7 @@ import math
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..agc import Agc
 from ..design import FirFilterShape
 from ..equalization import Eqlms
@@ -67,6 +68,7 @@ class QamRx:
                scheme: str = "qam16", eq_len: int = 7, eq_bw: float = 0.02,
                pll_bw: float = 0.02, batch_shape: tuple = (), slots: int = 2,
                device=None) -> "QamRx":
+        device = resolve_device(device)
         if k < 2:
             raise ConfigError("samples/symbol must be at least 2")
         if not 0.0 < beta <= 1.0:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..filter import FirFilter, Resamp
 from ..nco import Osc
 
@@ -39,6 +40,7 @@ class RxChain:
         osc_mode: str = "exact",
         device=None,
     ) -> "RxChain":
+        device = resolve_device(device)
         fir = FirFilter.create_kaiser(
             n_taps, fc, as_, 0.0, batch_shape=batch_shape, dtype=torch.complex64,
             device=device,

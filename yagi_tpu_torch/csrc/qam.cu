@@ -1,5 +1,5 @@
-// QamRx's equalizer / carrier loop over a block's symsync slots, one thread
-// per channel (qam_eq_scan).
+// QamRx's equalizer / carrier loop over a block's symsync slots
+// (qam_eq_scan), kLanes lanes per channel.
 //
 // Replaces the eq-only lax.scan of yagi_tpu/chains/qam.py
 // (_step_masked_decoupled, qam.py:294-302), whose body is eq_slot
@@ -21,30 +21,57 @@
 // for bit, because the loop feeds its decisions back and one ulp parts a
 // channel for good on noise: every product, sum and quotient is
 // __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn (never contracted into an FMA, as
-// torch rounds each op), cosf/sinf are called separately where torch calls
-// cos and sin, the argmin scans the table from index 0 with a strict < (a
-// NaN counts as smallest, as torch.argmin), and the clamps are comparisons
-// so a NaN propagates as torch.clamp lets it.
+// torch rounds each op), cos and sin are the CUDA math library's, as torch's
+// are (sincosf: one range reduction for both, the same bits as cosf and
+// sinf, 8% faster, PERF.md §6), the decision is the first index of the
+// smallest distance (a NaN counts as smallest, as torch.argmin), and the
+// clamps are comparisons so a NaN propagates as torch.clamp lets it.
 //
-// What bounds it on an H100: the slots are serial per channel, and each is
-// ~500 instructions (the h_len-tap complex dot, cosf and sinf, the M-way
-// argmin, two divisions, the PLL and LMS updates) whose result the next slot
-// needs. With one thread per channel (2048 channels: 64 warps on 132 SMs,
-// one warp per scheduler) they issue in order and wait on each other: ~2,500
-// cycles a slot, 11.8 ms a config[3] block, where the ~430 MB it moves take
-// ~0.13 ms. An unrolled argmin over a register-held table gained 5% (PERF.md
-// §6); more lanes per channel is the lever.
+// What bounds it on an H100: the slots are serial per channel, and the
+// ~430 MB a config[3] block moves take ~0.13 ms, so the loop's issue rate and
+// its chain of dependent operations are the limit. One thread per channel
+// gives 64 warps for 2048 channels, each issuing ~500 instructions a slot in
+// order, half of them the 16-way argmin (~2,500 cycles a slot, PERF.md §6).
+// So each channel has kLanes lanes: 8, 512 warps at C = 2048, one per
+// scheduler (16 lanes, two warps per scheduler, and 4 lanes both measured
+// slower, PERF.md §6):
+//
+// * the argmin is lane-parallel: lane ℓ takes the points m ≡ ℓ (mod kLanes)
+//   in increasing m, then an xor butterfly over the channel's lanes takes
+//   the smallest key (NaN first, then the distance, then the index). That
+//   is the index the serial strict-< scan from 0 picks, ties and NaNs
+//   included: distances are ≥ 0 or NaN, so their bits order as the floats.
+//   Each distance is the plain version's __fsub_rn/__fmul_rn/__fadd_rn.
+// * the h_len-tap dot, cos/sin, the PLL and the LMS update run on every lane
+//   of the channel, the same ops in the same order, so every lane holds the
+//   same bits and no sum changes order.
+// * each block stages a tile of its channels' slots (y, valid) in shared
+//   memory with coalesced loads, issued into registers one tile ahead so they
+//   fly while the loop runs, and writes syms, soft and mask back from shared
+//   memory in coalesced rows.
+//
 // The window and weights live in registers (h_len is a template parameter,
-// so the push is a register rename); the table sits in shared memory, read
-// by all lanes at one address (a broadcast). Each thread walks its own row;
-// the loads do not depend on the loop, so the compiler issues them ahead.
+// so the push is a register rename); the table sits in shared memory, and a
+// lane's own points in registers too where the table has at most kPts·kLanes
+// (16-QAM: 2 a lane), so its distances wait on no load (14% faster than the
+// loop over shared memory; 8 points a lane, most of them predicated off,
+// was 6% slower: PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanes = 8;  // lanes per channel: a power of two ≤ 32 (8 beat 4 and 16: PERF.md §6)
+static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0, "lanes");
+constexpr int kChans = 16;                  // channels per block
+constexpr int kThreads = kChans * kLanes;   // 128 at 8 lanes: 4 warps
+constexpr int kPre = 8;                     // tile elements each thread loads
+constexpr int kTile = kPre * kThreads / kChans;  // slots per tile: 8·kLanes
+constexpr int kPitch = kTile + 1;   // 4- and 8-byte rows: channels on distinct banks
+constexpr int kBPitch = kTile + 4;  // byte rows
+constexpr int kPts = 2;  // table points a lane holds in registers (M ≤ kPts·kLanes)
 
 struct EqIn {
   const float2 *w, *buf;
@@ -70,6 +97,42 @@ __device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); 
 // torch.clamp(v, min=lo): a NaN stays NaN
 __device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
 
+// The argmin's order as one integer: NaN first, then the distance (≥ 0, so
+// its bits order as the float), then the index.
+__device__ __forceinline__ unsigned long long arg_key(float d, int m) {
+  const unsigned k = isnan(d) ? 0u : __float_as_uint(d) + 1u;
+  return ((unsigned long long)k << 32) | (unsigned)m;
+}
+
+__device__ __forceinline__ unsigned long long key_min(unsigned long long a,
+                                                      unsigned long long b) {
+  return b < a ? b : a;
+}
+
+// Thread tid moves tile elements tid + k·kThreads (row r, column col), so
+// neighbouring threads touch neighbouring slots of one channel: the block's
+// tile of slots [s0, s0 + kTile) into registers, zero past C or S.
+__device__ __forceinline__ void fetch_tile(const float2* __restrict__ y,
+                                           const uint8_t* __restrict__ valid, int c0, int s0,
+                                           int C, int S, float2 (&py)[kPre],
+                                           uint8_t (&pv)[kPre]) {
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = i / kTile, col = i % kTile;
+    const bool in_range = c0 + r < C && s0 + col < S;
+    const size_t o = (size_t)(c0 + r) * S + s0 + col;
+    py[k] = in_range ? y[o] : make_float2(0.0f, 0.0f);
+    pv[k] = in_range ? valid[o] : 0;
+  }
+}
+
+// Shared memory: the table [M], then per tile y and soft [kChans][kPitch]
+// float2, syms [kChans][kPitch] int32, valid and mask [kChans][kBPitch].
+size_t smem_bytes(int M) {
+  return sizeof(float2) * (M + 2 * kChans * kPitch) + sizeof(int32_t) * kChans * kPitch +
+         2 * kChans * kBPitch;
+}
+
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 qam_eq_scan_kernel(const float2* __restrict__ y, const uint8_t* __restrict__ valid,
@@ -77,11 +140,22 @@ qam_eq_scan_kernel(const float2* __restrict__ y, const uint8_t* __restrict__ val
                    const float* __restrict__ alpha_in, const float* __restrict__ beta_in, EqIn in,
                    int64_t* __restrict__ syms, float2* __restrict__ soft,
                    uint8_t* __restrict__ mask, EqOut out, int C, int S, int M, int k_eq) {
-  extern __shared__ float2 tab[];
-  for (int i = threadIdx.x; i < M; i += kThreads) tab[i] = table[i];
-  __syncthreads();
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
+  extern __shared__ float2 smem[];
+  float2* tab = smem;
+  float2* yt = tab + M;
+  float2* st = yt + kChans * kPitch;
+  int32_t* symt = reinterpret_cast<int32_t*>(st + kChans * kPitch);
+  uint8_t* vt = reinterpret_cast<uint8_t*>(symt + kChans * kPitch);
+  uint8_t* mt = vt + kChans * kBPitch;
+
+  const int tid = threadIdx.x;
+  const int ch = tid / kLanes;
+  const int lane = tid % kLanes;
+  const int c0 = blockIdx.x * kChans;
+  const bool live = c0 + ch < C;
+  const int c = live ? c0 + ch : C - 1;  // a dead channel runs the last one, for the shuffles
+
+  for (int i = tid; i < M; i += kThreads) tab[i] = table[i];
 
   const float mu = mu_in[c], alpha = alpha_in[c], beta = beta_in[c];
   const float half_h = 0.5f * H;
@@ -98,112 +172,159 @@ qam_eq_scan_kernel(const float2* __restrict__ y, const uint8_t* __restrict__ val
   float x2s = in.x2s[c], theta = in.theta[c], dtheta = in.dtheta[c];
   float eacc = in.eacc[c], ecnt = in.ecnt[c];
   int32_t cnt = in.cnt[c], sph = in.sph[c];
+  // this lane's points m = lane + k·kLanes, for tables that fit in registers
+  const bool held = M <= kPts * kLanes;
+  float2 pts[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int m = lane + k * kLanes;
+    pts[k] = held && m < M ? table[m] : make_float2(0.0f, 0.0f);
+  }
 
-  const size_t row = (size_t)c * S;
-  for (int s = 0; s < S; ++s) {
-    const float2 v = y[row + s];
-    const bool vi = valid[row + s] != 0;
-    // push (eqlms.rs:125)
-    const float x2n = fa(fm(v.x, v.x), fm(v.y, v.y));
-    float brp[H], bip[H], x2p[H];
+  float2 py[kPre];
+  uint8_t pv[kPre];
+  fetch_tile(y, valid, c0, 0, C, S, py, pv);
+
+  for (int s0 = 0; s0 < S; s0 += kTile) {
+    const int tn = min(kTile, S - s0);
 #pragma unroll
-    for (int j = 0; j + 1 < H; ++j) {
-      brp[j] = br[j + 1];
-      bip[j] = bi[j + 1];
-      x2p[j] = x2t[j + 1];
+    for (int k = 0; k < kPre; ++k) {  // park the tile fetched one tile ago
+      const int i = tid + k * kThreads, r = i / kTile, col = i % kTile;
+      yt[r * kPitch + col] = py[k];
+      vt[r * kBPitch + col] = pv[k];
     }
-    brp[H - 1] = v.x;
-    bip[H - 1] = v.y;
-    x2p[H - 1] = x2n;
-    const float x2sp = fs(fa(x2s, x2n), x2t[0]);
-    const int32_t cntp = cnt + 1;
-    // execute (eqlms.rs:137)
-    float yr = fa(fm(wr[0], brp[0]), fm(wi[0], bip[0]));
-    float yi = fs(fm(wr[0], bip[0]), fm(wi[0], brp[0]));
+    __syncthreads();
+    if (s0 + kTile < S) fetch_tile(y, valid, c0, s0 + kTile, C, S, py, pv);  // in flight now
+
+    for (int tt = 0; tt < tn; ++tt) {
+      const float2 v = yt[ch * kPitch + tt];
+      const bool vi = vt[ch * kBPitch + tt] != 0;
+      // push (eqlms.rs:125)
+      const float x2n = fa(fm(v.x, v.x), fm(v.y, v.y));
+      float brp[H], bip[H], x2p[H];
 #pragma unroll
-    for (int j = 1; j < H; ++j) {
-      yr = fa(yr, fa(fm(wr[j], brp[j]), fm(wi[j], bip[j])));
-      yi = fa(yi, fs(fm(wr[j], bip[j]), fm(wi[j], brp[j])));
-    }
-    const bool is_sym = vi && sph == 0;
-    const bool can_adapt = is_sym && x2sp > half_h;
-    // derotation and decision
-    const float co = cosf(theta), sn = sinf(theta);
-    const float vr = fa(fm(yr, co), fm(yi, sn));
-    const float vim = fs(fm(yi, co), fm(yr, sn));
-    int sym = 0;
-    float best;
-    {
-      const float dr = fs(vr, tab[0].x), di = fs(vim, tab[0].y);
-      best = fa(fm(dr, dr), fm(di, di));
-    }
-    for (int m = 1; m < M; ++m) {
-      const float dr = fs(vr, tab[m].x), di = fs(vim, tab[m].y);
-      const float d = fa(fm(dr, dr), fm(di, di));
-      if (d < best || (isnan(d) && !isnan(best))) {
-        best = d;
-        sym = m;
+      for (int j = 0; j + 1 < H; ++j) {
+        brp[j] = br[j + 1];
+        bip[j] = bi[j + 1];
+        x2p[j] = x2t[j + 1];
       }
-    }
-    const float sr = tab[sym].x, si = tab[sym].y;
-    // PLL
-    const float pe = __fdiv_rn(fs(fm(vim, sr), fm(vr, si)),
-                               clamp_min(fa(fm(sr, sr), fm(si, si)), 1e-12f));
-    // LMS toward ŝ·e^{jθ} (eqlms.rs:170-187)
-    const float ar = fs(fs(fm(sr, co), fm(si, sn)), yr);
-    const float ai = fs(fa(fm(si, co), fm(sr, sn)), yi);
-    const float g = __fdiv_rn(mu, clamp_min(x2sp, 1e-20f));
-    if (can_adapt && cntp >= H) {
+      brp[H - 1] = v.x;
+      bip[H - 1] = v.y;
+      x2p[H - 1] = x2n;
+      const float x2sp = fs(fa(x2s, x2n), x2t[0]);
+      const int32_t cntp = cnt + 1;
+      // execute (eqlms.rs:137)
+      float yr = fa(fm(wr[0], brp[0]), fm(wi[0], bip[0]));
+      float yi = fs(fm(wr[0], bip[0]), fm(wi[0], brp[0]));
 #pragma unroll
-      for (int j = 0; j < H; ++j) {
-        const float ur = fm(g, fa(fm(ar, brp[j]), fm(ai, bip[j])));
-        const float ui = fm(g, fs(fm(ar, bip[j]), fm(ai, brp[j])));
-        wr[j] = fa(wr[j], ur);
-        wi[j] = fa(wi[j], ui);
+      for (int j = 1; j < H; ++j) {
+        yr = fa(yr, fa(fm(wr[j], brp[j]), fm(wi[j], bip[j])));
+        yi = fa(yi, fs(fm(wr[j], bip[j]), fm(wi[j], brp[j])));
       }
-    }
-    if (vi) {
+      const bool is_sym = vi && sph == 0;
+      const bool can_adapt = is_sym && x2sp > half_h;
+      // derotation and decision: this lane's points, then the channel's lanes
+      float sn, co;
+      sincosf(theta, &sn, &co);
+      const float vr = fa(fm(yr, co), fm(yi, sn));
+      const float vim = fs(fm(yi, co), fm(yr, sn));
+      unsigned long long key = ~0ull;
+      if (held) {
 #pragma unroll
-      for (int j = 0; j < H; ++j) {
-        br[j] = brp[j];
-        bi[j] = bip[j];
-        x2t[j] = x2p[j];
-      }
-      x2s = x2sp;
-      cnt = cntp;
-      if (k_eq == 2) {
-        sph ^= 1;
+        for (int k = 0; k < kPts; ++k) {
+          const int m = lane + k * kLanes;
+          if (m < M) {
+            const float dr = fs(vr, pts[k].x), di = fs(vim, pts[k].y);
+            key = key_min(key, arg_key(fa(fm(dr, dr), fm(di, di)), m));
+          }
+        }
       } else {
-        sph = (sph + 1) % k_eq;
-        if (sph < 0) sph += k_eq;
+        for (int m = lane; m < M; m += kLanes) {
+          const float dr = fs(vr, tab[m].x), di = fs(vim, tab[m].y);
+          key = key_min(key, arg_key(fa(fm(dr, dr), fm(di, di)), m));
+        }
+      }
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        key = key_min(key, __shfl_xor_sync(kFull, key, off));
+      const int sym = (int)(unsigned)key;
+      const float sr = tab[sym].x, si = tab[sym].y;
+      // PLL
+      const float pe = __fdiv_rn(fs(fm(vim, sr), fm(vr, si)),
+                                 clamp_min(fa(fm(sr, sr), fm(si, si)), 1e-12f));
+      // LMS toward ŝ·e^{jθ} (eqlms.rs:170-187)
+      const float ar = fs(fs(fm(sr, co), fm(si, sn)), yr);
+      const float ai = fs(fa(fm(si, co), fm(sr, sn)), yi);
+      const float g = __fdiv_rn(mu, clamp_min(x2sp, 1e-20f));
+      if (can_adapt && cntp >= H) {
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          const float ur = fm(g, fa(fm(ar, brp[j]), fm(ai, bip[j])));
+          const float ui = fm(g, fs(fm(ar, bip[j]), fm(ai, brp[j])));
+          wr[j] = fa(wr[j], ur);
+          wi[j] = fa(wi[j], ui);
+        }
+      }
+      if (vi) {
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          br[j] = brp[j];
+          bi[j] = bip[j];
+          x2t[j] = x2p[j];
+        }
+        x2s = x2sp;
+        cnt = cntp;
+        if (k_eq == 2) {
+          sph ^= 1;
+        } else {
+          sph = (sph + 1) % k_eq;
+          if (sph < 0) sph += k_eq;
+        }
+      }
+      if (can_adapt) {
+        const float theta_n = fa(fa(theta, dtheta), fm(alpha, pe));
+        dtheta = fa(dtheta, fm(beta, pe));
+        theta = theta_n;
+        const float er = fs(vr, sr), ei = fs(vim, si);
+        eacc = fa(eacc, fa(fm(er, er), fm(ei, ei)));
+        ecnt = fa(ecnt, 1.0f);
+      }
+      if (lane == 0) {
+        symt[ch * kPitch + tt] = sym;
+        st[ch * kPitch + tt] = make_float2(vr, vim);
+        mt[ch * kBPitch + tt] = is_sym;
       }
     }
-    if (can_adapt) {
-      const float theta_n = fa(fa(theta, dtheta), fm(alpha, pe));
-      dtheta = fa(dtheta, fm(beta, pe));
-      theta = theta_n;
-      const float er = fs(vr, sr), ei = fs(vim, si);
-      eacc = fa(eacc, fa(fm(er, er), fm(ei, ei)));
-      ecnt = fa(ecnt, 1.0f);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {  // the tile's outputs, in coalesced rows
+      const int i = tid + k * kThreads, r = i / kTile, col = i % kTile;
+      if (c0 + r < C && col < tn) {
+        const size_t o = (size_t)(c0 + r) * S + s0 + col;
+        syms[o] = symt[r * kPitch + col];
+        soft[o] = st[r * kPitch + col];
+        mask[o] = mt[r * kBPitch + col];
+      }
     }
-    syms[row + s] = sym;
-    soft[row + s] = make_float2(vr, vim);
-    mask[row + s] = is_sym;
+    // the next park writes yt and vt, which no thread reads any more; the
+    // output tiles are written again only after the next __syncthreads
   }
 
+  if (live && lane == 0) {
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
-    out.buf[c * H + j] = make_float2(br[j], bi[j]);
-    out.w[c * H + j] = make_float2(wr[j], wi[j]);
-    out.x2[c * H + j] = x2t[j];
+    for (int j = 0; j < H; ++j) {
+      out.buf[c * H + j] = make_float2(br[j], bi[j]);
+      out.w[c * H + j] = make_float2(wr[j], wi[j]);
+      out.x2[c * H + j] = x2t[j];
+    }
+    out.x2s[c] = x2s;
+    out.cnt[c] = cnt;
+    out.theta[c] = theta;
+    out.dtheta[c] = dtheta;
+    out.sph[c] = sph;
+    out.eacc[c] = eacc;
+    out.ecnt[c] = ecnt;
   }
-  out.x2s[c] = x2s;
-  out.cnt[c] = cnt;
-  out.theta[c] = theta;
-  out.dtheta[c] = dtheta;
-  out.sph[c] = sph;
-  out.eacc[c] = eacc;
-  out.ecnt[c] = ecnt;
 }
 
 template <int H>
@@ -211,8 +332,8 @@ cudaError_t launch(const float2* y, const uint8_t* valid, const float2* table, c
                    const float* alpha, const float* beta, const EqIn& in, int64_t* syms,
                    float2* soft, uint8_t* mask, const EqOut& out, int C, int S, int M, int k_eq,
                    cudaStream_t stream) {
-  const int blocks = (C + kThreads - 1) / kThreads;
-  const int smem = (int)sizeof(float2) * M;
+  const int blocks = (C + kChans - 1) / kChans;
+  const int smem = (int)smem_bytes(M);
   cudaError_t err = cudaFuncSetAttribute(qam_eq_scan_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -18,16 +18,26 @@
 //   loop's feedback, dots an ulp apart would part whole channels.
 //
 // What bounds them on an H100: the loop is serial per channel, one chain of
-// ~40 dependent operations per slot, 2·n slots per block; with one thread
-// (K4) or four lanes (K3) per channel, C = 1024 gives 32 or 128 warps, so
-// both are latency-bound, not bandwidth- or FLOP-bound. K3 splits each
-// channel's dots over kLanes lanes (taps j ≡ lane mod kLanes, then an xor
-// butterfly, which leaves all lanes the same bits since a + b = b + a, so
-// the four run the loop in lockstep) and stages each 8-channel tile's samples in shared memory:
-// coalesced loads along t, a row pitch ≡ 4 (mod 32) words so the 8 channels
-// × 4 lanes of a warp read 32 distinct banks. K4 reads its four values
-// straight from device memory: 2 GB per config[1] block of which each slot
-// touches four 4-byte words.
+// ~40 dependent operations per slot, 2·n slots per block, so both are
+// latency-bound, not bandwidth- or FLOP-bound (K3 moves ~110 MB a config[1]
+// block, ~33 µs of HBM time). K4 runs one thread per channel and reads its
+// four values straight from device memory: 2 GB per config[1] block of which
+// each slot touches four 4-byte words.
+//
+// K3 gives each channel kLanes = 16 lanes, four groups of kGroup = 4, one
+// group per dot, so a lane does a quarter of the four dots' multiply-adds
+// and C = 1024 gives 512 warps (the four dots on 4 lanes: 128 warps, ~750
+// cycles a slot, PERF.md §6). Lane l of a group sums the taps j ≡ l (mod 4),
+// and a 2-level xor butterfly in the group adds (s0 + s1) + (s2 + s3): the
+// order branch_outputs reproduces, and a + b = b + a leaves all four lanes
+// the same bits. Four shuffles hand the four dots to all 16 lanes, which run
+// sym_emit in lockstep. A lane's taps are unrolled and predicated (up to
+// kUnroll of them), so its tap and sample loads all issue at once: in a loop
+// each load waits on the one before, ~30 cycles a tap on the slot's chain
+// (32% of the time, PERF.md §6). Each block of 8 channels stages tiles of
+// samples in shared memory by cp.async, double buffered so the next tile's
+// copies fly while the loop runs, with pitches chosen so that a warp's tap
+// and sample loads hit distinct banks.
 //
 // Outputs: y [C, n, E] complex64 (mr/k, mi/k, zero for an empty slot), valid
 // [C, n, E] uint8 (bool), state' [9, C] into a fresh array, and deferred [C]
@@ -44,9 +54,12 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScanThreads = 32;  // K4: one channel per thread
-constexpr int kLanes = 4;         // K3: lanes per channel
-constexpr int kChans = 32 / kLanes;  // K3: channels per block (one warp)
+constexpr int kGroup = 4;         // K3: lanes per dot (taps j ≡ lane mod 4)
+constexpr int kLanes = 4 * kGroup;  // K3: lanes per channel, one group per dot
+constexpr int kFusedThreads = 128;  // K3: threads per block (4 warps)
+constexpr int kChans = kFusedThreads / kLanes;  // K3: channels per block
 constexpr int kTile = 128;        // K3: samples per shared-memory tile
+constexpr int kUnroll = 8;        // K3: taps a lane takes unrolled (L ≤ 32)
 
 __device__ __forceinline__ yagi::SymParams sym_params(const uint8_t* locked, const float* radj,
                                                       const float* pll_a, const float* pll_b,
@@ -87,84 +100,130 @@ symsync_scan_kernel(const float* __restrict__ xs4, const int64_t* __restrict__ n
   deferred[c] = pend;
 }
 
-// Shared memory: taps [2P][gpitch], then the re and im planes of the tile,
-// [kChans][pitch] each.
-__global__ void __launch_bounds__(32)
+// cp.async: a copy from device to shared memory that does not wait for the
+// data; a commit_group closes the copies issued so far, and
+// wait_group<N> waits until at most N of the newest groups are in flight.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// K3's tile: xa[c0 + r][t0 .. t0 + w) of the block's kChans channels into
+// rows of spitch float2, by asynchronous copies (zeros past C); then one
+// commit. Neighbouring threads copy neighbouring samples of one row.
+__device__ __forceinline__ void fused_fill(float2* dst, const float2* __restrict__ xa, int c0,
+                                           int t0, int w, int C, int nx, int spitch) {
+  for (int i = threadIdx.x; i < kChans * w; i += kFusedThreads) {
+    const int r = i / w, col = i % w;
+    float2* d = dst + r * spitch + col;
+    if (c0 + r < C && t0 + col < nx) {
+      cp_async8(d, xa + (size_t)(c0 + r) * nx + t0 + col);
+    } else {
+      *d = make_float2(0.0f, 0.0f);
+    }
+  }
+  cp_async_commit();
+}
+
+// Shared memory: two copies of the taps, [cstride] floats each (copy k for
+// the channels ch ≡ k (mod 2), the two of a warp), branch i's mf row at
+// i·rpitch and its dmf row fpitch after it; then two tiles (double buffer)
+// of [kChans][spitch] float2 samples.
+//
+// Banks: a warp's 32 lanes are 2 channels × 4 dots × 4 taps. Its tap loads
+// touch 16 words (mf and dmf, taps j ≡ lane) per channel pair: cstride ≡ 8,
+// rpitch ≡ 16, fpitch ≡ 4 (mod 32) put channel k's 8 words on banks
+// 8k + 16·(i mod 2) + [0, 8), so the two channels never share a bank, for any
+// two branches. Its sample loads touch 16 words (re and im, 4 taps, 2 rows):
+// spitch ≡ 4 (mod 16) float2 puts them on 16 distinct banks.
+__global__ void __launch_bounds__(kFusedThreads)
 symsync_fused_kernel(const float2* __restrict__ xa, const float* __restrict__ g,
                      const int64_t* __restrict__ n_valid, const float* __restrict__ st_in,
                      const uint8_t* __restrict__ locked, const float* __restrict__ radj,
                      const float* __restrict__ pll_a, const float* __restrict__ pll_b,
                      float2* __restrict__ y, uint8_t* __restrict__ valid,
                      float* __restrict__ st_out, int32_t* __restrict__ deferred, int C, int n,
-                     int L, int P, int E, int k_out, float kinv, int gpitch, int pitch) {
+                     int L, int P, int E, int k_out, float kinv, int fpitch, int rpitch,
+                     int cstride, int spitch) {
   extern __shared__ float smem[];
   float* gs = smem;
-  float* xr = gs + 2 * P * gpitch;
-  float* xi = xr + kChans * pitch;
+  float2* xs = reinterpret_cast<float2*>(gs + 2 * cstride);
 
   const int tid = threadIdx.x;
-  const int ch = tid / kLanes;
-  const int lane = tid % kLanes;
+  const int ch = tid / kLanes;             // channel in the block
+  const int grp = (tid % kLanes) / kGroup;  // dot: 0 re·mf, 1 re·dmf, 2 im·mf, 3 im·dmf
+  const int lane = tid % kGroup;           // taps j ≡ lane (mod kGroup)
+  const int head = (tid % 32) & ~(kLanes - 1);  // the channel's first lane in the warp
   const int c0 = blockIdx.x * kChans;
   const int c = c0 + ch;
   const bool live = c < C;  // a dead channel runs as the last one, for the shuffles
   const int nx = n + L;
   const int64_t nv = n_valid ? *n_valid : n;
 
-  for (int i = tid; i < 2 * P * L; i += 32) gs[(i / L) * gpitch + i % L] = g[i];
+  for (int i = tid; i < 2 * P * L; i += kFusedThreads) {
+    const int row = i / L, j = i % L;  // g's row: mf of branch row, then dmf of row − P
+    float* d = gs + (row % P) * rpitch + (row / P) * fpitch + j;
+    d[0] = g[i];
+    d[cstride] = g[i];
+  }
+  const float* taps = gs + (ch & 1) * cstride + (grp & 1) * fpitch;
+  const int plane = grp >> 1;
   const yagi::SymParams p =
       sym_params(locked, radj, pll_a, pll_b, kinv, live ? c : C - 1, P, k_out);
   yagi::SymState s = yagi::sym_load(st_in, C, live ? c : C - 1);
   int32_t pend = 0;
 
-  for (int t0 = 0; t0 < n; t0 += kTile) {
+  fused_fill(xs, xa, c0, 0, min(kTile, n) + L, C, nx, spitch);
+  for (int t0 = 0, buf = 0; t0 < n; t0 += kTile, buf ^= 1) {
     const int tn = min(kTile, n - t0);
-    const int w = tn + L;  // xa[t0 .. t0+tn+L): slot t reads xa[t+1 .. t+L]
-    __syncthreads();  // the previous tile is read (and the taps written)
-    for (int i = tid; i < kChans * w; i += 32) {
-      const int r = i / w, col = i % w;
-      float2 v = make_float2(0.0f, 0.0f);
-      if (c0 + r < C && t0 + col < nx) v = xa[(size_t)(c0 + r) * nx + t0 + col];
-      xr[r * pitch + col] = v.x;
-      xi[r * pitch + col] = v.y;
+    if (t0 + kTile < n) {  // the next tile flies while this one runs
+      fused_fill(xs + (buf ^ 1) * kChans * spitch, xa, c0, t0 + kTile,
+                 min(kTile, n - t0 - kTile) + L, C, nx, spitch);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    const float* pr = xr + ch * pitch + 1;
-    const float* pi = xi + ch * pitch + 1;
+    __syncthreads();  // this tile (and the taps) are in
+    // slot t reads xa[t+1 .. t+L]: this lane's plane, as floats
+    const float* px =
+        reinterpret_cast<const float*>(xs + buf * kChans * spitch + ch * spitch + 1) + plane;
     for (int tt = 0; tt < tn; ++tt) {
       const int t = t0 + tt;
       const bool vs = t < nv;
       for (int e = 0; e < E; ++e) {
-        const int bb = yagi::sym_branch(s, P);
-        const float* gm = gs + bb * gpitch;
-        const float* gd = gs + (P + bb) * gpitch;
-        // this lane's taps j ≡ lane (mod kLanes), first product then adds,
-        // each rounded: the order branch_outputs reproduces in torch
-        float mr = 0.0f, dr = 0.0f, mi = 0.0f, di = 0.0f;
-        if (lane < L) {
-          const float a = pr[tt + lane], b = pi[tt + lane];
-          mr = __fmul_rn(gm[lane], a);
-          dr = __fmul_rn(gd[lane], a);
-          mi = __fmul_rn(gm[lane], b);
-          di = __fmul_rn(gd[lane], b);
-        }
-        for (int j = lane + kLanes; j < L; j += kLanes) {
-          const float a = pr[tt + j], b = pi[tt + j];
-          mr = __fadd_rn(mr, __fmul_rn(gm[j], a));
-          dr = __fadd_rn(dr, __fmul_rn(gd[j], a));
-          mi = __fadd_rn(mi, __fmul_rn(gm[j], b));
-          di = __fadd_rn(di, __fmul_rn(gd[j], b));
-        }
+        const float* gt = taps + yagi::sym_branch(s, P) * rpitch;
+        // this lane's taps j ≡ lane (mod kGroup), first product then adds,
+        // each rounded, then a 2-level butterfly in the dot's group: the
+        // order branch_outputs reproduces in torch
+        // (unrolled and predicated up to kUnroll taps a lane, so the loads
+        // all issue before the adds; a loop takes the taps past that)
+        float acc = 0.0f;
 #pragma unroll
-        for (int off = 1; off < kLanes; off <<= 1) {
-          mr = __fadd_rn(mr, __shfl_xor_sync(kFull, mr, off));
-          dr = __fadd_rn(dr, __shfl_xor_sync(kFull, dr, off));
-          mi = __fadd_rn(mi, __shfl_xor_sync(kFull, mi, off));
-          di = __fadd_rn(di, __shfl_xor_sync(kFull, di, off));
+        for (int k = 0; k < kUnroll; ++k) {
+          const int j = lane + k * kGroup;
+          if (j < L) {
+            const float prod = __fmul_rn(gt[j], px[2 * (tt + j)]);
+            acc = k == 0 ? prod : __fadd_rn(acc, prod);
+          }
         }
+        for (int j = lane + kUnroll * kGroup; j < L; j += kGroup)
+          acc = __fadd_rn(acc, __fmul_rn(gt[j], px[2 * (tt + j)]));
+#pragma unroll
+        for (int off = 1; off < kGroup; off <<= 1)
+          acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
+        // every lane of the channel takes the four dots, and runs the loop
+        const float mr = __shfl_sync(kFull, acc, head);
+        const float dr = __shfl_sync(kFull, acc, head + kGroup);
+        const float mi = __shfl_sync(kFull, acc, head + 2 * kGroup);
+        const float di = __shfl_sync(kFull, acc, head + 3 * kGroup);
         float yr, yi;
         const bool act = yagi::sym_emit(s, p, vs, mr, dr, mi, di, yr, yi);
-        if (live && lane == 0) {
+        if (live && tid % kLanes == 0) {
           const size_t o = ((size_t)c * n + t) * E + e;
           y[o] = make_float2(yr, yi);
           valid[o] = act;
@@ -173,15 +232,30 @@ symsync_fused_kernel(const float2* __restrict__ xa, const float* __restrict__ g,
       pend += yagi::sym_pending(s, P, vs);
       yagi::sym_wrap(s, P, vs);
     }
+    __syncthreads();  // this tile is read before the next fill overwrites it
   }
-  if (live && lane == 0) {
+  if (live && tid % kLanes == 0) {
     yagi::sym_store(st_out, C, c, s);
     deferred[c] = pend;
   }
 }
 
-// The smallest pitch ≥ len with pitch ≡ 4 (mod 32).
-int bank_pitch(int len) { return len + ((4 - len) % 32 + 32) % 32; }
+// The smallest pitch ≥ len with pitch ≡ rem (mod mod).
+int pitch(int len, int rem, int mod) { return len + ((rem - len) % mod + mod) % mod; }
+
+struct FusedLayout {
+  int fpitch, rpitch, cstride, spitch, smem;
+};
+
+FusedLayout fused_layout(int L, int P) {
+  FusedLayout f;
+  f.fpitch = pitch(L, 4, 32);
+  f.rpitch = pitch(f.fpitch + L, 16, 32);
+  f.cstride = pitch(P * f.rpitch, 8, 32);
+  f.spitch = pitch(kTile + L, 4, 16);
+  f.smem = (int)(sizeof(float) * 2 * f.cstride + sizeof(float2) * 2 * kChans * f.spitch);
+  return f;
+}
 
 }  // namespace
 
@@ -204,7 +278,7 @@ extern "C" int yagi_symsync_scan(const float* xs4, const int64_t* n_valid, const
 
 // K3. xa: [C, n + L] complex64, the L-sample window then the block; g:
 // [2P, L] float32 with g[i, j] = [mf; dmf][i, L−1−j], applied to xa[t+1+j];
-// the rest as yagi_symsync_scan. Shared memory grows with L and P (~20 KB
+// the rest as yagi_symsync_scan. Shared memory grows with L and P (~42 KB
 // at L = 28, P = 32); past the block's limit the attribute call fails and
 // its error is returned.
 extern "C" int yagi_symsync_fused(const void* xa, const float* g, const int64_t* n_valid,
@@ -213,15 +287,14 @@ extern "C" int yagi_symsync_fused(const void* xa, const float* g, const int64_t*
                                   uint8_t* valid, float* st_out, int32_t* deferred, int C,
                                   int n, int L, int P, int E, int k_out, float kinv,
                                   void* stream) {
-  const int smem =
-      (int)sizeof(float) * (2 * P * bank_pitch(L) + 2 * kChans * bank_pitch(kTile + L));
+  const FusedLayout f = fused_layout(L, P);
   cudaError_t err = cudaFuncSetAttribute(symsync_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (C + kChans - 1) / kChans;
-  symsync_fused_kernel<<<blocks, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  symsync_fused_kernel<<<blocks, kFusedThreads, f.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(xa), g, n_valid, st_in, locked, radj, pll_a, pll_b,
-      static_cast<float2*>(y), valid, st_out, deferred, C, n, L, P, E, k_out, kinv,
-      bank_pitch(L), bank_pitch(kTile + L));
+      static_cast<float2*>(y), valid, st_out, deferred, C, n, L, P, E, k_out, kinv, f.fpitch,
+      f.rpitch, f.cstride, f.spitch);
   return (int)cudaGetLastError();
 }

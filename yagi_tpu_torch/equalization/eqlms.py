@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
 
@@ -45,6 +46,7 @@ class Eqlms:
                dtype=torch.complex64, device=None) -> "Eqlms":
         """From initial taps h (conjugate-reversed internally,
         eqlms.rs:39-45), or the identity (a center tap) if h is None."""
+        device = resolve_device(device)
         if h is not None:
             h = np.asarray(h)
             h_len = len(h)

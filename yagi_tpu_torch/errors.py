@@ -2,7 +2,8 @@
 
 Same class names and hierarchy as :mod:`yagi_tpu.errors`: the reference
 defines ``Error::{Internal, Config, Value, Range, Mode, NoConvergence}``;
-constructors validate parameters eagerly and fail with ``Config``.
+constructors validate parameters eagerly and fail with ``Config``. One class
+is the port's own: :class:`DeviceError`.
 """
 
 from __future__ import annotations
@@ -30,3 +31,9 @@ class NoConvergenceError(YagiError, RuntimeError):
 
 class InternalError(YagiError, RuntimeError):
     """Internal invariant violation (reference: ``Error::Internal``)."""
+
+
+class DeviceError(YagiError, RuntimeError):
+    """No device to build on: an entry point was called without ``device``
+    where torch sees no CUDA device. The port's own class (yagi_tpu places
+    arrays on JAX's default device)."""

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
 from ._conv import causal_conv_valid, np_taps
@@ -33,6 +34,7 @@ class FirFilter:
         cls, h, scale=1.0, batch_shape: tuple = (), dtype=None, device=None
     ) -> "FirFilter":
         """From explicit coefficients (firfilt.rs:63)."""
+        device = resolve_device(device)
         h = np_taps(h)
         if h.size == 0:
             raise ConfigError("filter length must be greater than zero")

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .msresamp2 import MsResamp2
 from .resamp import Resamp
@@ -51,6 +52,7 @@ class MsResamp:
                dtype=torch.complex64, arbitrary_interp: str = "pfb",
                device=None) -> "MsResamp":
         """Rate decomposition per msresamp.rs:28-80."""
+        device = resolve_device(device)
         if rate <= 0.0:
             raise ConfigError("resampling rate must be greater than zero")
         interp = rate > 1.0

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
 from .resamp2 import Resamp2
@@ -31,6 +32,7 @@ class MsResamp2:
                as_: float = 60.0, batch_shape: tuple = (), dtype=torch.complex64,
                device=None) -> "MsResamp2":
         """Stage schedule per msresamp2.rs:68-91."""
+        device = resolve_device(device)
         if num_stages > 16:
             raise ConfigError("number of stages should not exceed 16")
         if fc <= 0.0 or fc >= 0.5:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from .._src.struct import U32
 from ..errors import ConfigError
 from .. import design
@@ -88,6 +89,7 @@ class Resamp:
         :meth:`execute_block` raises :class:`ConfigError`, and
         :meth:`execute_block_n` runs the PFB gather as yagi_tpu's does.
         """
+        device = resolve_device(device)
         if interp not in ("pfb", "farrow"):
             raise ConfigError("interp must be 'pfb' or 'farrow'")
         if rate <= 0.0:

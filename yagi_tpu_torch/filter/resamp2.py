@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
 from ._conv import causal_conv_valid
@@ -38,6 +39,7 @@ class Resamp2:
     def create(cls, m: int, f0: float = 0.0, as_: float = 60.0, batch_shape: tuple = (),
                dtype=torch.complex64, device=None) -> "Resamp2":
         """PM halfband design, optionally mixed to f0 (resamp2.rs:44-84)."""
+        device = resolve_device(device)
         if m < 2:
             raise ConfigError("filter semi-length must be at least 2")
         if f0 < -0.5 or f0 > 0.5:

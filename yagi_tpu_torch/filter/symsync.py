@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
 from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
@@ -73,6 +74,7 @@ class Symsync:
     def create(cls, k: int, m: int, h, batch_shape: tuple = (), dtype=torch.complex64,
                device=None) -> "Symsync":
         """From prototype h with npfb=m branches (symsync.rs:37-110)."""
+        device = resolve_device(device)
         if k < 2:
             raise ConfigError("samples/symbol must be at least 2")
         if m == 0:

@@ -73,20 +73,23 @@ def source_digest(csrc: Path = _CSRC) -> str:
     return digest.hexdigest()[:16]
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels unless a library for these sources exists.
+def build(csrc: Path = _CSRC) -> tuple[Path, str]:
+    """Compile the kernels of ``csrc`` (the package's own by default; another
+    directory builds a variant for an A/B) unless a library for these sources
+    and flags exists.
 
     Returns the library's path and the compilers' output (with ptxas's
     register and spill report), or ``""`` when the library was already built.
     """
-    tag = source_digest()
+    csrc = Path(csrc)
+    tag = source_digest(csrc)
     out = BUILD_DIR / f"libyagi_tpu_torch_{tag}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
     nvcc = _nvcc()
-    sources = sorted(_CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in sources]
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -114,13 +117,19 @@ def build() -> tuple[Path, str]:
     return out, "".join(logs) + link.stdout + link.stderr
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and set the C signatures of the entry points it
+    has (a variant built from part of the sources has only some)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed, with its C signatures."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(build()[0])

@@ -5,8 +5,8 @@ yagi_tpu runs this loop as a ``lax.scan`` whose body is ``eq_slot``
 (``yagi_tpu/chains/qam.py:173-247``), which XLA compiles into one device
 loop; it wrote no Pallas kernel for it. In eager torch a slot is ~75 small
 ops, so the port runs the loop as a hand-written CUDA kernel
-(``csrc/qam.cu``), one thread per channel, beside its plain version
-:func:`qam_eq_scan_reference`.
+(``csrc/qam.cu``), 8 lanes per channel (the decision's distances split over
+the lanes), beside its plain version :func:`qam_eq_scan_reference`.
 
 Per channel, for each emission slot in stream order (``eq_slot`` op for op,
 the math of ``Eqlms.push/execute/step``, eqlms.rs:125-187): push the slot into
@@ -21,7 +21,9 @@ symbol, θ, dθ and the EVM only where can_adapt.
 Every reduction has one evaluation order, the kernel's: the h_len-tap dot
 left to right over the taps in increasing index, (x2_sum + |x|²) − x2[0],
 and the decision the first table index of the smallest distance (a NaN
-distance counts as smallest, as ``torch.argmin`` and ``jnp.argmin`` take it).
+distance counts as smallest, as ``torch.argmin`` and ``jnp.argmin`` take it;
+the kernel's lanes each take every 8th point and then the smallest of
+(NaN first, distance, index), which is the same index).
 Every operation is rounded on its own, so the kernel equals the plain
 version bit for bit; the loop feeds its decisions back, so one ulp would
 part a channel for good on noise.

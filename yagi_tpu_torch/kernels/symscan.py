@@ -75,7 +75,7 @@ __all__ = [
 ]
 
 STATE_ROWS = 9  # b, bf, tau, tau_decim, rate, delta, dec, v0, v1
-LANES = 4  # K3's lanes per channel, each summing every LANES-th tap (csrc/symscan.cu)
+LANES = 4  # K3's lanes per dot, each summing every LANES-th tap (csrc/symscan.cu)
 
 
 def branch_outputs(xa, g):
@@ -84,9 +84,10 @@ def branch_outputs(xa, g):
     y[c, t, i] = Σ_j g[i, j]·xa[c, t+1+j].
 
     Summed in K3's order, one rounded multiply or add at a time: lane l of
-    LANES adds the products of taps j ≡ l (mod LANES) in increasing j, then
-    the lanes combine as (s0 + s1) + (s2 + s3). So each output equals K3's
-    dot bit for bit, depends only on its own L samples (the same for any
+    the dot's LANES adds the products of taps j ≡ l (mod LANES) in increasing
+    j, then the lanes combine as (s0 + s1) + (s2 + s3) (K3 runs the four
+    dots on four such groups of a channel's 16 lanes). So each output equals
+    K3's dot bit for bit, depends only on its own L samples (the same for any
     block length), and is the same on any device.
     """
     L = g.shape[1]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 
 __all__ = ["Freqmod", "Freqdem"]
@@ -36,6 +37,7 @@ class Freqmod:
 
     @classmethod
     def create(cls, kf: float, batch_shape: tuple = (), device=None) -> "Freqmod":
+        device = resolve_device(device)
         if kf <= 0.0:
             raise ConfigError(f"modulation factor {kf:.4e} must be greater than 0")
         return cls(
@@ -75,6 +77,7 @@ class Freqdem:
 
     @classmethod
     def create(cls, kf: float, batch_shape: tuple = (), device=None) -> "Freqdem":
+        device = resolve_device(device)
         if kf <= 0.0:
             raise ConfigError(f"modulation factor {kf:.4e} must be greater than 0")
         return cls(

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 
 __all__ = ["ModulationScheme", "Modem", "build_constellation", "gray_encode", "gray_decode"]
@@ -256,6 +257,7 @@ class Modem:
     # ------------------------------------------------------------------ ctor
     @classmethod
     def create(cls, scheme, table=None, batch_shape: tuple = (), device=None) -> "Modem":
+        device = resolve_device(device)
         if isinstance(scheme, str):
             scheme = ModulationScheme.from_str(scheme)
         if scheme in _DIFFERENTIAL:

@@ -22,6 +22,7 @@ import torch
 
 from .._src import struct
 from .. import design
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
 
@@ -81,6 +82,7 @@ class Firpfbch:
     # ------------------------------------------------------------------ ctors
     @classmethod
     def create(cls, num_channels: int, h, batch_shape: tuple = (), device=None) -> "Firpfbch":
+        device = resolve_device(device)
         if num_channels < 2:
             raise ConfigError("number of channels must be at least 2")
         M = num_channels

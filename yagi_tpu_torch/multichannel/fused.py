@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
 from ..kernels.channelizer import channelizer_tables, fused_channelizer_apply, halo_rows
@@ -48,6 +49,7 @@ class FusedChannelizer:
         cls, num_channels: int = 64, m: int = 4, as_: float = 60.0,
         scale: float = 1.0, r2: int = 128, precision: str = "highest", device=None,
     ) -> "FusedChannelizer":
+        device = resolve_device(device)
         if num_channels != 64:
             raise ConfigError("FusedChannelizer is specialized to 64 channels")
         if m < 1:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._src import struct
+from .._src.device import resolve_device
 from .._src.struct import U32
 from ..errors import ConfigError
 
@@ -34,8 +35,11 @@ def constrain_phase(theta, device=None) -> torch.Tensor:
 
     Float32 throughout, with the same floored modulo (fmod plus sign fix) and
     the same saturating float→u32 conversion as the reference, so the result
-    is bit-identical.
+    is bit-identical. A tensor stays on its device unless ``device`` is
+    given; anything else goes to ``resolve_device(device)``.
     """
+    if device is not None or not isinstance(theta, torch.Tensor):
+        device = resolve_device(device)
     t = torch.as_tensor(theta, dtype=torch.float32, device=device)
     two_pi = torch.tensor(_TWO_PI_F32, dtype=torch.float32, device=t.device)
     r = torch.fmod(t, two_pi)
@@ -66,6 +70,7 @@ class Osc:
 
     @classmethod
     def create(cls, mode: str = "nco", batch_shape: tuple = (), device=None) -> "Osc":
+        device = resolve_device(device)
         if mode not in ("nco", "vco", "exact"):
             raise ConfigError(f"unknown oscillator mode {mode!r}")
         if mode not in _PORTED_MODES:

@@ -1,0 +1,42 @@
+"""The shapes and inputs of the config[1] and config[3] paths, in one place
+for ``chip_smoke.py`` and the tools that time those paths on the card
+(:mod:`.kernel_ab`, :mod:`.step_profile`)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..chains import QamRx
+from ..filter import MsResamp, Symsync
+
+# config[1] (bench.py:160-192): MsResamp → Symsync over 1024 channels,
+# blocks of 4096
+C1, T1 = 1024, 1 << 12
+MS_RATE = 2.0 / 2.0663
+SYM = dict(ftype="rrcos", k=2, m=7, beta=0.3)
+LF_BW = 0.02
+
+# config[3] (bench.py:221-242): QamRx over 2048 channels, blocks of 4096,
+# default_rng(4)-style standard-normal complex64 input
+C3, T3 = 2048, 1 << 12
+QAM_SEED = 4
+
+
+def complex_block(rng, shape, device) -> torch.Tensor:
+    """Standard-normal complex64 of ``shape`` from ``rng``, on ``device``."""
+    re = rng.standard_normal(shape, dtype=np.float32)
+    im = rng.standard_normal(shape, dtype=np.float32)
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+
+
+def make_msresamp(c: int, device) -> MsResamp:
+    return MsResamp.create(MS_RATE, batch_shape=(c,), arbitrary_interp="farrow", device=device)
+
+
+def make_symsync(c: int, device) -> Symsync:
+    return Symsync.create_rnyquist(**SYM, batch_shape=(c,), device=device).set_lf_bw(LF_BW)
+
+
+def make_qamrx(c: int, device) -> QamRx:
+    return QamRx.create(batch_shape=(c,), device=device)

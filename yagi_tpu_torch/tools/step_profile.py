@@ -1,0 +1,112 @@
+"""Eager step time of config[1] and config[3] on one card, and where the
+device time goes.
+
+For each path, 3 warm-up steps and then ``--steps`` eager steps with the
+state carried, over four random blocks from a seed: the device time per step
+between CUDA events, the host's time to enqueue a step, then a
+``torch.profiler`` table of device time by kernel over 5 more steps.
+
+* config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``, 1024
+  channels × 4096 samples;
+* config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples.
+
+The shapes and constructors are those of :mod:`.paths`, which
+``chip_smoke.py`` uses too.
+
+It imports the port by absolute name, so it also times another checkout of
+the package that has ``tools/paths.py``, as run from that checkout's root::
+
+    python -m yagi_tpu_torch.tools.step_profile
+    (cd <other checkout> && PYTHONPATH=$PWD python <this file>)
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from yagi_tpu_torch.tools.paths import (
+    C1,
+    C3,
+    QAM_SEED,
+    T1,
+    T3,
+    complex_block,
+    make_msresamp,
+    make_qamrx,
+    make_symsync,
+)
+
+
+def blocks(c: int, n: int, device) -> list[torch.Tensor]:
+    rng = np.random.default_rng(QAM_SEED)
+    return [complex_block(rng, (c, n), device) for _ in range(4)]
+
+
+def config1(device):
+    xs = blocks(C1, T1, device)
+    state = [make_msresamp(C1, device), make_symsync(C1, device), 0]
+
+    def step():
+        y, cnt, state[0] = state[0].execute_block(xs[state[2] % 4])
+        _, _, state[1] = state[1].execute_slots(y, n_valid=cnt)
+        state[2] += 1
+
+    return step
+
+
+def config3(device):
+    xs = blocks(C3, T3, device)
+    state = [make_qamrx(C3, device), 0]
+
+    def step():
+        state[0] = state[0].step_masked(xs[state[1] % 4])[3]
+        state[1] += 1
+
+    return step
+
+
+def measure(name: str, step, steps: int) -> None:
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    host = (time.perf_counter() - t0) / steps * 1e3
+    torch.cuda.synchronize()
+    print(f"[step] {name}: {start.elapsed_time(end) / steps:.4f} ms per step between CUDA "
+          f"events, {host:.4f} ms per step to enqueue ({steps} eager steps)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10,
+                                    max_name_column_width=50))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=20)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("step_profile needs a CUDA device; torch sees none")
+    device = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"[step] card: {card}")
+    measure("config[1] MsResamp -> Symsync", config1(device), args.steps)
+    measure("config[3] QamRx.step_masked", config3(device), args.steps)
+
+
+if __name__ == "__main__":
+    main()
