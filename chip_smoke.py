@@ -5,7 +5,8 @@ Five paths of the port, yagi_tpu_torch, each at its real size:
 
 * BASELINE config[0]: 64-tap Kaiser FIR → 2× polyphase interpolator → u32
   NCO mix-down, 16 channels, blocks of 2^17 complex samples (FusedRxChain,
-  kernel K1, csrc/chain.cu);
+  kernel K1, csrc/chain.cu: step on interleaved complex64, step_planar on
+  planes);
 * BASELINE config[4]: 64-channel polyphase channelizer (Kaiser prototype,
   m = 4, 60 dB) → FM discriminator (kf = 0.1) per channel, blocks of 2^21
   complex samples (FusedChannelizer → Freqdem, kernel K2,
@@ -33,7 +34,11 @@ Seven phases:
 4. kernel vs plain: each kernel against its plain torch version on the same
    CUDA tensors, at a small shape and at its path's shape (K3 and K4 also
    at tap counts that are not a multiple of 4, qam_eq_scan also on ties
-   and NaNs with 4-, 16- and 64-point tables);
+   and NaNs with 4-, 16- and 64-point tables), and at the shapes that take
+   a kernel's second instance: K1 at rates 16, 32 and 256 and at 65,600
+   channels, K2 at 66 taps a branch, qam_eq_scan at 17 and 31 taps, agc_scan
+   at tile edges, and a Symsync bank past K3's shared memory, which "auto"
+   hands to K4;
 5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
    for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
@@ -71,12 +76,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from yagi_tpu_torch._src.struct import U32  # noqa: E402
 from yagi_tpu_torch.agc import Agc, AgcSquelchMode  # noqa: E402
-from yagi_tpu_torch.chains import FusedRxChain, QamRx, RxChain  # noqa: E402
+from yagi_tpu_torch.chains import QamRx, RxChain  # noqa: E402
 from yagi_tpu_torch.design import FirFilterShape, fir_design_prototype  # noqa: E402
 from yagi_tpu_torch.kernels.agc import agc_scan_apply, agc_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels import _build  # noqa: E402
 from yagi_tpu_torch.kernels.chain import (  # noqa: E402
     fused_chain_apply,
+    fused_chain_apply_c64,
     fused_chain_reference,
 )
 from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
@@ -86,8 +92,12 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
 from yagi_tpu_torch.filter import Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
 from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: E402
+from yagi_tpu_torch.errors import ConfigError  # noqa: E402
 from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
+    FUSED_SMEM_LIMIT,
     branch_outputs,
+    fused_fits,
+    fused_smem_bytes,
     symsync_fused_apply,
     symsync_fused_reference,
     symsync_scan_apply,
@@ -97,12 +107,17 @@ from yagi_tpu_torch.modem import Freqdem, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
 from yagi_tpu_torch.tools.paths import (  # noqa: E402
+    C0 as C,
     C1,
     C3,
+    CHAIN,
+    MIX_FREQ,
     QAM_SEED,
+    T0 as T,
     T1,
     T3,
     complex_block,
+    make_fused,
     make_msresamp,
     make_qamrx,
     make_symsync,
@@ -110,12 +125,15 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
 from yagi_tpu_torch.tools.timing import cuda_ms, graph_ms  # noqa: E402
 from yagi_tpu_torch.utils import compact_valid  # noqa: E402
 
-C, T = 16, 1 << 17  # config[0]: channels, samples per block
+# config[0] (C channels, T samples per block) and its constructor come from
+# yagi_tpu_torch/tools/paths.py, like config[1]'s and config[3]'s below
 N_BLOCKS = 16
 N_ROT = 4  # input sets cycled in the timing phase
-CHAIN = dict(n_taps=64, fc=0.2, as_=60.0, rate=2.0)
-MIX_FREQ = 0.35
 SEED = 0
+# K1's other shapes, each small: (channels, samples per block, rate). Rates
+# past 8 run in phase groups; 65,600 channels pass a grid's second dimension
+CHAIN_SHAPES = ((3, 2048, 2), (5, 1024, 1), (3, 512, 4), (3, 512, 8), (3, 2048, 16),
+                (3, 1024, 32), (2, 256, 256), (65600, 128, 2))
 # the fused chain's combined taps are built in float64 and summed in another
 # order than the staged chain: relative error below 1e-4 against |a| + 1e-3,
 # as tests/test_fused_chain.py holds the TPU kernel
@@ -151,6 +169,7 @@ SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
 # feedback, dots an ulp apart part whole channels).
 
 QAM_SMALL = (64, 512)  # the kernels' small check shape (C, n)
+QAM_LONG = (64, 512)  # (C, n) of the long-equalizer checks: 1024 slots
 N_QAM = 8  # main-path blocks
 N_QAM_PLAIN = 2  # of them held against the all-plain chain (~10 s a block)
 QAM_SPLIT = 2000  # where the block-split check cuts a block
@@ -176,8 +195,8 @@ QAM_FALSE_LOCK_MAX = 0.005
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-KERNELS = (fused_chain_apply, fused_channelizer_apply, mix_down_apply, symsync_fused_apply,
-           symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply)
+KERNELS = (fused_chain_apply, fused_chain_apply_c64, fused_channelizer_apply, mix_down_apply,
+           symsync_fused_apply, symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply)
 
 
 def reset_counts() -> None:
@@ -275,45 +294,51 @@ def phase_default_device() -> None:
     require(devices == [want], f"default device {devices}, want [{want}]")
 
 
-def kernel_inputs(rng, c: int, t: int, mix_freq: float, device):
+def kernel_inputs(rng, c: int, t: int, mix_freq: float, device, rate: float = 2.0):
     """Arguments of fused_chain_apply with random planes and history and a
-    nonzero start phase."""
-    chain = FusedRxChain.create(**CHAIN, mix_freq=mix_freq, batch_shape=(c,), device=device)
-    planes = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device)
-              for s in [(c, t), (c, t), (c, 128), (c, 128)]]
+    nonzero start phase; the rate; the compact taps the kernel reads."""
+    chain = make_fused(c, device, mix_freq=mix_freq, rate=rate)
+    xr, xi, hr, hi = (planes(rng, s, device) for s in [(c, t), (c, t), (c, 128), (c, 128)])
     theta0 = torch.tensor(0x9E3779B9, dtype=torch.int64, device=device)
-    xr, xi, hr, hi = planes
-    return (xr, xi, chain.g, hr, hi, theta0, chain.d_theta), chain.p
+    return (xr, xi, chain.g, hr, hi, theta0, chain.d_theta), chain.p, chain.taps
 
 
-def phase_kernel_vs_plain(device) -> float:
-    """Kernel against fused_chain_reference; returns max |error| at config[0]."""
+def phase_kernel_vs_plain(device) -> dict:
+    """K1 against fused_chain_reference, on planes and on interleaved
+    complex64 (whose values must equal the planar kernel's bit for bit), at
+    CHAIN_SHAPES and at config[0]; returns max |error| at config[0] per layout."""
     rng = np.random.default_rng(SEED)
-    max_abs = 0.0
-    for c, t in [(3, 2048), (C, T)]:
-        for mix in (0.0, MIX_FREQ):
-            args, p = kernel_inputs(rng, c, t, mix, device)
-            kr, ki = fused_chain_apply(*args, p=p)
+    max_abs = {"chain_fp32": 0.0, "chain_c64": 0.0}
+    for c, t, rate in CHAIN_SHAPES + ((C, T, 2),):
+        for mix in (0.0, MIX_FREQ) if (c, t) in ((3, 2048), (C, T)) else (MIX_FREQ,):
+            args, p, taps = kernel_inputs(rng, c, t, mix, device, rate)
+            kr, ki = fused_chain_apply(*args, p=p, taps=taps)
+            kc = fused_chain_apply_c64(torch.complex(args[0], args[1]), *args[2:], p=p, taps=taps)
             rr, ri = fused_chain_reference(*args, p=p)
             a, b = torch.complex(rr, ri), torch.complex(kr, ki)
             err = rel_err(a, b)
             abs_err = (a - b).abs().max().item()
-            require(tuple(b.shape) == (c, t * p), f"kernel output shape {tuple(b.shape)}")
+            require(tuple(b.shape) == tuple(kc.shape) == (c, t * p),
+                    f"kernel output shape {tuple(b.shape)}")
             require(bool(torch.isfinite(b).all()), "kernel output finite")
-            print(f"[kernel-vs-plain] chain_fp32 C={c} T={t} mix={mix}: "
-                  f"max rel err {err:.3e} (< {REL_TOL}), max abs err {abs_err:.3e}")
-            require(err < REL_TOL, f"kernel vs plain at C={c} T={t} mix={mix}: {err}")
+            same = torch.equal(torch.view_as_real(kc), torch.view_as_real(b))
+            print(f"[kernel-vs-plain] chain_fp32 C={c} T={t} P={p} mix={mix}: "
+                  f"max rel err {err:.3e} (< {REL_TOL}), max abs err {abs_err:.3e}; "
+                  f"complex64 layout bit-identical to the planar {same}")
+            require(err < REL_TOL, f"kernel vs plain at C={c} T={t} P={p} mix={mix}: {err}")
+            require(same, f"complex64 layout vs planar at C={c} T={t} P={p}")
             if (c, t) == (C, T):
-                max_abs = max(max_abs, abs_err)
+                max_abs = {k: max(v, abs_err) for k, v in max_abs.items()}
     return max_abs
 
 
-def phase_main_path(device) -> int:
-    """Stream N_BLOCKS config[0] blocks through FusedRxChain; returns the
-    kernel launches of that run."""
+def phase_main_path(device) -> dict:
+    """Stream N_BLOCKS config[0] blocks through FusedRxChain.step (the
+    interleaved kernel), then through step_planar (the planar one); returns
+    each kernel's launches in its own run."""
     rng = np.random.default_rng(SEED + 1)
     blocks = [complex_block(rng, (C, T), device) for _ in range(N_BLOCKS)]
-    fused = FusedRxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
+    fused = make_fused(C, device)
     rx = RxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
 
     torch.cuda.synchronize()
@@ -324,10 +349,32 @@ def phase_main_path(device) -> int:
         outs.append((y, k))
     torch.cuda.synchronize()
     counts = read_counts()
-    launches = counts["fused_chain_apply"]
-    print(f"[main-path] FusedRxChain: {N_BLOCKS} steps of [{C}, {T}] complex64, "
+    launches = {"chain_c64": counts["fused_chain_apply_c64"]}
+    print(f"[main-path] FusedRxChain.step: {N_BLOCKS} steps of [{C}, {T}] complex64, "
           f"kernel launches {counts}")
-    require(launches == N_BLOCKS, f"launches {launches} != steps {N_BLOCKS}")
+    require(launches["chain_c64"] == N_BLOCKS and counts["fused_chain_apply"] == 0,
+            f"launches {counts}: want {N_BLOCKS} of fused_chain_apply_c64 only")
+
+    # the same blocks as planes through step_planar: the same values
+    planar = make_fused(C, device)
+    split = [(x.real.contiguous(), x.imag.contiguous()) for x in blocks]
+    torch.cuda.synchronize()
+    reset_counts()
+    p_outs = []
+    for xr, xi in split:
+        yr, yi, _, planar = planar.step_planar(xr, xi)
+        p_outs.append((yr, yi))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches["chain_fp32"] = counts["fused_chain_apply"]
+    same = all(torch.equal(y.real, yr) and torch.equal(y.imag, yi)
+               for (y, _), (yr, yi) in zip(outs, p_outs))
+    print(f"[main-path] FusedRxChain.step_planar: {N_BLOCKS} steps, kernel launches {counts}; "
+          f"step's values bit-identical to step_planar's {same}")
+    require(launches["chain_fp32"] == N_BLOCKS and counts["fused_chain_apply_c64"] == 0,
+            f"launches {counts}: want {N_BLOCKS} of fused_chain_apply only")
+    require(same and not state_diff(fused, planar), "step vs step_planar, values and state")
+    del p_outs, split
 
     worst = 0.0
     for i, (x, (y, k)) in enumerate(zip(blocks, outs)):
@@ -345,8 +392,7 @@ def phase_main_path(device) -> int:
 
     # one 2T block equals two T blocks: the carried state is exact
     x2 = torch.cat(blocks[:2], dim=-1)
-    mk = lambda: FusedRxChain.create(  # noqa: E731
-        **CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
+    mk = lambda: make_fused(C, device)  # noqa: E731
     y_all, _, _ = mk().step(x2)
     y_a, _, c2 = mk().step(blocks[0])
     y_b, _, _ = c2.step(blocks[1])
@@ -356,23 +402,32 @@ def phase_main_path(device) -> int:
     return launches
 
 
-def phase_timing(device, card: str) -> tuple[float, float]:
-    """CUDA-event times at config[0]; returns (kernel ms, plain ms), both
-    device time per call from graph replay."""
+def phase_timing(device, card: str) -> dict:
+    """CUDA-event times at config[0]; returns {name: (kernel ms, plain ms)}
+    for the planar and the interleaved kernel, device time per call from
+    graph replay."""
     rng = np.random.default_rng(SEED + 2)
     # N_ROT input sets (64 MB of input) so the 50 MB L2 cannot hold the
     # input between calls, as in a stream of fresh blocks
     sets = [kernel_inputs(rng, C, T, MIX_FREQ, device) for _ in range(N_ROT)]
-    p = sets[0][1]
-    kernel = [lambda a=a: fused_chain_apply(*a, p=p) for a, _ in sets] * 5
-    plain = [lambda a=a: fused_chain_reference(*a, p=p) for a, _ in sets] * 5
+    p, taps = sets[0][1:]
+    csets = [(torch.complex(a[0], a[1]),) + a[2:] for a, _, _ in sets]
+    kernel = [lambda a=a: fused_chain_apply(*a, p=p, taps=taps) for a, _, _ in sets] * 5
+    kernel_c = [lambda a=a: fused_chain_apply_c64(*a, p=p, taps=taps) for a in csets] * 5
+    plain = [lambda a=a: fused_chain_reference(*a, p=p) for a, _, _ in sets] * 5
+    # the interleaved kernel's plain version: the planes' views, then a join
+    plain_c = [lambda a=a: torch.complex(*fused_chain_reference(a[0].real, a[0].imag, *a[1:],
+                                                                p=p)) for a in csets] * 5
     # alternate plain, kernel, kernel, plain so drift hits both alike
-    p1, k1, k2, p2 = graph_ms(plain), graph_ms(kernel), graph_ms(kernel), graph_ms(plain)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    p1, k1, c1, c2, k2, p2 = (graph_ms(f) for f in (plain, kernel, kernel_c, kernel_c, kernel,
+                                                     plain))
+    pc_ms = graph_ms(plain_c)
+    k_ms, c_ms, p_ms = (k1 + k2) / 2, (c1 + c2) / 2, (p1 + p2) / 2
     k_eager = cuda_ms(kernel[0], 200)
-    print(f"[timing] {card}: chain_fp32 kernel {k_ms:.4f} ms/step ({k1:.4f}, {k2:.4f}); "
-          f"fused_chain_reference {p_ms:.4f} ms/step ({p1:.4f}, {p2:.4f}); device time "
-          f"from graph replay at [{C}, {T}] P={p}. Eager kernel calls: {k_eager:.4f} ms/call")
+    print(f"[timing] {card}: chain_fp32 kernel {k_ms:.4f} ms/step ({k1:.4f}, {k2:.4f}), on "
+          f"complex64 {c_ms:.4f} ({c1:.4f}, {c2:.4f}); fused_chain_reference {p_ms:.4f} ms/step "
+          f"({p1:.4f}, {p2:.4f}), on complex64 views {pc_ms:.4f}; device time from graph "
+          f"replay at [{C}, {T}] P={p}. Eager kernel calls: {k_eager:.4f} ms/call")
 
     blocks = [complex_block(rng, (C, T), device) for _ in range(N_ROT)]
 
@@ -385,22 +440,24 @@ def phase_timing(device, card: str) -> tuple[float, float]:
 
         return C * T / (cuda_ms(step, iters) * 1e-3) / 1e6
 
-    fused = FusedRxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
     rx = RxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
-    f_msps = chain_msps(fused, 200)
+    f_msps = chain_msps(make_fused(C, device), 200)
     r_msps = chain_msps(rx, 20)
     print(f"[timing] {card}: FusedRxChain.step {f_msps:.1f} Msps, RxChain.step "
           f"{r_msps:.1f} Msps (input complex Msamples/s, eager steps of [{C}, {T}] blocks)")
-    return k_ms, p_ms
+    return {"chain_fp32": (k_ms, p_ms), "chain_c64": (c_ms, pc_ms)}
 
 
 def phase_kernel_vs_plain_channelizer(device) -> float:
-    """K2 against fused_channelizer_reference with a random history; returns
-    max |error| at config[4]."""
+    """K2 against fused_channelizer_reference with a random history, at
+    config[4]'s bank (p = 8) and at p = 66, which runs the instance that walks
+    the taps in tiles; returns max |error| at config[4]."""
     rng = np.random.default_rng(SEED + 10)
-    fz = FusedChannelizer.create_kaiser(**CHZ, device=device)
+    path = FusedChannelizer.create_kaiser(**CHZ, device=device)
+    # m = 33: p = 66 taps a branch, past the 64 the kernel stages at once
+    long = FusedChannelizer.create_kaiser(**{**CHZ, "m": 33}, device=device)
     max_abs = 0.0
-    for t in (256, T4):
+    for fz, t in ((path, 256), (long, 256), (long, 768), (path, T4)):
         n, nh = t * M4, fz.hist_r.shape[0]
         args = (planes(rng, n, device), planes(rng, n, device), fz.taps, fz.hr, fz.hi,
                 planes(rng, nh, device), planes(rng, nh, device))
@@ -416,6 +473,7 @@ def phase_kernel_vs_plain_channelizer(device) -> float:
         require(err < CHZ_TOL, f"channelizer kernel vs plain at T={t}: {err}")
         if t == T4:
             max_abs = abs_err
+    require(long.p == 66, f"m = 33 gives p = {long.p}")
     return max_abs
 
 
@@ -650,6 +708,37 @@ def phase_kernel_vs_plain_symsync(device) -> tuple[float, float]:
                              f"n_valid={n_valid}", got, want), f"{name} vs plain at C={c} n={n}")
         errs = tuple((got[0] - want[0]).abs().max().item() for got, want in (k3, k4))
     return errs
+
+
+def phase_symsync_gate(device) -> None:
+    """A bank past K3's shared memory (64 filters, k = 4, m = 22: L = 176) on
+    backend "auto": taken by K4 by its shape, bit-identical to the XLA-form
+    scan; "fused" refuses it before any launch."""
+    rng = np.random.default_rng(SEED + 23)
+    c, n = 24, 256
+    ss = Symsync.create_rnyquist("rrcos", k=4, m=22, beta=0.3, num_filters=64, batch_shape=(c,),
+                                 device=device).set_lf_bw(0.02)
+    L, P = ss.mf.shape[1], ss.npfb
+    require(not fused_fits(L, P) and fused_fits(28, 32), "the gate's arithmetic")
+    x = complex_block(rng, (c, n), device)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = ss.execute_slots(x, backend="auto")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = ss.execute_slots(x, backend="xla")
+    require(sym_same(f"[kernel-vs-plain] Symsync auto at L={L}, P={P} ({fused_smem_bytes(L, P)} "
+                     f"bytes for K3 > {FUSED_SMEM_LIMIT}) C={c} n={n}, launches {counts}, vs the "
+                     f"XLA-form scan", got[:2], want[:2]), "auto past K3's limit vs the XLA form")
+    require(not state_diff(got[2], want[2]), "auto past K3's limit: carried state")
+    require(counts["symsync_scan_apply"] == 1 and counts["symsync_fused_apply"] == 0,
+            f"launches {counts}: want K4 once, K3 never")
+    try:
+        ss.execute_slots(x, backend="fused")
+    except ConfigError as e:
+        print(f"[kernel-vs-plain] Symsync fused at L={L}, P={P}: ConfigError: {e}")
+    else:
+        raise RuntimeError("check failed: backend='fused' past K3's limit did not raise")
 
 
 def phase_main_path_config1(device) -> tuple[int, int, float]:
@@ -914,6 +1003,41 @@ def phase_kernel_vs_plain_qam(device) -> dict:
         require(all(same) and bool(torch.isfinite(k[0]).all()), f"agc_scan vs plain at C={c}")
         if big:
             out["agc_scan"] = (err, p_ms)
+
+    # equalizers past the 16 taps that live in registers: the shared-memory
+    # instance, on K3's slots, every state field
+    c, n = QAM_LONG
+    for eq_len in (17, 31):
+        rx = QamRx.create(eq_len=eq_len, batch_shape=(c,), device=device)
+        xa, g = sym_inputs(rng, rx.symsync, c, n, device)
+        y, v, _, _ = symsync_fused_apply(xa, g, None, E=rx.slots, **rx.symsync.kernel_args())
+        slots = (y.reshape(c, n * 2), v.reshape(c, n * 2))
+        args = rx.eq_scan_args()
+        k = qam_eq_scan_apply(*slots, *args, k_eq=rx.k_eq)
+        p = qam_eq_scan_reference(*slots, *args, k_eq=rx.k_eq)
+        same = [torch.equal(a, b) for a, b in zip(k[:3], p[:3])]
+        bad = [f for f in k[3] if not torch.equal(k[3][f], p[3][f])]
+        moved = float((k[3]["w"] - args[4]["w"]).abs().max())
+        print(f"[kernel-vs-plain] qam_eq_scan h_len={eq_len} C={c} S={n * 2}: bit-identical "
+              f"(syms, soft, mask) {same}, state fields that differ {bad}; {int(k[2].sum())} "
+              f"symbols, weights moved by up to {moved:.3e}")
+        require(all(same) and not bad and moved > 0, f"qam_eq_scan vs plain at h_len={eq_len}")
+        x = complex_block(rng, (c, n), device)
+        got, want = rx.step_masked(x), rx._step_masked(x, plain=True)
+        same = [torch.equal(a, b) for a, b in zip(got[:3], want[:3])]
+        bad = state_diff(got[3], want[3])
+        print(f"[kernel-vs-plain] QamRx(eq_len={eq_len}).step_masked vs the all-plain chain: "
+              f"bit-identical (syms, soft, mask) {same}, state fields that differ {bad}")
+        require(all(same) and not bad, f"QamRx at eq_len={eq_len} vs the all-plain chain")
+
+    # agc_scan at the edges of its tiles and channel groups
+    for c, n in ((13, 1), (13, 127), (37, 129), (5, 300)):
+        a_args = agc_inputs(rng, c, n, device)
+        k, p = agc_scan_apply(*a_args, timeout=100), agc_scan_reference(*a_args, timeout=100)
+        same = [torch.equal(a, b) for a, b in zip(k, p)]
+        print(f"[kernel-vs-plain] agc_scan C={c} n={n}: bit-identical (y, g, y2', mode, timer) "
+              f"{same}")
+        require(all(same), f"agc_scan vs plain at C={c} n={n}")
     return out
 
 
@@ -1122,8 +1246,9 @@ def kernel_work(device, sym_emitted: float) -> dict:
     the bytes of its inputs and outputs, each once; the fewest real
     multiplies and adds that compute its function (a transcendental or a
     division counts as one), for the symsync loops the dots of the slots that
-    emit (``sym_emitted`` per config[1] block) and ~20 loop ops per slot."""
-    fused = FusedRxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
+    emit (``sym_emitted`` per config[1] block) and ~20 loop ops per slot.
+    K3 has a second entry, its work at config[3]'s shape."""
+    fused = make_fused(C, device)
     pfb1 = 2 * 7  # taps of a polyphase branch of the interpolator (m = 7)
     fz = FusedChannelizer.create_kaiser(**CHZ, device=device)
     fft4 = 5 * M4 * int(np.log2(M4))  # real operations of a radix-2 64-point FFT
@@ -1133,19 +1258,26 @@ def kernel_work(device, sym_emitted: float) -> dict:
     sym_out = C1 * n1 * 2 * 9 + C1 * 9 * 4 * 2 + C1 * 4  # y, valid; state in and out; deferred
     sym_ops = sym_emitted * 8 * L + C1 * n1 * 2 * 20
     rx = make_qamrx(C3, device)
+    # K3 on config[3]: 2 slots a sample, about one of them emitting (k_out = 2)
+    sym3 = (C3 * (T3 + L) * 8 + 2 * P * L * 4 + C3 * T3 * 2 * 9 + C3 * 9 * 4 * 2 + C3 * 4,
+            C3 * T3 * 8 * L + C3 * T3 * 2 * 20)
     S, h, m = 2 * T3, rx.eq.h_len, rx.table.shape[0]
     eq_state = nbytes(*rx.eq_scan_args()[4].values())
+    chain = (4 * C * T * 2 * (1 + fused.p) + nbytes(fused.taps, fused.hist_r, fused.hist_i),
+             C * T * (4 * CHAIN["n_taps"] + fused.p * (4 * pfb1 + 8)))
     return {
         # planar in, planar out at rate p; the FIR's 2·n_taps MACs per input
         # sample, then per output a branch's 2·pfb1 MACs, the rotation, sin and cos
-        "chain_fp32": (4 * C * T * 2 * (1 + fused.p) + nbytes(fused.g, fused.hist_r, fused.hist_i),
-                       C * T * (4 * CHAIN["n_taps"] + fused.p * (4 * pfb1 + 8))),
+        # (the taps once: the compact [P, Kp] the kernel reads)
+        "chain_fp32": chain,
+        "chain_c64": chain,  # the same samples interleaved: the same bytes and operations
         # per analyzer step 64 branches of p taps on both planes, a 64-point FFT
         "channelizer_fp32": (2 * 4 * T4 * M4 * 2
                              + nbytes(fz.taps, fz.hr, fz.hi, fz.hist_r, fz.hist_i),
                              T4 * (M4 * fz.p * 4 + fft4)),
         "mix_down": (N_MIX * 8 * 2, N_MIX * 8),
         "symsync_fused": (C1 * (n1 + L) * 8 + 2 * P * L * 4 + sym_out, sym_ops),
+        "symsync_fused config[3]": sym3,
         "symsync_scan": (C1 * n1 * 4 * P * 4 + sym_out, sym_ops),
         # y in and out, the AGC's state; per sample ~12 ops, an exp and a log
         "agc_scan": (C3 * T3 * 8 * 2 + C3 * 4 * 8 * 2, C3 * T3 * 14),
@@ -1168,13 +1300,14 @@ def main() -> None:
     phase_build()
     phase_default_device()
     errs = {
-        "chain_fp32": phase_kernel_vs_plain(device),
+        **phase_kernel_vs_plain(device),
         "channelizer_fp32": phase_kernel_vs_plain_channelizer(device),
         "mix_down": phase_kernel_vs_plain_mix(device),
     }
     errs["symsync_fused"], errs["symsync_scan"] = phase_kernel_vs_plain_symsync(device)
+    phase_symsync_gate(device)
     launches = {
-        "chain_fp32": phase_main_path(device),
+        **phase_main_path(device),
         "channelizer_fp32": phase_main_path_config4(device),
         "mix_down": phase_mix_path(device),
     }
@@ -1184,7 +1317,7 @@ def main() -> None:
     launches.update(phase_main_path_config3(device))
     phase_signal_config3(device)
     times = {
-        "chain_fp32": phase_timing(device, smi),
+        **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),
         "mix_down": phase_timing_mix(device, smi),
         **phase_timing_config1(device, smi),
@@ -1192,6 +1325,8 @@ def main() -> None:
     }
     sources = {
         "chain_fp32": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
+        # the same source's interleaved instance, FusedRxChain.step's
+        "chain_c64": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
         "channelizer_fp32": ("yagi_tpu_torch/csrc/channelizer.cu",
                              "yagi_tpu/kernels/channelizer.py:71"),
         "mix_down": ("yagi_tpu_torch/csrc/mix.cu", "yagi_tpu/kernels/mix.py:29"),
@@ -1202,6 +1337,9 @@ def main() -> None:
         "qam_eq_scan": ("yagi_tpu_torch/csrc/qam.cu", "yagi_tpu/chains/qam.py:173"),
     }
     bounds = {k: bound(w) for k, w in kernel_work(device, emitted).items()}
+    b3 = bounds.pop("symsync_fused config[3]")
+    print(f"[bound] symsync_fused (K3) at config[3] (C={C3}, n={T3}, k_out=2): {b3[0]:.4f} ms "
+          f"({b3[1]}); at config[1]: {bounds['symsync_fused'][0]:.4f} ms")
     # no single PyTorch call computes any of these functions: FIR ⊛ PFB with
     # a u32 NCO, PFB + DFT, a u32-exact mix, and loops that feed their
     # decisions back (PERF.md §6)

@@ -232,3 +232,18 @@ def test_apply_rejects_bad_input(bad):
         kw["squelch_mode"] = kw["squelch_mode"].long()
     with pytest.raises((ValueError, TypeError)):
         agc_scan_apply(**kw, timeout=100)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129])
+def test_execute_block_at_tile_edges_matches_yagi_tpu(n):
+    """Block lengths around the kernel's 128-sample slab, three blocks each,
+    13 channels (not a multiple of its channel group)."""
+    x = _noise(20 + n, (13, 3 * n)) * np.geomspace(0.01, 20.0, 13, dtype=np.float32)[:, None]
+    j = JAgc.create(bandwidth=0.05, batch_shape=(13,))
+    t = Agc.create(bandwidth=0.05, batch_shape=(13,), device=DEV)
+    for blk in np.split(x, 3, axis=-1):
+        yj, j = j.execute_block(jnp.asarray(blk))
+        yt, t = t.execute_block(torch.from_numpy(blk))
+        assert yt.shape == (13, n)
+        _close(yt.numpy(), yj)
+        _same_state(t, j)

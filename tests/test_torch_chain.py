@@ -30,7 +30,8 @@ from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.filter import FirFilter, Resamp
 from yagi_tpu_torch.kernels import _build
 from yagi_tpu_torch.kernels._check import route
-from yagi_tpu_torch.kernels.chain import fused_chain_apply, fused_chain_reference
+from yagi_tpu_torch.kernels.chain import (chain_matrices, compact_taps, fused_chain_apply,
+                                          fused_chain_apply_c64, fused_chain_reference)
 from yagi_tpu_torch.nco import Osc
 
 torch.set_num_threads(1)
@@ -225,3 +226,74 @@ def test_kernel_build_recipe():
     assert "arch=compute_90a,code=sm_90a" in flags and "fast_math" not in flags
     src = open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc", "chain.cu")).read()
     assert "torch/extension.h" not in src and 'extern "C"' in src
+
+
+# ------------------------------------------- any rate, the complex64 layout
+@pytest.mark.parametrize("rate", [16, 32])
+def test_fused_at_high_rates_matches_yagi_tpu(rate):
+    """Rates past 8, which FusedRxChain.create takes as yagi_tpu's does: 3
+    streamed blocks, and step (the complex64 layout) equal to step_planar
+    bit for bit."""
+    rng = np.random.default_rng(30 + rate)
+    c, t = 2, 256
+    jf = JFused.create(rate=float(rate), mix_freq=0.35, batch_shape=(c,), r=2).replace(
+        interpret=True)
+    tf = FusedRxChain.create(rate=float(rate), mix_freq=0.35, batch_shape=(c,), device=DEV)
+    np.testing.assert_array_equal(tf.g.numpy(), np.asarray(jf.g))
+    for blk in range(3):
+        x = _cplx(rng, (c, t))
+        yj, kj, jf = jf.step(jnp.asarray(x))
+        xt = torch.from_numpy(x)
+        yr, yi, kp, planar = tf.step_planar(xt.real.contiguous(), xt.imag.contiguous())
+        yt, kt, tf = tf.step(xt)
+        assert kt == kp == int(kj) == rate * t
+        assert _rel(yj, yt.numpy()) < 1e-4, f"block {blk} vs yagi_tpu"
+        assert torch.equal(yt.real, yr) and torch.equal(yt.imag, yi)
+        assert torch.equal(tf.hist_r, planar.hist_r) and int(tf.theta) == int(planar.theta)
+        assert int(tf.theta) == int(np.asarray(jf.theta))
+
+
+@pytest.mark.parametrize("p", [1, 2, 16, 256])
+def test_compact_taps_invert_chain_matrices(p):
+    """compact_taps gives back the P combined filters that chain_matrices
+    spread over its bands, zero padded to a multiple of 16 taps."""
+    rng = np.random.default_rng(40 + p)
+    h = rng.standard_normal(64)
+    branches = rng.standard_normal((256, 14))
+    g = chain_matrices(h, 0.4, branches, p)
+    gc = compact_taps(g, p)
+    k = 64 + 14 - 1
+    assert gc.shape == (p, 80) and gc.dtype == np.float32
+    want = np.stack([np.convolve(h * 0.4, branches[d * (256 // p)]) for d in range(p)])
+    np.testing.assert_array_equal(gc[:, :k], want.astype(np.float32))
+    assert not gc[:, k:].any()
+    # and the bands are these taps, shifted: G[1][j, P·t + δ] = g_δ[t − j]
+    np.testing.assert_array_equal(g[1, 3, 5 * p:6 * p], gc[:, 2])
+    np.testing.assert_array_equal(g[0, 127, 0:p], gc[:, 1])
+    np.testing.assert_array_equal(compact_taps(torch.from_numpy(g), p), gc)
+
+
+def test_compact_taps_follow_the_state():
+    """create and load_state both derive the kernel's taps from g, and a
+    step carries them on."""
+    tf = FusedRxChain.create(batch_shape=(2,), device=DEV)
+    np.testing.assert_array_equal(tf.taps.numpy(), compact_taps(tf.g, 2))
+    loaded = load_state(FusedRxChain, {k: v for k, v in _fields(tf).items() if k != "taps"},
+                        device=DEV)
+    assert torch.equal(loaded.taps, tf.taps)
+    _, _, nxt = tf.step(torch.zeros((2, 128), dtype=torch.complex64))
+    assert nxt.taps is tf.taps
+
+
+@pytest.mark.parametrize("bad", ["dtype", "length", "hist"])
+def test_apply_c64_rejects_bad_input(bad):
+    xr, _, g, hr, hi, th, dth = _apply_args()
+    x = torch.complex(xr, xr)
+    if bad == "dtype":
+        x = x.to(torch.complex128)
+    elif bad == "length":
+        x = x[:, :200].contiguous()
+    else:
+        hr = hr[:, :64].contiguous()
+    with pytest.raises((ValueError, TypeError)):
+        fused_chain_apply_c64(x, g, hr, hi, th, dth, p=2)

@@ -382,3 +382,24 @@ def test_slice_block_split_invariance():
     m_split, y_split = run([x[: 128 * M], x[128 * M :]])
     np.testing.assert_allclose(y_all, y_split, rtol=0, atol=1e-5)
     assert _phase_err(m_all, m_split, y_all, np.zeros(M, np.complex64)) <= 1e-4
+
+
+# ------------------------------------------------ banks past 64 taps a branch
+def test_fused_with_66_taps_a_branch_matches_yagi_tpu():
+    """create_kaiser(m=33): p = 66, which the card runs on the kernel's
+    tiled instance; two streamed blocks against yagi_tpu and Firpfbch (64
+    rows a tile: yagi_tpu's tiles must hold the 33 rows of history)."""
+    rng = np.random.default_rng(5)
+    jf = JFused.create_kaiser(M, 33, 60.0, r2=64).replace(interpret=True)
+    tf = FusedChannelizer.create_kaiser(m=33, r2=64, device=DEV)
+    ref = Firpfbch.create_kaiser(M, 33, 60.0, device=DEV)
+    assert tf.p == jf.p == 66
+    np.testing.assert_array_equal(tf.taps.numpy(), np.asarray(jf.taps))
+    for blk in range(2):
+        x = _cplx(rng, T * M)
+        yj, jf = jf.analyzer_execute(jnp.asarray(x))
+        yt, tf = tf.analyzer_execute(torch.from_numpy(x))
+        yr, ref = ref.analyzer_execute(torch.from_numpy(x))
+        assert _rel_rms(np.asarray(yj), yt.numpy()) < 1e-5, f"block {blk} vs yagi_tpu"
+        assert _rel_rms(yr.numpy(), yt.numpy()) < 1e-5, f"block {blk} vs Firpfbch"
+        np.testing.assert_array_equal(tf.hist_r.numpy(), np.asarray(jf.hist_r))

@@ -381,3 +381,32 @@ def test_resolve_device_picks_the_current_card(monkeypatch):
     assert resolve_device(None) == torch.device("cuda", 1)
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cuda", 0)) == torch.device("cuda", 0)
+
+
+# --------------------------------------------------- equalizers past 16 taps
+def test_step_masked_with_a_17_tap_equalizer_matches_yagi_tpu(impaired):
+    """eq_len = 17, which the card runs on the kernel's shared-memory
+    instance: two blocks of the impaired signal against yagi_tpu."""
+    _, x = impaired
+    j = JQamRx.create(eq_len=17, batch_shape=(C_SIG,))
+    t = QamRx.create(eq_len=17, batch_shape=(C_SIG,), device=DEV)
+    for i in range(2):
+        blk = x[:, i * N_PARITY:(i + 1) * N_PARITY]
+        *jo, j = j.step_masked(jnp.asarray(blk))
+        *to, t = t.step_masked(torch.from_numpy(blk))
+        _same_outputs(to, jo)
+        _same_state(t, j)
+    assert t.eq.w.shape == (C_SIG, 17) and int(t.evm_count.min()) > 300
+
+
+@pytest.mark.parametrize("h_len, m, fits", [(7, 16, True), (16, 64, True), (17, 16, True),
+                                             (654, 16, True), (655, 16, False)])
+def test_eq_scan_shared_memory_need(h_len, m, fits):
+    """The wrapper's mirror of csrc/qam.cu's shared-memory layout: up to 16
+    taps the window lives in registers and adds nothing."""
+    from yagi_tpu_torch.kernels import qam
+
+    tiles = 8 * (m + 2 * 16 * 65) + 4 * 16 * 65 + 2 * 16 * 68
+    window = 4 * 16 * ((5 * h_len) | 1) if h_len > qam.MAX_REG_H_LEN else 0
+    assert qam.smem_bytes(m, h_len) == tiles + window
+    assert (qam.smem_bytes(m, h_len) <= qam._SMEM_LIMIT) == fits

@@ -36,7 +36,10 @@ from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.filter import Symsync
 from yagi_tpu_torch.kernels.symscan import (
+    FUSED_SMEM_LIMIT,
     branch_outputs,
+    fused_fits,
+    fused_smem_bytes,
     symsync_fused_apply,
     symsync_fused_reference,
     symsync_scan_apply,
@@ -446,3 +449,59 @@ def test_deferral_count_is_zero_on_config1_path():
         y, v, s, deferred = t._run_slots(x, backend=backend)
         assert deferred.shape == (C,) and not deferred.any()
         assert len(t.execute_slots(x, backend=backend)) == 3
+
+
+# ------------------------------------------- banks past K3's shared memory
+def test_fused_smem_mirror_and_gate():
+    """The Python mirror of csrc/symscan.cu::fused_layout: config[1]'s bank
+    takes 41,536 bytes, and the card's 232,448 are passed at L = 173 for 64
+    filters and at L = 325 for 32."""
+    assert fused_smem_bytes(28, 32) == 41536
+    assert fused_fits(28, 32) and fused_fits(172, 64) and not fused_fits(173, 64)
+    assert fused_fits(324, 32) and not fused_fits(325, 32)
+    assert fused_smem_bytes(176, 64) > FUSED_SMEM_LIMIT == 232448
+
+
+def _big_pair(c=3):
+    """64 filters, k = 4, m = 22: L = 176 taps a branch, past K3's limit."""
+    j = JSymsync.create_rnyquist(JShape.RRCOS, 4, 22, 0.3, 64, batch_shape=(c,)).set_lf_bw(0.02)
+    t = Symsync.create_rnyquist("rrcos", 4, 22, 0.3, 64, batch_shape=(c,),
+                                device=DEV).set_lf_bw(0.02)
+    return j, t
+
+
+def test_auto_past_the_fused_limit_matches_yagi_tpu(monkeypatch):
+    """"auto" hands a bank that K3 cannot stage to K4's route (by its shape,
+    before any launch), as yagi_tpu's "auto" routes such shapes away."""
+    j, t = _big_pair()
+    assert t.mf.shape == (64, 176) and not fused_fits(176, 64)
+    routes = []
+    import yagi_tpu_torch.filter.symsync as mod
+
+    real = mod.symsync_scan_apply
+    monkeypatch.setattr(mod, "symsync_scan_apply",
+                        lambda *a, **k: routes.append("scan") or real(*a, **k))
+    monkeypatch.setattr(mod, "symsync_fused_apply",
+                        lambda *a, **k: pytest.fail("K3's wrapper called past its limit"))
+    x = _sig(11, c=3)
+    yj, vj, j = j.execute_slots(jnp.asarray(x), backend="auto")
+    yt, vt, t = t.execute_slots(torch.from_numpy(x), backend="auto")
+    assert routes == ["scan"]
+    _check_slots(yt, vt, yj, vj)
+    np.testing.assert_allclose(t.tau.numpy(), np.asarray(j.tau), atol=1e-4)
+    np.testing.assert_array_equal(t.b.numpy(), np.asarray(j.b))
+    np.testing.assert_array_equal(t.window.numpy(), np.asarray(j.window))
+
+
+def test_fused_past_the_limit_raises_config_error(monkeypatch):
+    """backend="fused" names L, P and the limit before any launch, on any
+    device; the kernel's wrapper refuses the shape too (the card hidden: the
+    gate is arithmetic on the shape)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, t = _big_pair()
+    with pytest.raises(ConfigError, match="L = 176.*P = 64.*232448"):
+        t.execute_slots(torch.from_numpy(_sig(12, c=3)), backend="fused")
+    # the same bank on "pallas" and "xla" runs, and the two agree bit for bit
+    x = torch.from_numpy(_sig(12, c=3, n=64))
+    a, b = t.execute_slots(x, backend="pallas"), t.execute_slots(x, backend="xla")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

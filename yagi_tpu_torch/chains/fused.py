@@ -1,4 +1,4 @@
-"""Fused receive chain: one kernel per block (planar I/O).
+"""Fused receive chain: one kernel per block (planar or complex I/O).
 
 Port of :mod:`yagi_tpu.chains.fused`. Same DSP as :class:`RxChain` — 64-tap
 Kaiser FIR lowpass → P× polyphase interpolating resampler (u32 phase,
@@ -22,7 +22,8 @@ from .._src.struct import U32
 from .. import design
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
-from ..kernels.chain import chain_matrices, fused_chain_apply
+from ..kernels.chain import (chain_matrices, compact_taps, fused_chain_apply,
+                             fused_chain_apply_c64)
 from ..nco import Osc
 
 __all__ = ["FusedRxChain"]
@@ -49,6 +50,14 @@ class FusedRxChain:
     hist_i: torch.Tensor = struct.field()
     theta: torch.Tensor = struct.field()  # u32 NCO phase, int64
     d_theta: torch.Tensor = struct.field()  # u32 NCO frequency, int64
+    # [P, Kp] compact combined filters, the form the CUDA kernel reads: derived
+    # from g wherever the state is built without them (create, load_state)
+    taps: torch.Tensor = struct.field(default=None)
+
+    def __post_init__(self):
+        if self.taps is None:
+            object.__setattr__(
+                self, "taps", torch.from_numpy(compact_taps(self.g, self.p)).to(self.g.device))
 
     @classmethod
     def create(
@@ -73,12 +82,7 @@ class FusedRxChain:
             raise ConfigError("rate must divide npfb and 2^24")
         if precision not in _PRECISIONS:
             raise ConfigError(f"precision must be one of {_PRECISIONS}")
-        # reference-parity designs, all host-side numpy
-        h_fir = design.fir_design_kaiser(n_taps, fc, as_, 0.0)
-        n = 2 * m * npfb + 1
-        hf = design.fir_design_kaiser(n, 0.25 / npfb, as_, 0.0)
-        h_pfb = (hf * (npfb / np.sum(hf))).astype(np.float32)
-        branches = pfb_decompose(h_pfb[: n - 1], npfb)
+        h_fir, branches = cls.design_filters(n_taps, fc, as_, m, npfb)
         g = chain_matrices(h_fir, 2.0 * fc, branches, p)
         if len(batch_shape) != 1:
             raise ConfigError("FusedRxChain takes batch_shape=(channels,)")
@@ -95,6 +99,17 @@ class FusedRxChain:
             d_theta=osc.d_theta,
         )
 
+    @staticmethod
+    def design_filters(n_taps: int, fc: float, as_: float, m: int, npfb: int):
+        """The chain's filters, reference-parity designs in host-side numpy:
+        the Kaiser FIR taps (their output scale is 2·fc) and the resampler's
+        polyphase branches [npfb, 2m] in convolution order."""
+        h_fir = design.fir_design_kaiser(n_taps, fc, as_, 0.0)
+        n = 2 * m * npfb + 1
+        hf = design.fir_design_kaiser(n, 0.25 / npfb, as_, 0.0)
+        h_pfb = (hf * (npfb / np.sum(hf))).astype(np.float32)
+        return h_fir, pfb_decompose(h_pfb[: n - 1], npfb)
+
     # ------------------------------------------------------------- streaming
     def step_planar(self, xr, xi):
         """Planar block step: returns (yr, yi, num_valid, new_chain).
@@ -103,21 +118,27 @@ class FusedRxChain:
         """
         yr, yi = fused_chain_apply(
             xr, xi, self.g, self.hist_r, self.hist_i, self.theta, self.d_theta,
-            p=self.p,
+            p=self.p, taps=self.taps,
         )
-        t = xr.shape[-1]
-        new = self.replace(
+        return yr, yi, xr.shape[-1] * self.p, self._advance(xr, xi)
+
+    def _advance(self, xr, xi) -> "FusedRxChain":
+        """The state after a block with planes (or plane views) xr, xi."""
+        return self.replace(
             hist_r=xr[:, -128:].contiguous(),
             hist_i=xi[:, -128:].contiguous(),
-            theta=(self.theta + (t * self.p) * self.d_theta) & U32,
+            theta=(self.theta + (xr.shape[-1] * self.p) * self.d_theta) & U32,
         )
-        return yr, yi, t * self.p, new
 
     def step(self, x):
-        """Complex step: splits the planes, runs :meth:`step_planar`, joins."""
-        yr, yi, k, new = self.step_planar(
-            x.real.to(torch.float32).contiguous(), x.imag.to(torch.float32).contiguous()
+        """Complex step: x complex64 [C, T] → (y complex64 [C, T·P], T·P,
+        state), the kernel reading and writing interleaved samples, with the
+        values of :meth:`step_planar`."""
+        x = x.to(torch.complex64).contiguous()
+        y = fused_chain_apply_c64(
+            x, self.g, self.hist_r, self.hist_i, self.theta, self.d_theta,
+            p=self.p, taps=self.taps,
         )
-        return torch.complex(yr, yi), k, new
+        return y, x.shape[-1] * self.p, self._advance(x.real, x.imag)
 
     __call__ = step

@@ -30,7 +30,9 @@
 // The TPU kernel's per-tile halo arrays and its [R2, 256] @ [256, 128] stacked
 // dot are Mosaic devices and are not carried over. An in-kernel radix-4/8 FFT
 // (fewer FLOP) or tensor cores with a 3×TF32 split are later work: TF32 alone
-// would miss the 1e-4 bound. Every precision mode runs this fp32 kernel.
+// would miss the 1e-4 bound. Every precision mode runs this fp32 kernel. A
+// bank of more than kTapTile = 64 taps a branch runs a second instance that
+// walks the taps in tiles of 64, so the shared memory does not grow with p.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,11 +44,62 @@ constexpr int kLane = 128;     // table row width: two copies of the 64 lanes
 constexpr int kSteps = 64;     // analyzer steps per block
 constexpr int kThreads = 256;  // a multiple of kM: each thread keeps one lane
 constexpr int kUPitch = kSteps + 4;  // u row pitch: 16-byte rows, fewer bank conflicts
+constexpr int kTapTile = 64;   // taps a branch staged at once; p beyond it runs in tiles
 
 size_t smem_bytes(int p) {
-  // W' (re, im), u (re, im), taps, and kSteps + p input M-blocks (re, im)
+  // W' (re, im), u (re, im), p taps, and kSteps + p input M-blocks (re, im);
+  // the tiled instance stages kTapTile taps at a time
   return sizeof(float) *
          (2 * kM * kM + 2 * kM * kUPitch + (size_t)p * kM + 2 * (size_t)(kSteps + p) * kM);
+}
+
+// The 64-point IDFT of a block's kSteps steps, u [64][kUPitch] (re, im) times
+// W' [64][64] (re, im), register-blocked, and the step-major stores.
+__device__ __forceinline__ void idft_store(const float* s_wr, const float* s_wi,
+                                           const float* s_ur, const float* s_ui,
+                                           float* __restrict__ yr, float* __restrict__ yi,
+                                           int t0, int T) {
+  const int tid = threadIdx.x;
+  // IDFT: thread (ty, tx) owns steps 4·ty .. 4·ty + 3 and channels 4·tx .. 4·tx + 3
+  const int tx = tid % 16, ty = tid / 16;
+  float accr[4][4], acci[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.0f;
+
+#pragma unroll 4
+  for (int c = 0; c < kM; ++c) {
+    const float4 wr4 = *reinterpret_cast<const float4*>(&s_wr[c * kM + 4 * tx]);
+    const float4 wi4 = *reinterpret_cast<const float4*>(&s_wi[c * kM + 4 * tx]);
+    const float4 ur4 = *reinterpret_cast<const float4*>(&s_ur[c * kUPitch + 4 * ty]);
+    const float4 ui4 = *reinterpret_cast<const float4*>(&s_ui[c * kUPitch + 4 * ty]);
+    const float wr[4] = {wr4.x, wr4.y, wr4.z, wr4.w};
+    const float wi[4] = {wi4.x, wi4.y, wi4.z, wi4.w};
+    const float ur[4] = {ur4.x, ur4.y, ur4.z, ur4.w};
+    const float ui[4] = {ui4.x, ui4.y, ui4.z, ui4.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        accr[a][b] = fmaf(ur[a], wr[b], accr[a][b]);
+        accr[a][b] = fmaf(-ui[a], wi[b], accr[a][b]);
+        acci[a][b] = fmaf(ur[a], wi[b], acci[a][b]);
+        acci[a][b] = fmaf(ui[a], wr[b], acci[a][b]);
+      }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int t = t0 + 4 * ty + a;
+    if (t < T) {
+      const size_t at = (size_t)t * kM + 4 * tx;
+      *reinterpret_cast<float4*>(yr + at) =
+          make_float4(accr[a][0], accr[a][1], accr[a][2], accr[a][3]);
+      *reinterpret_cast<float4*>(yi + at) =
+          make_float4(acci[a][0], acci[a][1], acci[a][2], acci[a][3]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -111,65 +164,99 @@ channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ 
   }
   __syncthreads();
 
-  // IDFT: thread (ty, tx) owns steps 4·ty .. 4·ty + 3 and channels 4·tx .. 4·tx + 3
-  const int tx = tid % 16, ty = tid / 16;
-  float accr[4][4], acci[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.0f;
+  idft_store(s_wr, s_wi, s_ur, s_ui, yr, yi, t0, T);
+}
 
-#pragma unroll 4
-  for (int c = 0; c < kM; ++c) {
-    const float4 wr4 = *reinterpret_cast<const float4*>(&s_wr[c * kM + 4 * tx]);
-    const float4 wi4 = *reinterpret_cast<const float4*>(&s_wi[c * kM + 4 * tx]);
-    const float4 ur4 = *reinterpret_cast<const float4*>(&s_ur[c * kUPitch + 4 * ty]);
-    const float4 ui4 = *reinterpret_cast<const float4*>(&s_ui[c * kUPitch + 4 * ty]);
-    const float wr[4] = {wr4.x, wr4.y, wr4.z, wr4.w};
-    const float wi[4] = {wi4.x, wi4.y, wi4.z, wi4.w};
-    const float ur[4] = {ur4.x, ur4.y, ur4.z, ur4.w};
-    const float ui[4] = {ui4.x, ui4.y, ui4.z, ui4.w};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        accr[a][b] = fmaf(ur[a], wr[b], accr[a][b]);
-        accr[a][b] = fmaf(-ui[a], wi[b], accr[a][b]);
-        acci[a][b] = fmaf(ur[a], wi[b], acci[a][b]);
-        acci[a][b] = fmaf(ui[a], wr[b], acci[a][b]);
-      }
+// The instance for p > kTapTile: the taps and the input rows they reach are
+// staged kTapTile taps at a time, and u accumulates in shared memory across
+// the tiles, in the same tap order as the one-pass instance.
+__global__ void __launch_bounds__(kThreads)
+channelizer_tiled_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                         const float* __restrict__ taps, const float* __restrict__ hr,
+                         const float* __restrict__ hi, const float* __restrict__ hist_r,
+                         const float* __restrict__ hist_i, float* __restrict__ yr,
+                         float* __restrict__ yi, int T, int p, int nh) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_wr = smem;
+  float* s_wi = s_wr + kM * kM;
+  float* s_ur = s_wi + kM * kM;
+  float* s_ui = s_ur + kM * kUPitch;
+  float* s_taps = s_ui + kM * kUPitch;        // [kTapTile][64]
+  float* s_xr = s_taps + kTapTile * kM;       // [kSteps + kTapTile][64]
+  float* s_xi = s_xr + (kSteps + kTapTile) * kM;
+
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kSteps;
+  for (int i = tid; i < kM * kM; i += kThreads) {
+    const int src = (i / kM) * kLane + i % kM;
+    s_wr[i] = hr[src];
+    s_wi[i] = hi[src];
   }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int t = t0 + 4 * ty + a;
-    if (t < T) {
-      const size_t at = (size_t)t * kM + 4 * tx;
-      *reinterpret_cast<float4*>(yr + at) =
-          make_float4(accr[a][0], accr[a][1], accr[a][2], accr[a][3]);
-      *reinterpret_cast<float4*>(yi + at) =
-          make_float4(acci[a][0], acci[a][1], acci[a][2], acci[a][3]);
+  const int64_t n = (int64_t)T * kM;
+  const int c = tid % kM;
+  const int lag = c == 0 ? 0 : 1;
+  for (int j0 = 0; j0 < p; j0 += kTapTile) {
+    const int pn = min(kTapTile, p - j0);
+    if (j0) __syncthreads();  // the last tile's taps and rows are read
+    for (int i = tid; i < pn * kM; i += kThreads)
+      s_taps[i] = taps[(j0 + i / kM) * kLane + i % kM];
+    // row r, lane c holds x[g], g = (t0 − j0 − kTapTile + r)·64 + c; history
+    // below 0 (rows deeper than any tap reaches read as zero), zeros past the end
+    const int64_t g0 = (int64_t)(t0 - j0 - kTapTile) * kM;
+    for (int i = tid; i < (kSteps + kTapTile) * kM; i += kThreads) {
+      const int64_t g = g0 + i;
+      float vr = 0.0f, vi = 0.0f;
+      if (g < 0) {
+        if (nh + g >= 0) {
+          vr = hist_r[nh + g];
+          vi = hist_i[nh + g];
+        }
+      } else if (g < n) {
+        vr = xr[g];
+        vi = xi[g];
+      }
+      s_xr[i] = vr;
+      s_xi[i] = vi;
+    }
+    __syncthreads();
+    // s_c[t0 + s − j] for j = j0 + jj sits in row s − jj − lag + kTapTile
+    for (int s = tid / kM; s < kSteps; s += kThreads / kM) {
+      float ar = j0 ? s_ur[c * kUPitch + s] : 0.0f;
+      float ai = j0 ? s_ui[c * kUPitch + s] : 0.0f;
+      for (int jj = 0; jj < pn; ++jj) {
+        const int at = (s - jj - lag + kTapTile) * kM + c;
+        const float tap = s_taps[jj * kM + c];
+        ar = fmaf(tap, s_xr[at], ar);
+        ai = fmaf(tap, s_xi[at], ai);
+      }
+      s_ur[c * kUPitch + s] = ar;
+      s_ui[c * kUPitch + s] = ai;
     }
   }
+  __syncthreads();
+  idft_store(s_wr, s_wi, s_ur, s_ui, yr, yi, t0, T);
 }
 
 }  // namespace
 
 // Planar fp32 analysis of T steps. xr/xi [T·64]; taps [p, 128], hr/hi
 // [128, 128] from channelizer_tables; hist_r/hist_i [nh], nh ≥ 64·p; yr/yi
-// [T, 64] step-major, 16-byte aligned. T ≥ 1, T·64 < 2^31, 1 ≤ p ≤ 64.
+// [T, 64] step-major, 16-byte aligned. T ≥ 1, T·64 < 2^31, p ≥ 1 (past 64
+// taps a branch the tiled instance runs).
 // Launches on `stream` and returns the CUDA error of the launch (0 on success).
 extern "C" int yagi_channelizer_fp32(const float* xr, const float* xi, const float* taps,
                                      const float* hr, const float* hi, const float* hist_r,
                                      const float* hist_i, float* yr, float* yi, int T, int p,
                                      int nh, void* stream) {
-  const size_t smem = smem_bytes(p);
+  const bool tiled = p > kTapTile;
+  const size_t smem = smem_bytes(tiled ? kTapTile : p);
+  const auto kernel = tiled ? channelizer_tiled_kernel : channelizer_fp32_kernel;
   // past 48 KB, shared memory is dynamic only and must be allowed first
-  cudaError_t err = cudaFuncSetAttribute(
-      channelizer_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kSteps - 1) / kSteps);
-  channelizer_fp32_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xr, xi, taps, hr, hi, hist_r, hist_i, yr, yi, T, p, nh);
   return (int)cudaGetLastError();
 }

@@ -14,12 +14,17 @@
 
 namespace yagi {
 
+// cos θ and sin θ of a u32 phase
+__device__ __forceinline__ void nco_phasor(uint32_t theta, float& c, float& s) {
+  constexpr float kPhaseToRad = (float)(6.283185307179586 / 4294967296.0);
+  sincosf(__uint2float_rn(theta) * kPhaseToRad, &s, &c);
+}
+
 // (xr + j·xi)·(cos θ − j·sin θ)
 __device__ __forceinline__ void nco_rotate_down(float xr, float xi, uint32_t theta,
                                                 float& yr, float& yi) {
-  constexpr float kPhaseToRad = (float)(6.283185307179586 / 4294967296.0);
   float s, c;
-  sincosf(__uint2float_rn(theta) * kPhaseToRad, &s, &c);
+  nco_phasor(theta, c, s);
   yr = xr * c + xi * s;
   yi = xi * c - xr * s;
 }

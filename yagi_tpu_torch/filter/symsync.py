@@ -23,8 +23,8 @@ from .._src import struct
 from .._src.device import resolve_device
 from ..errors import ConfigError
 from .. import design
-from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
-                               symsync_scan_xla)
+from ..kernels.symscan import (FUSED_SMEM_LIMIT, branch_outputs, fused_fits, fused_smem_bytes,
+                               symsync_fused_apply, symsync_scan_apply, symsync_scan_xla)
 from ..utils.compact import compact_valid
 from .firpfb import pfb_decompose
 
@@ -246,8 +246,13 @@ class Symsync:
 
         ``backend`` keeps yagi_tpu's names; what each runs here:
 
-        * ``"auto"``, ``"fused"``: kernel K3 (``symsync_fused_apply``), the
-          selected branch's dots in the kernel, on CUDA tensors;
+        * ``"fused"``: kernel K3 (``symsync_fused_apply``), the selected
+          branch's dots in the kernel, on CUDA tensors. K3 stages the whole
+          bank in shared memory; a bank past the card's limit per block
+          (``kernels.symscan.fused_fits``; 64 filters of 173 taps, say) raises
+          :class:`ConfigError`;
+        * ``"auto"``: ``"fused"`` where the bank fits, else ``"pallas"``, chosen
+          from the shape before any launch; the two give the same bits;
         * ``"pallas"``: kernel K4 (``symsync_scan_apply``) over the all-branch
           stream from :func:`~yagi_tpu_torch.kernels.symscan.branch_outputs`,
           on CUDA tensors;
@@ -284,7 +289,15 @@ class Symsync:
             n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
         kw = self.kernel_args()
         xc = xa.to(torch.complex64)
-        if backend in ("auto", "fused"):
+        fits = fused_fits(L, self.npfb)  # K3 can stage this bank in a block's shared memory
+        if backend == "fused" and not fits:
+            raise ConfigError(
+                f"backend='fused': L = {L} taps on P = {self.npfb} filters need "
+                f"{fused_smem_bytes(L, self.npfb)} bytes of shared memory a block, past the "
+                f"limit of {FUSED_SMEM_LIMIT}; use 'auto' or 'pallas'")
+        if backend == "auto":
+            backend = "fused" if fits else "pallas"
+        if backend == "fused":
             y, valid, st, deferred = symsync_fused_apply(xc, self.taps(), n_valid, E=E, **kw)
         elif backend == "pallas":
             y, valid, st, deferred = symsync_scan_apply(branch_outputs(xc, self.taps()), n_valid,

@@ -34,8 +34,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: argument types, in the order of their declarations in csrc/
 _SIGNATURES = {
-    # xr, xi, g, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, stream
-    "yagi_chain_fp32": [_P] * 9 + [_I] * 3 + [_P],
+    # xr, xi, gc, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, Kp, stream
+    "yagi_chain_planar": [_P] * 9 + [_I] * 4 + [_P],
+    # x, gc, hist_r, hist_i, theta0, dtheta, y, C, T, P, Kp, stream
+    "yagi_chain_c64": [_P] * 7 + [_I] * 4 + [_P],
     # xr, xi, taps, hr, hi, hist_r, hist_i, yr, yi, T, p, nh, stream
     "yagi_channelizer_fp32": [_P] * 9 + [_I] * 3 + [_P],
     # x, theta0, dtheta, y, n, stream
@@ -75,8 +77,8 @@ def source_digest(csrc: Path = _CSRC) -> str:
 
 def build(csrc: Path = _CSRC) -> tuple[Path, str]:
     """Compile the kernels of ``csrc`` (the package's own by default; another
-    directory builds a variant for an A/B) unless a library for these sources
-    and flags exists.
+    directory builds a variant for an A/B; its sources may include the
+    package's headers) unless a library for these sources and flags exists.
 
     Returns the library's path and the compilers' output (with ptxas's
     register and spill report), or ``""`` when the library was already built.
@@ -92,7 +94,7 @@ def build(csrc: Path = _CSRC) -> tuple[Path, str]:
     sources = sorted(csrc.glob("*.cu"))
     objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in sources]
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(sources, objs)
     ]
@@ -117,11 +119,11 @@ def build(csrc: Path = _CSRC) -> tuple[Path, str]:
     return out, "".join(logs) + link.stdout + link.stderr
 
 
-def bind(path: Path) -> ctypes.CDLL:
+def bind(path: Path, signatures: dict = _SIGNATURES) -> ctypes.CDLL:
     """Load a kernel library and set the C signatures of the entry points it
     has (a variant built from part of the sources has only some)."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in signatures.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

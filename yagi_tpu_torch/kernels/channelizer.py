@@ -18,7 +18,9 @@ Two implementations of one function, chosen by the device of the input:
   run it.
 * ``csrc/channelizer.cu``, the hand-written Hopper kernel, which replaces
   ``yagi_tpu/kernels/channelizer.py::_chan_kernel``. CUDA tensors run it, or
-  the call raises; nothing falls back.
+  the call raises; nothing falls back. Up to 64 taps a branch it stages the
+  bank whole; a longer bank (``create_kaiser(m=33)``: p = 66) runs its
+  second instance, which walks the taps in tiles of 64, for any p ≥ 1.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ __all__ = ["channelizer_tables", "fused_channelizer_apply", "fused_channelizer_r
 _LANE = 128
 _M = 64  # channels (the kernel is specialized to M = 64, the config[4] workload)
 _S = _LANE // _M  # analyzer steps per 128-lane row (= 2)
-_MAX_P = 64  # taps per branch the CUDA kernel's shared memory is sized for
 
 
 def channelizer_tables(branches: np.ndarray, scale: float):
@@ -146,8 +147,6 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
     from ._build import library
 
     n = xr.shape[0]
-    if not 1 <= p <= _MAX_P:
-        raise ValueError(f"the CUDA channelizer kernel takes 1 <= p <= {_MAX_P}, got {p}")
     if n >= 1 << 31:
         raise ValueError(f"stream length {n} exceeds the kernel's index range")
     t = n // _M

@@ -6,7 +6,10 @@ yagi_tpu runs this loop as a ``lax.scan`` whose body is ``eq_slot``
 loop; it wrote no Pallas kernel for it. In eager torch a slot is ~75 small
 ops, so the port runs the loop as a hand-written CUDA kernel
 (``csrc/qam.cu``), 8 lanes per channel (the decision's distances split over
-the lanes), beside its plain version :func:`qam_eq_scan_reference`.
+the lanes), beside its plain version :func:`qam_eq_scan_reference`. Up to
+:data:`MAX_REG_H_LEN` taps the window and weights live in registers; a
+longer equalizer runs the kernel's shared-memory instance (the same lane map,
+dot order and argmin), chosen from h_len before the launch.
 
 Per channel, for each emission slot in stream order (``eq_slot`` op for op,
 the math of ``Eqlms.push/execute/step``, eqlms.rs:125-187): push the slot into
@@ -50,7 +53,17 @@ __all__ = ["STATE_FIELDS", "qam_eq_scan_apply", "qam_eq_scan_reference"]
 
 STATE_FIELDS = ("w", "buffer", "x2", "x2_sum", "count", "theta", "dtheta", "sym_phase",
                 "evm_accum", "evm_count")
-MAX_H_LEN = 16  # the kernel holds the window in registers, one instance per h_len
+MAX_REG_H_LEN = 16  # up to here the window lives in registers; past it, in shared memory
+_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on an H100
+_CHANS, _PITCH, _BPITCH = 16, 65, 68  # csrc/qam.cu: channels per block, tile row pitches
+
+
+def smem_bytes(m: int, h_len: int) -> int:
+    """Shared memory of one ``qam_eq_scan`` block (``csrc/qam.cu``): the table,
+    the tiles of slots and outputs and, past :data:`MAX_REG_H_LEN`, each
+    channel's window and weights, 5·h_len floats at an odd stride."""
+    tiles = 8 * (m + 2 * _CHANS * _PITCH) + 4 * _CHANS * _PITCH + 2 * _CHANS * _BPITCH
+    return tiles + (4 * _CHANS * ((5 * h_len) | 1) if h_len > MAX_REG_H_LEN else 0)
 
 
 def _dot(a):
@@ -129,8 +142,9 @@ def qam_eq_scan_reference(y, valid, table, mu, alpha, beta, state, *, k_eq: int 
 
 def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2):
     """``qam_eq_scan``: the equalizer / carrier loop over a block's slots,
-    arguments and result as the module docstring says; h_len ≤
-    :data:`MAX_H_LEN` on the card.
+    arguments and result as the module docstring says; on the card any
+    h_len whose block fits the shared memory (:func:`smem_bytes`; h_len ≤ 654
+    with a 16-point table).
 
     CPU tensors run :func:`qam_eq_scan_reference`; CUDA tensors launch the
     kernel (counted in ``qam_eq_scan_apply.launches``) or raise.
@@ -160,8 +174,10 @@ def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2)
         raise ValueError("qam_eq_scan_apply: h_len must be >= 1")
     if route(y.device, "qam_eq_scan_apply") == "reference":
         return qam_eq_scan_reference(y, valid, table, mu, alpha, beta, state, k_eq=k_eq)
-    if h_len > MAX_H_LEN:
-        raise ValueError(f"qam_eq_scan_apply: the kernel takes h_len <= {MAX_H_LEN}, got {h_len}")
+    if smem_bytes(table.shape[0], h_len) > _SMEM_LIMIT:
+        raise ValueError(f"qam_eq_scan_apply: h_len = {h_len} with a {table.shape[0]}-point "
+                         f"table needs {smem_bytes(table.shape[0], h_len)} bytes of shared "
+                         f"memory a block, past the card's {_SMEM_LIMIT}")
 
     from ._build import library
 

@@ -67,6 +67,8 @@ from ._check import check_tensors, route
 __all__ = [
     "STATE_ROWS",
     "branch_outputs",
+    "fused_fits",
+    "fused_smem_bytes",
     "symsync_fused_apply",
     "symsync_fused_reference",
     "symsync_scan_apply",
@@ -76,6 +78,33 @@ __all__ = [
 
 STATE_ROWS = 9  # b, bf, tau, tau_decim, rate, delta, dec, v0, v1
 LANES = 4  # K3's lanes per dot, each summing every LANES-th tap (csrc/symscan.cu)
+FUSED_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on an H100
+_FUSED_CHANS, _FUSED_TILE = 8, 128  # K3's channels per block and samples per tile
+
+
+def _pitch(length: int, rem: int, mod: int) -> int:
+    """The smallest pitch ≥ length with pitch ≡ rem (mod ``mod``)."""
+    return length + (rem - length) % mod
+
+
+def fused_smem_bytes(L: int, P: int) -> int:
+    """K3's shared memory per block for L taps a branch and P branches, the
+    arithmetic of ``csrc/symscan.cu::fused_layout``: two copies of all 2P tap
+    rows at bank-spreading pitches, and two tiles of 8 channels' samples."""
+    fpitch = _pitch(L, 4, 32)
+    rpitch = _pitch(fpitch + L, 16, 32)
+    cstride = _pitch(P * rpitch, 8, 32)
+    spitch = _pitch(_FUSED_TILE + L, 4, 16)
+    return 4 * 2 * cstride + 8 * 2 * _FUSED_CHANS * spitch
+
+
+def fused_fits(L: int, P: int) -> bool:
+    """Whether K3 takes this bank: its taps are staged whole, so a large P·L
+    passes the block's shared memory. ``Symsync`` on ``"auto"`` then runs K4
+    over :func:`branch_outputs`' stream, which has no such limit and gives
+    the same bits (the counterpart of yagi_tpu's ``fused_ok`` gate, with the
+    card's limit in place of the VMEM budget)."""
+    return fused_smem_bytes(L, P) <= FUSED_SMEM_LIMIT
 
 
 def branch_outputs(xa, g):
@@ -305,6 +334,11 @@ def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P:
         return symsync_fused_reference(xa, g, n_valid, state, locked, radj, pll_a, pll_b, P=P,
                                        E=E, k_out=k_out, k=k)
 
+    if not fused_fits(L, P):
+        raise ValueError(f"symsync_fused_apply: L = {L} taps on P = {P} branches need "
+                         f"{fused_smem_bytes(L, P)} bytes of shared memory a block, past the "
+                         f"card's {FUSED_SMEM_LIMIT}")
+
     from ._build import library
 
     y, valid, st, deferred = _outputs(C, n, E, xa.device)
@@ -316,7 +350,7 @@ def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P:
             st.data_ptr(), deferred.data_ptr(), C, n, L, P, E, k_out,
             ctypes.c_float(np.float32(1.0 / k)), stream,
         )
-    if rc != 0:  # also a tap count whose shared memory exceeds the block's limit
+    if rc != 0:
         raise RuntimeError(f"symsync fused kernel launch failed with CUDA error {rc}")
     symsync_fused_apply.launches += 1
     return y, valid, st, deferred

@@ -1,33 +1,43 @@
-"""A/B of two loop kernels on one card, ``qam_eq_scan`` (``csrc/qam.cu``)
-and K3 ``symsync_fused`` (``csrc/symscan.cu``): an earlier version (v1)
-against the package's own (v2).
+"""A/B of a kernel's versions on one card: an earlier version (v1) against
+the package's own (v2), for ``qam_eq_scan`` (``csrc/qam.cu``), K3
+``symsync_fused`` (``csrc/symscan.cu``), ``agc_scan`` (``csrc/agc.cu``) and
+K1, the fused chain (``csrc/chain.cu``), where a third version runs too: the
+two-stage formulation of ``tools/variants/chain_twostage.cu``. It is the
+card's counterpart of ``tools/kernel_variants.py``, the TPU A/B of K1's
+formulations.
 
 v1's sources sit in a directory of their own, taken from the commit to
 compare against, for example::
 
     mkdir -p build/ab_v1
-    for f in qam.cu symscan.cu symscan.cuh; do
+    for f in agc.cu chain.cu nco.cuh qam.cu symscan.cu symscan.cuh; do
         git show <commit>:yagi_tpu_torch/csrc/$f > build/ab_v1/$f
     done
     python -m yagi_tpu_torch.tools.kernel_ab --v1 build/ab_v1
 
-Each version is built into its own library (``kernels/_build.py``), and the
-kernel wrappers are pointed at it in turn. At each path's shape (config[3]:
-``qam_eq_scan`` on 2048 channels × 8192 slots from K3, and K3 at k_out = 2,
-C = 2048, n = 4096; config[1]: K3 at C = 1024, n = 3976, n_valid = 3965,
-random input from a seed) every version's outputs and new state are first
-held bit for bit against v1's, then each is timed by CUDA-graph replay in
-turns, v1, v2, v2, v1. Another variant of a kernel (a lane count, a loop
-form) is an edited copy of its source in a directory of its own, taken as
-v1. The shapes and constructors are those of :mod:`.paths`, which
-``chip_smoke.py`` uses too. Prints one line per measurement and, last, one JSON object, which ``--out``
-also receives.
+A directory with only some of the sources runs only their cases. Each version
+is built into its own library (``kernels/_build.py``), and the kernel
+wrappers are pointed at it in turn. At each path's shape (config[3]:
+``agc_scan`` on 2048 channels × 4096 samples, ``qam_eq_scan`` on 2048
+channels × 8192 slots from K3, and K3 at k_out = 2; config[1]: K3 at
+C = 1024, n = 3976, n_valid = 3965; config[0]: K1 on 16 channels × 2^17
+samples, on planes and on complex64; random input from a seed) every
+version's outputs and new state are first held against v1's, bit for bit
+for the loops and within 1e-4 of |a| + 1e-3 for K1, then each is timed by
+CUDA-graph replay in turns, v1, v2, v2, v1. A v1 library with the first
+``chain.cu``'s entry point (banded taps, no complex64 layout) is called
+through it, its complex64 case as split, kernel, join. Another variant of a
+kernel (a lane count, a tile size) is an edited copy of its source in a
+directory of its own, taken as v1. The shapes and constructors are those of
+:mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
+measurement and, last, one JSON object, which ``--out`` also receives.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 from pathlib import Path
@@ -35,13 +45,32 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..chains import FusedRxChain
 from ..kernels import _build
+from ..kernels.agc import agc_scan_apply
+from ..kernels.chain import fused_chain_apply, fused_chain_apply_c64
 from ..kernels.qam import qam_eq_scan_apply
 from ..kernels.symscan import symsync_fused_apply
-from .paths import C1, C3, T1, T3, complex_block, make_msresamp, make_qamrx, make_symsync
+from .paths import (C0, C1, C3, CHAIN, T0, T1, T3, complex_block, make_fused, make_msresamp,
+                    make_qamrx, make_symsync)
 from .timing import graph_ms
 
 REPS = 10
+CHAIN_TOL = 1e-4  # K1's versions against v1: |a − b| / (|a| + 1e-3)
+VARIANTS = Path(__file__).resolve().parent / "variants"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points of other sources than the package's, beside its own:
+SIGNATURES = {
+    **_build._SIGNATURES,
+    # the first chain.cu (banded g, P in {1, 2, 4, 8}):
+    # xr, xi, g, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, stream
+    "yagi_chain_fp32": [_P] * 9 + [_I] * 3 + [_P],
+    # variants/chain_twostage.cu:
+    # xr, xi, h, br, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, n_taps, L, stream
+    "yagi_chain_twostage": [_P] * 10 + [_I] * 5 + [_P],
+}
+TURNS = ("v1", "v2", "v2", "v1")
+CHAIN_TURNS = ("v1", "v2", "twostage", "twostage", "v2", "v1")
 
 
 @contextlib.contextmanager
@@ -57,15 +86,72 @@ def using(lib):
 
 def flat(out) -> list:
     """A kernel's result as a list of tensors (outputs, then the state)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
     tensors = []
     for v in out:
         tensors += list(v.values()) if isinstance(v, dict) else [v]
     return tensors
 
 
+def chain_calls(device, rng):
+    """K1's calls at config[0]. Each looks at the library the wrappers point
+    at: the package's entry points go through the wrappers, the first
+    ``chain.cu``'s and the two-stage variant's through ctypes."""
+    chain = make_fused(C0, device)
+    p = chain.p
+    h_fir, branches = FusedRxChain.design_filters(CHAIN["n_taps"], CHAIN["fc"], CHAIN["as_"],
+                                                  m=7, npfb=256)
+    h = np.zeros(64, np.float32)
+    h[: len(h_fir)] = h_fir * (2.0 * CHAIN["fc"])
+    br = np.zeros((p, 16), np.float32)
+    br[:, : branches.shape[1]] = branches[:: 256 // p]
+    h, br = torch.from_numpy(h).to(device), torch.from_numpy(br).to(device)
+    theta0 = torch.tensor(0x9E3779B9, dtype=torch.int64, device=device)
+
+    def raw(entry, x0, x1, hr, hi, *extra):
+        """A launch through a C entry point that has no wrapper."""
+        C, T = x0.shape
+        yr = torch.empty((C, T * p), dtype=torch.float32, device=device)
+        yi = torch.empty_like(yr)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        taps = (h.data_ptr(), br.data_ptr()) if extra else (chain.g.data_ptr(),)
+        rc = entry(x0.data_ptr(), x1.data_ptr(), *taps, hr.data_ptr(), hi.data_ptr(),
+                   theta0.data_ptr(), chain.d_theta.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   C, T, p, *extra, stream)
+        if rc != 0:
+            raise RuntimeError(f"chain variant launch failed with CUDA error {rc}")
+        return yr, yi
+
+    def planar(xr, xi, hr, hi):
+        lib = _build.library()
+        if hasattr(lib, "yagi_chain_twostage"):
+            return raw(lib.yagi_chain_twostage, xr, xi, hr, hi, CHAIN["n_taps"],
+                       branches.shape[1])
+        if hasattr(lib, "yagi_chain_planar"):
+            return fused_chain_apply(xr, xi, chain.g, hr, hi, theta0, chain.d_theta, p=p,
+                                     taps=chain.taps)
+        return raw(lib.yagi_chain_fp32, xr, xi, hr, hi)
+
+    def c64(x, hr, hi):
+        if hasattr(_build.library(), "yagi_chain_c64"):
+            return fused_chain_apply_c64(x, chain.g, hr, hi, theta0, chain.d_theta, p=p,
+                                         taps=chain.taps)
+        return torch.complex(*planar(x.real.contiguous(), x.imag.contiguous(), hr, hi))
+
+    def f32(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+    sets = [(f32((C0, T0)), f32((C0, T0)), f32((C0, 128)), f32((C0, 128))) for _ in range(4)]
+    csets = [(torch.complex(a[0], a[1]), a[2], a[3]) for a in sets]
+    return ([lambda a=a: planar(*a) for a in sets] * 5, [lambda a=a: c64(*a) for a in csets] * 5,
+            f"C={C0}, T={T0}, P={p}, Kp={chain.taps.shape[1]}")
+
+
 def cases(device):
-    """(name, [calls per input set], shape note): each call runs one kernel
-    launch through the wrappers on a fixed input."""
+    """(name, the C entry point a library needs for it, [calls per input
+    set], shape note, the tolerance against v1 or None for bit identity, the
+    versions in turns): each call runs one kernel launch on a fixed input."""
     rng = np.random.default_rng(5)
     ss1 = make_symsync(C1, device)
     n1 = make_msresamp(C1, device).out_capacity(T1)
@@ -85,22 +171,54 @@ def cases(device):
     k3_1 = [lambda a=a: symsync_fused_apply(*a, nv, **kw1) for a in sets1]
     k3_3 = [lambda a=a: symsync_fused_apply(*a, None, **kw3) for a in sets3]
     eq = [lambda s=s: qam_eq_scan_apply(*s, *eq_args, k_eq=rx.k_eq) for s in slots]
+    a = rx.agc  # the path's AGC: bandwidth 1e-3, squelch disabled
+    agc = [lambda x=x: agc_scan_apply(x, a.g, a.y2_prime, a.alpha, a.scale, a.squelch_threshold,
+                                      a.locked, a.squelch_mode, a.squelch_timer, timeout=100)
+           for x in (complex_block(rng, (C3, T3), device) for _ in range(2))]
+    planar, c64, chain_note = chain_calls(device, rng)
     return [
-        ("symsync_fused config[1]", k3_1, f"C={C1}, n={n1}, n_valid={n1 - 11}, L={L}, E=2, k_out=1"),
-        ("symsync_fused config[3]", k3_3, f"C={C3}, n={T3}, L={L}, E=2, k_out=2"),
-        ("qam_eq_scan config[3]", eq,
-         f"C={C3}, S={2 * T3}, M={eq_args[0].shape[0]}, h_len={rx.eq.h_len}"),
+        ("symsync_fused config[1]", "yagi_symsync_fused", k3_1,
+         f"C={C1}, n={n1}, n_valid={n1 - 11}, L={L}, E=2, k_out=1", None, TURNS),
+        ("symsync_fused config[3]", "yagi_symsync_fused", k3_3,
+         f"C={C3}, n={T3}, L={L}, E=2, k_out=2", None, TURNS),
+        ("qam_eq_scan config[3]", "yagi_qam_eq_scan", eq,
+         f"C={C3}, S={2 * T3}, M={eq_args[0].shape[0]}, h_len={rx.eq.h_len}", None, TURNS),
+        ("agc_scan config[3]", "yagi_agc_scan", agc, f"C={C3}, n={T3}, squelch disabled", None,
+         TURNS),
+        ("chain planar config[0]", "yagi_chain_", planar, chain_note, CHAIN_TOL, CHAIN_TURNS),
+        ("chain complex64 config[0]", "yagi_chain_", c64, chain_note, CHAIN_TOL, TURNS),
     ]
 
 
+def serves(lib, entry: str) -> bool:
+    """Whether a library has the entry point (for K1: any of its forms)."""
+    names = (("yagi_chain_planar", "yagi_chain_fp32", "yagi_chain_twostage")
+             if entry == "yagi_chain_" else (entry,))
+    return any(hasattr(lib, n) for n in names)
+
+
+def agrees(got, want, tol):
+    """Bit identity (``tol`` None), or the largest |a − b| / (|b| + 1e-3) where
+    it stays below ``tol`` and False where it does not."""
+    if tol is None:
+        return all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+    def cplx(t):  # a (re, im) pair of planes as complex values
+        return [torch.complex(*t)] if len(t) == 2 and not t[0].is_complex() else t
+
+    worst = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+                for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
+    print(f"[ab] largest relative difference from v1: {worst:.3e}")
+    return worst < tol and worst
+
+
 def build_log_lines(log: str) -> list[str]:
-    keep = ("qam_eq_scan", "symsync_fused", "registers", "spill")
+    keep = ("qam_eq_scan", "symsync_fused", "agc_scan", "chain_", "registers", "spill")
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--v1", required=True, help="directory with v1's qam.cu, symscan.cu(h)")
+    parser.add_argument("--v1", required=True, help="directory with v1's sources")
     parser.add_argument("--out", default="build/kernel_ab.json")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -111,34 +229,39 @@ def main(argv=None) -> None:
                           check=True).stdout.strip().splitlines()[0]
     print(f"[ab] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    builds = {"v1": _build.build(Path(args.v1)), "v2": _build.build()}
+    builds = {"v1": _build.build(Path(args.v1)), "v2": _build.build(),
+              "twostage": _build.build(VARIANTS)}
     for name, (path, log) in builds.items():
         print(f"[ab] {name}: {path.name}")
         for ln in build_log_lines(log):
             print(f"[ab] {name} build: {ln}")
-    libs = {name: _build.bind(path) for name, (path, _) in builds.items()}
-    order = ["v1", "v2", "v2", "v1"]
+    libs = {name: _build.bind(path, SIGNATURES) for name, (path, _) in builds.items()}
 
-    result = {"card": card, "order": order, "cases": {}}
-    for name, calls, note in cases(device):
+    result = {"card": card, "cases": {}}
+    for name, entry, calls, note, tol, turns in cases(device):
+        if not serves(libs["v1"], entry):
+            print(f"[ab] {name}: v1 has no {entry}, skipped")
+            continue
+        versions = list(dict.fromkeys(turns))
         with using(libs["v1"]):
-            want = [flat(call()) for call in calls]
+            want = [flat(call()) for call in calls[:4]]
         same = {}
-        for v, lib in libs.items():
-            with using(lib):
-                got = [flat(call()) for call in calls]
+        for v in versions:
+            with using(libs[v]):
+                got = [flat(call()) for call in calls[:4]]
             torch.cuda.synchronize()
-            same[v] = all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+            same[v] = agrees(got, want, tol)
         times = []
-        for v in order:
+        for v in turns:
             with using(libs[v]):
                 times.append(graph_ms(calls, reps=REPS))
-        per = {v: [t for o, t in zip(order, times) if o == v] for v in libs}
-        print(f"[ab] {name} ({note}): bit-identical to v1 {same}; ms per call in turns "
-              + ", ".join(f"{o} {t:.4f}" for o, t in zip(order, times)))
+        per = {v: [t for o, t in zip(turns, times) if o == v] for v in versions}
+        held = "bit-identical to v1" if tol is None else f"within {tol} of v1"
+        print(f"[ab] {name} ({note}): {held} {same}; ms per call in turns "
+              + ", ".join(f"{o} {t:.4f}" for o, t in zip(turns, times)))
         result["cases"][name] = {"shape": note, "same_as_v1": same, "ms": per,
                                  "mean_ms": {v: sum(ts) / len(ts) for v, ts in per.items()}}
-        if not all(same.values()):
+        if any(v is False for v in same.values()):
             raise SystemExit(f"kernel_ab: {name}: a version differs from v1: {same}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))

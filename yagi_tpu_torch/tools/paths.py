@@ -1,4 +1,4 @@
-"""The shapes and inputs of the config[1] and config[3] paths, in one place
+"""The shapes and inputs of the config[0], config[1] and config[3] paths, in one place
 for ``chip_smoke.py`` and the tools that time those paths on the card
 (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
@@ -7,8 +7,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..chains import QamRx
+from ..chains import FusedRxChain, QamRx
 from ..filter import MsResamp, Symsync
+
+# config[0] (bench.py:44-82): 64-tap Kaiser FIR → 2× interpolator → mix-down
+# over 16 channels, blocks of 2^17
+C0, T0 = 16, 1 << 17
+CHAIN = dict(n_taps=64, fc=0.2, as_=60.0, rate=2.0)
+MIX_FREQ = 0.35
 
 # config[1] (bench.py:160-192): MsResamp → Symsync over 1024 channels,
 # blocks of 4096
@@ -28,6 +34,11 @@ def complex_block(rng, shape, device) -> torch.Tensor:
     re = rng.standard_normal(shape, dtype=np.float32)
     im = rng.standard_normal(shape, dtype=np.float32)
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+
+
+def make_fused(c: int, device, **kw) -> FusedRxChain:
+    return FusedRxChain.create(**{**CHAIN, "mix_freq": MIX_FREQ, **kw}, batch_shape=(c,),
+                               device=device)
 
 
 def make_msresamp(c: int, device) -> MsResamp:

@@ -1,11 +1,12 @@
-"""Eager step time of config[1] and config[3] on one card, and where the
-device time goes.
+"""Eager step time of config[0], config[1] and config[3] on one card, and
+where the device time goes.
 
 For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
 between CUDA events, the host's time to enqueue a step, then a
 ``torch.profiler`` table of device time by kernel over 5 more steps.
 
+* config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
 * config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``, 1024
   channels × 4096 samples;
 * config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples.
@@ -14,7 +15,8 @@ The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
 
 It imports the port by absolute name, so it also times another checkout of
-the package that has ``tools/paths.py``, as run from that checkout's root::
+the package that has ``tools/paths.py``, as run from that checkout's
+root::
 
     python -m yagi_tpu_torch.tools.step_profile
     (cd <other checkout> && PYTHONPATH=$PWD python <this file>)
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from yagi_tpu_torch.tools import paths
 from yagi_tpu_torch.tools.paths import (
     C1,
     C3,
@@ -46,6 +49,25 @@ from yagi_tpu_torch.tools.paths import (
 def blocks(c: int, n: int, device) -> list[torch.Tensor]:
     rng = np.random.default_rng(QAM_SEED)
     return [complex_block(rng, (c, n), device) for _ in range(4)]
+
+
+def config0(device):
+    c0, t0 = getattr(paths, "C0", 16), getattr(paths, "T0", 1 << 17)
+    xs = blocks(c0, t0, device)
+    if hasattr(paths, "make_fused"):
+        chain = paths.make_fused(c0, device)
+    else:  # another checkout, whose tools/paths.py has no config[0] yet
+        from yagi_tpu_torch.chains import FusedRxChain
+
+        chain = FusedRxChain.create(n_taps=64, fc=0.2, as_=60.0, rate=2.0, mix_freq=0.35,
+                                    batch_shape=(c0,), device=device)
+    state = [chain, 0]
+
+    def step():
+        state[0] = state[0].step(xs[state[1] % 4])[2]
+        state[1] += 1
+
+    return step
 
 
 def config1(device):
@@ -104,6 +126,7 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     print(f"[step] card: {card}")
+    measure("config[0] FusedRxChain.step", config0(device), 10 * args.steps)
     measure("config[1] MsResamp -> Symsync", config1(device), args.steps)
     measure("config[3] QamRx.step_masked", config3(device), args.steps)
 
