@@ -36,9 +36,11 @@ Seven phases:
    at tap counts that are not a multiple of 4, qam_eq_scan also on ties
    and NaNs with 4-, 16- and 64-point tables), and at the shapes that take
    a kernel's second instance: K1 at rates 16, 32 and 256 and at 65,600
-   channels, K2 at 66 taps a branch, qam_eq_scan at 17 and 31 taps, agc_scan
-   at tile edges, and a Symsync bank past K3's shared memory, which "auto"
-   hands to K4;
+   channels, K2 at 66 taps a branch, at 1 tap and at 20,002 steps (its
+   persistent blocks split unevenly), qam_eq_scan at 17 and 31 taps,
+   agc_scan at tile edges, K4 at P = 256, 1024, 7262 (smaller staged
+   layouts) and 7263 (the direct instance), and a Symsync bank past K3's
+   shared memory, which "auto" hands to K4;
 5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
    for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
@@ -49,7 +51,8 @@ Seven phases:
    channels (tail symbol error rate 0, tail EVM below −25 dB);
 7. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
-   scans, the AGC and the eq/carrier loop), and the config[0], config[4],
+   scans, the AGC and the eq/carrier loop), K4's direct instance (its first
+   version) in turns with its staged one, and the config[0], config[4],
    config[1] and config[3] steps.
 
 Prints one line per check, a JSON line of per-kernel results (with each
@@ -86,8 +89,10 @@ from yagi_tpu_torch.kernels.chain import (  # noqa: E402
     fused_chain_reference,
 )
 from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
+    channelizer_tables,
     fused_channelizer_apply,
     fused_channelizer_reference,
+    halo_rows,
 )
 from yagi_tpu_torch.filter import Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
@@ -98,9 +103,11 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     branch_outputs,
     fused_fits,
     fused_smem_bytes,
+    scan_layout,
     symsync_fused_apply,
     symsync_fused_reference,
     symsync_scan_apply,
+    symsync_scan_launch,
     symsync_scan_reference,
 )
 from yagi_tpu_torch.modem import Freqdem, Modem  # noqa: E402
@@ -111,11 +118,15 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     C1,
     C3,
     CHAIN,
+    CHZ,
+    KF,
+    M4,
     MIX_FREQ,
     QAM_SEED,
     T0 as T,
     T1,
     T3,
+    T4,
     complex_block,
     make_fused,
     make_msresamp,
@@ -140,10 +151,13 @@ CHAIN_SHAPES = ((3, 2048, 2), (5, 1024, 1), (3, 512, 4), (3, 512, 8), (3, 2048, 
 REL_TOL = 1e-4
 SPLIT_ATOL = 1e-5
 
-# config[4] (bench.py:85-125): 64 channels, 2^15 analyzer steps per block
-M4, T4 = 64, 1 << 15
-CHZ = dict(num_channels=M4, m=4, as_=60.0, r2=128)
-KF = 0.1
+# config[4] (M4 channels, T4 analyzer steps per block, the bank CHZ, the FM
+# factor KF) comes from yagi_tpu_torch/tools/paths.py too. K2's other
+# shapes, each against its plain version: (m of the Kaiser bank, or None for
+# p = 1 random taps; steps). 20,002 steps are 626 tiles of 32, 2 or 3 a
+# persistent block, the last tile 2 steps long
+CHZ_SHAPES = ((4, 256), (33, 256), (33, 768), (None, 2), (None, 20002), (4, 20002),
+              (33, 20002))
 # The channelizer's outputs have an rms of ~11 and fp32 sums leave ~1e-5 of
 # absolute error, so error is held relative to the block's rms: at 2^21
 # outputs a few lie within 0.01 of 0, where |a − b| / (|a| + 1e-3) reaches
@@ -450,30 +464,37 @@ def phase_timing(device, card: str) -> dict:
 
 def phase_kernel_vs_plain_channelizer(device) -> float:
     """K2 against fused_channelizer_reference with a random history, at
-    config[4]'s bank (p = 8) and at p = 66, which runs the instance that walks
-    the taps in tiles; returns max |error| at config[4]."""
+    config[4]'s bank (p = 8), at p = 66, which runs the instance that walks
+    the taps in tiles, at p = 1 (random taps), and at T = 20,002 steps, which
+    the persistent blocks split unevenly with a short last tile; returns max
+    |error| at config[4]."""
     rng = np.random.default_rng(SEED + 10)
-    path = FusedChannelizer.create_kaiser(**CHZ, device=device)
-    # m = 33: p = 66 taps a branch, past the 64 the kernel stages at once
-    long = FusedChannelizer.create_kaiser(**{**CHZ, "m": 33}, device=device)
     max_abs = 0.0
-    for fz, t in ((path, 256), (long, 256), (long, 768), (path, T4)):
-        n, nh = t * M4, fz.hist_r.shape[0]
-        args = (planes(rng, n, device), planes(rng, n, device), fz.taps, fz.hr, fz.hi,
+    for m, t in CHZ_SHAPES + ((4, T4),):
+        if m is None:  # one random tap a branch
+            tables = channelizer_tables(rng.standard_normal((M4, 1)), 1.0)
+            taps, hr, hi = (torch.from_numpy(a).to(device) for a in tables)
+            p, r2, nh = 1, 1, halo_rows(1) * 128
+        else:
+            fz = FusedChannelizer.create_kaiser(**{**CHZ, "m": m}, device=device)
+            taps, hr, hi, p, nh = fz.taps, fz.hr, fz.hi, fz.p, fz.hist_r.shape[0]
+            r2 = fz.r2 if t == T4 else 1
+        n = t * M4
+        args = (planes(rng, n, device), planes(rng, n, device), taps, hr, hi,
                 planes(rng, nh, device), planes(rng, nh, device))
-        kr, ki = fused_channelizer_apply(*args, p=fz.p, r2=fz.r2)
-        rr, ri = fused_channelizer_reference(*args, p=fz.p)
+        kr, ki = fused_channelizer_apply(*args, p=p, r2=r2)
+        rr, ri = fused_channelizer_reference(*args, p=p)
         a, b = torch.complex(rr, ri), torch.complex(kr, ki)
         require(tuple(b.shape) == (t, M4), f"channelizer output shape {tuple(b.shape)}")
         require(bool(torch.isfinite(b).all()), "channelizer output finite")
         err, abs_err = rel_rms(a, b), (a - b).abs().max().item()
-        print(f"[kernel-vs-plain] channelizer_fp32 T={t} p={fz.p}: max abs err {abs_err:.3e} "
+        print(f"[kernel-vs-plain] channelizer_fp32 T={t} p={p}: max abs err {abs_err:.3e} "
               f"= {err:.3e} of the rms (< {CHZ_TOL}); per-sample rel err (|a| + 1e-3) "
               f"{rel_err(a, b):.3e}")
-        require(err < CHZ_TOL, f"channelizer kernel vs plain at T={t}: {err}")
+        require(err < CHZ_TOL, f"channelizer kernel vs plain at T={t}, p={p}: {err}")
+        require(m != 33 or p == 66, f"m = 33 gives p = {p}")
         if t == T4:
             max_abs = abs_err
-    require(long.p == 66, f"m = 33 gives p = {long.p}")
     return max_abs
 
 
@@ -707,7 +728,32 @@ def phase_kernel_vs_plain_symsync(device) -> tuple[float, float]:
             require(sym_same(f"[kernel-vs-plain] {name} C={c} n={n} L={g.shape[1]} "
                              f"n_valid={n_valid}", got, want), f"{name} vs plain at C={c} n={n}")
         errs = tuple((got[0] - want[0]).abs().max().item() for got, want in (k3, k4))
+    phase_symsync_scan_layouts(device)
     return errs
+
+
+# K4 at P where its staged layout shrinks: (P, C, n); 7262 is the last P with
+# a staged layout at E = 2, 7263 the first the direct instance takes
+SCAN_SHAPES = ((256, 24, 300), (1024, 9, 70), (7262, 3, 40), (7263, 3, 40))
+
+
+def phase_symsync_scan_layouts(device) -> None:
+    """K4 against its plain version on random streams at SCAN_SHAPES, where
+    scan_layout gives fewer rows a tile, fewer channels a block, one row of
+    one channel, and None (the direct instance), bit for bit; the loop's
+    arguments are config[1]'s with P replaced."""
+    rng = np.random.default_rng(SEED + 24)
+    for P, c, n in SCAN_SHAPES:
+        kw = dict(E=2, **{**make_symsync(c, device).kernel_args(), "P": P})
+        xs4 = 0.3 * planes(rng, (c, n, 4 * P), device)
+        nv = torch.tensor(n - 5, device=device)
+        got = symsync_scan_apply(xs4, nv, **kw)
+        want = symsync_scan_reference(xs4, nv, **kw)
+        require(tuple(got[0].shape) == (c, n, 2) and bool(torch.isfinite(got[0]).all()),
+                "K4 output shape and finiteness")
+        require(sym_same(f"[kernel-vs-plain] symsync_scan (K4) P={P} C={c} n={n} layout "
+                         f"(chans, w, bytes) {scan_layout(P, 2)}", got, want),
+                f"K4 vs plain at P={P}")
 
 
 def phase_symsync_gate(device) -> None:
@@ -835,13 +881,18 @@ def phase_timing_config1(device, card: str) -> dict:
     n1 = ms.out_capacity(T1)
     ss = make_symsync(C1, device)
     kw = dict(E=2, **ss.kernel_args())
+    kw_loop = [kw[k] for k in ("state", "locked", "radj", "pll_a", "pll_b")]
+    kw_k = {k: kw[k] for k in ("P", "E", "k_out", "k")}
     nv = torch.tensor(n1 - 11, device=device)
     sets = [sym_inputs(rng, ss, C1, n1, device) for _ in range(N_ROT)]  # 130 MB of input
     k3 = [lambda a=a: symsync_fused_apply(*a, nv, **kw) for a in sets]
     k3_1, k3_2 = graph_ms(k3, reps=3), graph_ms(k3, reps=3)
     xs4 = [branch_outputs(*sets[i]) for i in range(2)]  # 2.1 GB each
     k4 = [lambda x=x: symsync_scan_apply(x, nv, **kw) for x in xs4]
-    k4_1, k4_2 = graph_ms(k4, reps=3), graph_ms(k4, reps=3)
+    # the direct instance (K4's first version, reading its rows from device
+    # memory) in turns with the staged one
+    direct = [lambda x=x: symsync_scan_launch(x, nv, *kw_loop, **kw_k, layout=None) for x in xs4]
+    d_1, k4_1, k4_2, d_2 = (graph_ms(f, reps=3) for f in (direct, k4, k4, direct))
     p3 = cuda_ms(lambda: symsync_fused_reference(*sets[0], nv, **kw), iters=2, warmup=1)
     p4 = cuda_ms(lambda: symsync_scan_reference(xs4[0], nv, **kw), iters=2, warmup=1)
     del xs4
@@ -849,8 +900,9 @@ def phase_timing_config1(device, card: str) -> dict:
           f"{k3_2:.4f}), graph replay; symsync_fused_reference {p3:.2f} ms/block, eager "
           f"(2 calls after one); at C={C1}, n={n1}, n_valid={n1 - 11}")
     print(f"[timing] {card}: symsync_scan (K4) {(k4_1 + k4_2) / 2:.4f} ms/block ({k4_1:.4f}, "
-          f"{k4_2:.4f}), graph replay; symsync_scan_reference {p4:.2f} ms/block, eager "
-          f"(2 calls after one)")
+          f"{k4_2:.4f}) in layout (chans, w, bytes) {scan_layout(ss.npfb, 2)}, its direct "
+          f"instance {(d_1 + d_2) / 2:.4f} ({d_1:.4f}, {d_2:.4f}), graph replay in turns; "
+          f"symsync_scan_reference {p4:.2f} ms/block, eager (2 calls after one)")
 
     blocks = [complex_block(rng, (C1, T1), device) for _ in range(N_ROT)]
 
@@ -869,7 +921,8 @@ def phase_timing_config1(device, card: str) -> dict:
     print(f"[timing] {card}: config[1] step MsResamp -> Symsync {f_msps:.1f} Msps (K3, 20 eager "
           f"steps), {p_msps:.2f} Msps (XLA-form scan, 2 eager steps) (input complex "
           f"Msamples/s, [{C1}, {T1}] blocks)")
-    return {"symsync_fused": ((k3_1 + k3_2) / 2, p3), "symsync_scan": ((k4_1 + k4_2) / 2, p4)}
+    return {"symsync_fused": ((k3_1 + k3_2) / 2, p3),
+            "symsync_scan": ((k4_1 + k4_2) / 2, p4, (d_1 + d_2) / 2)}
 
 
 def state_diff(a, b, prefix: str = "") -> list[str]:
@@ -1271,9 +1324,9 @@ def kernel_work(device, sym_emitted: float) -> dict:
         # (the taps once: the compact [P, Kp] the kernel reads)
         "chain_fp32": chain,
         "chain_c64": chain,  # the same samples interleaved: the same bytes and operations
-        # per analyzer step 64 branches of p taps on both planes, a 64-point FFT
-        "channelizer_fp32": (2 * 4 * T4 * M4 * 2
-                             + nbytes(fz.taps, fz.hr, fz.hi, fz.hist_r, fz.hist_i),
+        # per analyzer step 64 branches of p taps on both planes, a 64-point
+        # FFT; of the tables the function needs the taps and the scale hr[0, 0]
+        "channelizer_fp32": (2 * 4 * T4 * M4 * 2 + nbytes(fz.taps, fz.hist_r, fz.hist_i) + 4,
                              T4 * (M4 * fz.p * 4 + fft4)),
         "mix_down": (N_MIX * 8 * 2, N_MIX * 8),
         "symsync_fused": (C1 * (n1 + L) * 8 + 2 * P * L * 4 + sym_out, sym_ops),
@@ -1343,6 +1396,8 @@ def main() -> None:
     # no single PyTorch call computes any of these functions: FIR ⊛ PFB with
     # a u32 NCO, PFB + DFT, a u32-exact mix, and loops that feed their
     # decisions back (PERF.md §6)
+    # K4's first version stays in its source as the direct instance (for rows
+    # too long to stage), so its time is taken in this run too, as v1_ms
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
@@ -1355,6 +1410,7 @@ def main() -> None:
         "bound_ms": bounds[k][0],
         "bound_by": bounds[k][1],
         "library_ms": None,
+        **({"v1_ms": times[k][2]} if len(times[k]) > 2 else {}),
     } for k, (src, replaces) in sources.items()]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.design import FirFilterShape
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.kernels.channelizer import (
+    branch_outputs,
     channelizer_tables,
     fused_channelizer_apply,
     fused_channelizer_reference,
@@ -193,6 +194,39 @@ def test_tables_match_yagi_tpu(m, scale):
     branches = Firpfbch.create_kaiser(M, m, 60.0, device=DEV).branches.numpy().astype(np.float64)
     for mine, theirs in zip(channelizer_tables(branches, scale), j_tables(branches, scale)):
         np.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_tables_are_scaled_dft_twiddles(scale):
+    """The identity the card's FFT form rests on: with b(c) = (64 − c) mod 64
+    the tables' W' = scale·e^{+2πi·b(c)k/64} = hr[0, 0]·e^{−2πi·ck/64}, and
+    both copies of the block diagonal are the same W'."""
+    branches = Firpfbch.create_kaiser(M, 4, 60.0, device=DEV).branches.numpy().astype(np.float64)
+    _, hr, hi = channelizer_tables(branches, scale)
+    c = np.arange(M)
+    want = hr[0, 0] * np.exp(-2j * np.pi * np.outer(c, c) / M)
+    for s in range(2):
+        block = slice(s * M, (s + 1) * M)
+        w = hr[block, block] + 1j * hi[block, block]
+        assert np.abs(w - want).max() < 3e-8
+    assert hr[0, 0] == np.float32(scale)
+
+
+@pytest.mark.parametrize("m, scale", [(4, 1.0), (4, 0.5), (33, 1.0), (33, 0.5)])
+def test_reference_is_scaled_fft_of_branch_outputs(m, scale):
+    """fused_channelizer_reference (the TPU kernel's stacked twiddle dots)
+    equals hr[0, 0] · the 64-point DFT of the branch outputs over the lanes,
+    the form the card's kernel computes, at 8 and 66 taps a branch."""
+    rng = np.random.default_rng(m)
+    fz = FusedChannelizer.create_kaiser(M, m, 60.0, scale=scale, r2=1, device=DEV)
+    nh = fz.hist_r.shape[0]
+    xr, xi, h_r, h_i = (torch.from_numpy(rng.standard_normal(k).astype(np.float32))
+                        for k in (T * M, T * M, nh, nh))
+    yr, yi = fused_channelizer_reference(xr, xi, fz.taps, fz.hr, fz.hi, h_r, h_i, p=fz.p)
+    ur, ui = branch_outputs(xr, xi, fz.taps, h_r, h_i, p=fz.p)
+    assert ur.shape == ui.shape == (T, M)
+    fft = fz.hr[0, 0] * torch.fft.fft(torch.complex(ur, ui), dim=-1)
+    assert _rel_rms((yr + 1j * yi).numpy(), fft.numpy()) < 1e-5
 
 
 @pytest.mark.parametrize("zero_hist", [False, True])

@@ -40,6 +40,7 @@ from yagi_tpu_torch.kernels.symscan import (
     branch_outputs,
     fused_fits,
     fused_smem_bytes,
+    scan_layout,
     symsync_fused_apply,
     symsync_fused_reference,
     symsync_scan_apply,
@@ -460,6 +461,28 @@ def test_fused_smem_mirror_and_gate():
     assert fused_fits(28, 32) and fused_fits(172, 64) and not fused_fits(173, 64)
     assert fused_fits(324, 32) and not fused_fits(325, 32)
     assert fused_smem_bytes(176, 64) > FUSED_SMEM_LIMIT == 232448
+
+
+# K4's staged layout: (chans, w, bytes) = 2·chans·w·(16P + 9E) bytes (two
+# tiles: the loop's and the next); 8 channels and up to 32 rows a tile, fewer
+# rows as P grows, fewer channels past one row of 8, the direct instance past
+# one row of one (P > 7262 at E = 2)
+@pytest.mark.parametrize("P, E, want", [
+    (32, 2, (8, 27, 228960)),  # config[1]
+    (64, 2, (8, 13, 216736)),  # the gate bank
+    (256, 2, (8, 3, 197472)),
+    (768, 2, (8, 1, 196896)),
+    (1024, 2, (7, 1, 229628)),
+    (7262, 2, (1, 1, 232420)),
+    (7263, 2, None),
+    (4, 1, (8, 32, 37376)),
+])
+def test_scan_layout_mirror(P, E, want):
+    got = scan_layout(P, E)
+    assert got == want
+    if got is not None:
+        chans, w, nbytes = got
+        assert nbytes == 2 * chans * w * (16 * P + 9 * E) <= FUSED_SMEM_LIMIT
 
 
 def _big_pair(c=3):

@@ -12,186 +12,265 @@
 // Samples before the block come from the history, the previous block's last
 // nh = halo·128 ≥ 64·p samples (zeros at stream start).
 //
-// What bounds it on an H100. Per step the IDFT takes 64×64 complex MACs
-// (32,768 FLOP) and the branch FIRs 64·p·4 (2,048 at p = 8), against 1,024
-// bytes of traffic (64 complex samples in, 64 out): ~34 FLOP/byte, above the
-// card's fp32 CUDA-core ridge (67 TFLOP/s over 3.35 TB/s ≈ 20). A direct DFT
-// is therefore bound by its FMAs, not by device memory.
+// The IDFT is an FFT. With b(c) = (64 − c) mod 64, W'[c, k] =
+// scale·e^{+2πi·b(c)k/64} = scale·e^{−2πi·ck/64}, so y[t, ·] = scale ·
+// DFT64(u[t, ·]) in the lanes' own order. Of the tables the kernel reads
+// `taps` and hr[0] = W'[0, 0] = scale; it reads no other entry of hr or hi.
+// Its twiddles e^{−2πi·m/64} are f64 sincospi rounded to f32, made in the
+// kernel, and the 8-point DFT's are the literal √2/2.
 //
-// Design. One block takes kSteps = 64 steps. It stages its input M-blocks plus
-// p blocks of left halo (read from the history for the stream's first tile,
-// from x otherwise), the taps and W' in shared memory (~104 KB at p = 8: two
-// blocks per SM, so the size is set as dynamic shared memory). Each thread
-// computes branch outputs for one lane into u, stored lane-major; then the
-// [64, 64] × [64, 64] complex product runs register-blocked, each thread
-// holding 4 steps × 4 channels of re/im accumulators, so per lane c two
-// 16-byte loads of u and two of W' feed 64 FMAs. Threads map to channels
-// within a step row, so the step-major [T, 64] stores are coalesced float4s.
-// The TPU kernel's per-tile halo arrays and its [R2, 256] @ [256, 128] stacked
-// dot are Mosaic devices and are not carried over. An in-kernel radix-4/8 FFT
-// (fewer FLOP) or tensor cores with a 3×TF32 split are later work: TF32 alone
-// would miss the 1e-4 bound. Every precision mode runs this fp32 kernel. A
-// bank of more than kTapTile = 64 taps a branch runs a second instance that
-// walks the taps in tiles of 64, so the shared memory does not grow with p.
+// What bounds it on an H100. Per step the branch FIRs take 64·p·4 FLOP (2,048
+// at p = 8) and the radix-8 × 8 FFT ~1,300, against 1,024 bytes of traffic
+// (64 complex samples in, 64 out): ~3 FLOP/byte, below the card's fp32 ridge
+// (67 TFLOP/s over 3.35 TB/s ≈ 20), so the kernel is bound by device memory.
+// (A direct 64×64 product, the first version of this kernel, took 32,768
+// FLOP a step and restaged the 32 KB W' every 64 steps: 5.6× its bound.)
+//
+// Design: persistent blocks, the input read once, its fetch hidden.
+// * The grid is as many blocks as the card holds at once; each block walks a
+//   contiguous run of tiles of kTile = 32 steps. A ring of kRing = 128 input
+//   M-blocks (rows) in shared memory holds the tile, its p rows of halo and
+//   the next tile, which cp.async brings in while this one is computed: every
+//   input sample leaves device memory once (a block's first tile also fetches
+//   its p rows of halo), and no table is staged but the taps.
+// * A step is 8 threads; thread j computes the branch outputs of lanes
+//   8·c1 + j (c1 < 8), summing taps j = 0 .. p − 1 in order with fmaf, so a
+//   step's arithmetic does not depend on where its block or tile starts (the
+//   block-split gate holds it to 1e-5). Ring rows have a pitch of 72 floats,
+//   so a warp's four steps read 32 distinct banks.
+// * The DFT as 8 × 8: Y[k1 + 8·k2] = Σ_{c2} e^{−2πi·c2·k2/8} ·
+//   e^{−2πi·c2·k1/64} · Σ_{c1} u[8·c1 + c2]·e^{−2πi·c1·k1/8}. Thread j runs
+//   the inner 8-point DFT on its lanes (c2 = j), turns it by its twiddles,
+//   hands the 8 × 8 values over through shared memory (pitch 9, bank-free),
+//   and runs the outer one for k1 = j; it stores y[t, j + 8·k2], which a warp
+//   writes as whole 32-byte sectors.
+// Every precision mode runs this fp32 kernel (TF32 would miss the 1e-4
+// bound). A bank of more than kMaxOnePass = 64 taps a branch runs a second
+// instance that stages kTapTile = 64 taps at a time per block of 64 steps,
+// accumulates u in the same tap order, and runs the same FFT.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kM = 64;         // channels
-constexpr int kLane = 128;     // table row width: two copies of the 64 lanes
-constexpr int kSteps = 64;     // analyzer steps per block
-constexpr int kThreads = 256;  // a multiple of kM: each thread keeps one lane
-constexpr int kUPitch = kSteps + 4;  // u row pitch: 16-byte rows, fewer bank conflicts
-constexpr int kTapTile = 64;   // taps a branch staged at once; p beyond it runs in tiles
+constexpr int kM = 64;          // channels
+constexpr int kLane = 128;      // table row width: two copies of the 64 lanes
+constexpr int kThreads = 256;
+constexpr int kGroup = 8;       // threads a step
+constexpr int kTile = kThreads / kGroup;  // steps a tile: each thread takes one
+constexpr int kRing = 128;      // ring rows, a power of two ≥ 2·kTile + p
+constexpr int kRowPitch = 72;   // floats a ring row: 72 ≡ 8 (mod 32) banks a step
+constexpr int kZPitch = 72;     // floats of a step's 8 × 8 exchange, rows of 9
+constexpr int kMaxOnePass = kRing - 2 * kTile;  // taps a branch of the one-pass instance
+constexpr int kSteps = 64;      // tiled instance: steps a block
+constexpr int kUPitch = kSteps + 4;  // its u row pitch: 68 ≡ 4 (mod 32)
+constexpr int kTapTile = 64;    // its taps staged at once
+constexpr float kR2 = 0.70710678118654752440f;  // √2/2
 
-size_t smem_bytes(int p) {
-  // W' (re, im), u (re, im), p taps, and kSteps + p input M-blocks (re, im);
-  // the tiled instance stages kTapTile taps at a time
-  return sizeof(float) *
-         (2 * kM * kM + 2 * kM * kUPitch + (size_t)p * kM + 2 * (size_t)(kSteps + p) * kM);
+size_t onepass_smem_bytes(int p) {  // the ring, the exchange, the taps
+  return sizeof(float) * (2 * kRing * kRowPitch + 2 * kTile * kZPitch + (size_t)p * kM);
 }
 
-// The 64-point IDFT of a block's kSteps steps, u [64][kUPitch] (re, im) times
-// W' [64][64] (re, im), register-blocked, and the step-major stores.
-__device__ __forceinline__ void idft_store(const float* s_wr, const float* s_wi,
-                                           const float* s_ur, const float* s_ui,
-                                           float* __restrict__ yr, float* __restrict__ yi,
-                                           int t0, int T) {
-  const int tid = threadIdx.x;
-  // IDFT: thread (ty, tx) owns steps 4·ty .. 4·ty + 3 and channels 4·tx .. 4·tx + 3
-  const int tx = tid % 16, ty = tid / 16;
-  float accr[4][4], acci[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.0f;
+size_t tiled_smem_bytes() {  // u, a tile of taps, its input rows, the exchange
+  return sizeof(float) * (2 * kM * kUPitch + kTapTile * kM + 2 * (kSteps + kTapTile) * kM +
+                          2 * kTile * kZPitch);
+}
 
-#pragma unroll 4
-  for (int c = 0; c < kM; ++c) {
-    const float4 wr4 = *reinterpret_cast<const float4*>(&s_wr[c * kM + 4 * tx]);
-    const float4 wi4 = *reinterpret_cast<const float4*>(&s_wi[c * kM + 4 * tx]);
-    const float4 ur4 = *reinterpret_cast<const float4*>(&s_ur[c * kUPitch + 4 * ty]);
-    const float4 ui4 = *reinterpret_cast<const float4*>(&s_ui[c * kUPitch + 4 * ty]);
-    const float wr[4] = {wr4.x, wr4.y, wr4.z, wr4.w};
-    const float wi[4] = {wi4.x, wi4.y, wi4.z, wi4.w};
-    const float ur[4] = {ur4.x, ur4.y, ur4.z, ur4.w};
-    const float ui[4] = {ui4.x, ui4.y, ui4.z, ui4.w};
+// cp.async: a 16-byte copy from device to shared memory that does not wait
+// for the data; commit_group closes the copies issued so far, and
+// wait_group<N> waits until at most N of the newest groups are in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The 4-point DFT of x0..x3 (re, im), X[k] = Σ x[n]·(−i)^{nk}.
+__device__ __forceinline__ void dft4(const float* xr, const float* xi, float* yr, float* yi) {
+  const float s0r = xr[0] + xr[2], s0i = xi[0] + xi[2];
+  const float s1r = xr[0] - xr[2], s1i = xi[0] - xi[2];
+  const float s2r = xr[1] + xr[3], s2i = xi[1] + xi[3];
+  const float s3r = xi[1] - xi[3], s3i = xr[3] - xr[1];  // (x1 − x3)·(−i)
+  yr[0] = s0r + s2r, yi[0] = s0i + s2i;
+  yr[1] = s1r + s3r, yi[1] = s1i + s3i;
+  yr[2] = s0r - s2r, yi[2] = s0i - s2i;
+  yr[3] = s1r - s3r, yi[3] = s1i - s3i;
+}
+
+// In place: the 8-point DFT X[k] = Σ x[n]·e^{−2πi·nk/8}, natural order in and
+// out. Radix-2 decimation in frequency: the sums a[n] + a[n+4] give the even
+// outputs, the differences turned by e^{−2πi·n/8} the odd ones.
+__device__ __forceinline__ void dft8(float* re, float* im) {
+  float er[4], ei[4], orr[4], oi[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        accr[a][b] = fmaf(ur[a], wr[b], accr[a][b]);
-        accr[a][b] = fmaf(-ui[a], wi[b], accr[a][b]);
-        acci[a][b] = fmaf(ur[a], wi[b], acci[a][b]);
-        acci[a][b] = fmaf(ui[a], wr[b], acci[a][b]);
-      }
+  for (int n = 0; n < 4; ++n) {
+    er[n] = re[n] + re[n + 4];
+    ei[n] = im[n] + im[n + 4];
+    orr[n] = re[n] - re[n + 4];
+    oi[n] = im[n] - im[n + 4];
   }
-
+  const float r1 = orr[1], r2 = orr[2], r3 = orr[3];
+  orr[1] = kR2 * (r1 + oi[1]);  // · e^{−iπ/4} = √2/2·(1 − i)
+  oi[1] = kR2 * (oi[1] - r1);
+  orr[2] = oi[2];  // · (−i)
+  oi[2] = -r2;
+  orr[3] = kR2 * (oi[3] - r3);  // · e^{−3iπ/4} = −√2/2·(1 + i)
+  oi[3] = -kR2 * (r3 + oi[3]);
+  float ar[4], ai[4], br[4], bi[4];
+  dft4(er, ei, ar, ai);
+  dft4(orr, oi, br, bi);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int t = t0 + 4 * ty + a;
-    if (t < T) {
-      const size_t at = (size_t)t * kM + 4 * tx;
-      *reinterpret_cast<float4*>(yr + at) =
-          make_float4(accr[a][0], accr[a][1], accr[a][2], accr[a][3]);
-      *reinterpret_cast<float4*>(yi + at) =
-          make_float4(acci[a][0], acci[a][1], acci[a][2], acci[a][3]);
+  for (int k = 0; k < 4; ++k) {
+    re[2 * k] = ar[k], im[2 * k] = ai[k];
+    re[2 * k + 1] = br[k], im[2 * k + 1] = bi[k];
+  }
+}
+
+// Thread j's twiddles e^{−2πi·j·k1/64}, k1 < 8: f64 rounded to f32.
+__device__ __forceinline__ void twiddles(int j, float* twr, float* twi) {
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    double s, c;
+    sincospi(-(double)(j * k1) / 32.0, &s, &c);
+    twr[k1] = (float)c;
+    twi[k1] = (float)s;
+  }
+}
+
+// One step's y = scale·DFT64(u) from the 8 branch outputs thread j of the
+// step's group holds, a[c1] = u[8·c1 + j]; z is the step's exchange (re
+// plane at zr, im plane at zi). Every thread of the warp calls it; only those
+// with `store` write y[at + k] for their k = j + 8·k2.
+__device__ __forceinline__ void fft64_store(float* ar, float* ai, const float* twr,
+                                            const float* twi, float* zr, float* zi, int j,
+                                            float scale, float* __restrict__ yr,
+                                            float* __restrict__ yi, int64_t at, bool store) {
+  dft8(ar, ai);  // over c1: A[k1] of branch set c2 = j
+  __syncwarp();  // the group's reads of the last exchange are done
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    zr[j * 9 + k1] = ar[k1] * twr[k1] - ai[k1] * twi[k1];
+    zi[j * 9 + k1] = ar[k1] * twi[k1] + ai[k1] * twr[k1];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c2 = 0; c2 < 8; ++c2) {
+    ar[c2] = zr[c2 * 9 + j];
+    ai[c2] = zi[c2 * 9 + j];
+  }
+  dft8(ar, ai);  // over c2, for k1 = j: Y[j + 8·k2]
+  if (store) {
+#pragma unroll
+    for (int k2 = 0; k2 < 8; ++k2) {
+      yr[at + j + 8 * k2] = scale * ar[k2];
+      yi[at + j + 8 * k2] = scale * ai[k2];
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Rows r0 ≤ r < r1 of the input M-blocks (r < 0 from the history) into their
+// ring slots r mod kRing, by cp.async; no commit.
+__device__ __forceinline__ void fetch(float* ring_r, float* ring_i, const float* __restrict__ xr,
+                                      const float* __restrict__ xi,
+                                      const float* __restrict__ hist_r,
+                                      const float* __restrict__ hist_i, int nh, int r0, int r1) {
+  constexpr int kChunks = kM / 4;  // 16-byte copies a row of a plane
+  const int n = (r1 - r0) * kChunks;
+  for (int q = threadIdx.x; q < 2 * n; q += kThreads) {
+    const bool im = q >= n;
+    const int qq = im ? q - n : q;
+    const int r = r0 + qq / kChunks, col = (qq % kChunks) * 4;
+    const float* src = r < 0 ? (im ? hist_i : hist_r) + nh + r * kM + col
+                             : (im ? xi : xr) + (int64_t)r * kM + col;
+    cp_async16((im ? ring_i : ring_r) + (r & (kRing - 1)) * kRowPitch + col, src);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: ≤ 128 registers
 channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,  // [T·64]
                         const float* __restrict__ taps,                            // [p, 128]
-                        const float* __restrict__ hr, const float* __restrict__ hi,  // [128, 128]
+                        const float* __restrict__ hr,                              // scale at [0]
                         const float* __restrict__ hist_r,
                         const float* __restrict__ hist_i,  // [nh]
                         float* __restrict__ yr, float* __restrict__ yi,  // [T, 64]
-                        int T, int p, int nh) {
+                        int T, int p, int nh, int each) {
   extern __shared__ __align__(16) float smem[];
-  float* s_wr = smem;                         // [64][64]  W'[c][k]
-  float* s_wi = s_wr + kM * kM;
-  float* s_ur = s_wi + kM * kM;               // [64][kUPitch]  u_c[t0 + s] at [c][s]
-  float* s_ui = s_ur + kM * kUPitch;
-  float* s_taps = s_ui + kM * kUPitch;        // [p][64]
-  float* s_xr = s_taps + p * kM;              // [kSteps + p][64]  M-block X[t0 − p + r]
-  float* s_xi = s_xr + (kSteps + p) * kM;
+  float* ring_r = smem;                      // [kRing][kRowPitch]  X[r] at slot r mod kRing
+  float* ring_i = ring_r + kRing * kRowPitch;
+  float* z_r = ring_i + kRing * kRowPitch;   // [kTile][kZPitch]  the steps' exchanges
+  float* z_i = z_r + kTile * kZPitch;
+  float* s_taps = z_i + kTile * kZPitch;     // [p][64]
 
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kSteps;
+  const int s = tid / kGroup, j = tid % kGroup;
+  const int nt = (T + kTile - 1) / kTile;
+  const int k0 = blockIdx.x * each, k1 = min(k0 + each, nt);
 
-  for (int i = tid; i < kM * kM; i += kThreads) {
-    const int src = (i / kM) * kLane + i % kM;
-    s_wr[i] = hr[src];
-    s_wi[i] = hi[src];
-  }
   for (int i = tid; i < p * kM; i += kThreads) s_taps[i] = taps[(i / kM) * kLane + i % kM];
-  // row r, lane c holds x[g], g = (t0 − p + r)·64 + c; g < 0 is history,
-  // whose last sample is x[−1]; past the end of the stream reads zeros
-  const int64_t g0 = (int64_t)(t0 - p) * kM;
-  const int64_t n = (int64_t)T * kM;
-  for (int i = tid; i < (kSteps + p) * kM; i += kThreads) {
-    const int64_t g = g0 + i;
-    float vr = 0.0f, vi = 0.0f;
-    if (g < 0) {
-      vr = hist_r[nh + g];
-      vi = hist_i[nh + g];
-    } else if (g < n) {
-      vr = xr[g];
-      vi = xi[g];
-    }
-    s_xr[i] = vr;
-    s_xi[i] = vi;
-  }
-  __syncthreads();
+  float twr[8], twi[8];
+  twiddles(j, twr, twi);
+  const float scale = hr[0];
+  // lane 8·c1 + j's row of tap i: X[t − i − 1], or X[t − i] for lane 0
+  const int lag0 = j == 0 ? 0 : 1;
 
-  {  // branch FIRs: s_c[t0 + s − j] = X[t0 + s − j − lag][c] sits in row s − j − lag + p
-    const int c = tid % kM;
-    const int lag = c == 0 ? 0 : 1;
-    for (int s = tid / kM; s < kSteps; s += kThreads / kM) {
-      float ar = 0.0f, ai = 0.0f;
-      for (int j = 0; j < p; ++j) {
-        const int at = (s - j - lag + p) * kM + c;
-        const float tap = s_taps[j * kM + c];
-        ar = fmaf(tap, s_xr[at], ar);
-        ai = fmaf(tap, s_xi[at], ai);
+  fetch(ring_r, ring_i, xr, xi, hist_r, hist_i, nh, k0 * kTile - p, min((k0 + 1) * kTile, T));
+  cp_async_commit();
+  for (int k = k0; k < k1; ++k) {
+    const int t0 = k * kTile;
+    __syncthreads();  // the last tile is computed: the rows before it may be refilled
+    if (k + 1 < k1)
+      fetch(ring_r, ring_i, xr, xi, hist_r, hist_i, nh, t0 + kTile, min(t0 + 2 * kTile, T));
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of this tile (and the halo) are in
+    __syncthreads();     // and everyone's
+
+    const int t = t0 + s;
+    float ar[8], ai[8];
+#pragma unroll
+    for (int c1 = 0; c1 < 8; ++c1) ar[c1] = ai[c1] = 0.0f;
+    for (int i = 0; i < p; ++i) {
+      const int o1 = ((t - i - 1) & (kRing - 1)) * kRowPitch + j;
+      const int o0 = ((t - i - lag0) & (kRing - 1)) * kRowPitch + j;
+      const float* tp = s_taps + i * kM + j;
+#pragma unroll
+      for (int c1 = 0; c1 < 8; ++c1) {
+        const int o = (c1 == 0 ? o0 : o1) + 8 * c1;
+        const float tap = tp[8 * c1];
+        ar[c1] = fmaf(tap, ring_r[o], ar[c1]);
+        ai[c1] = fmaf(tap, ring_i[o], ai[c1]);
       }
-      s_ur[c * kUPitch + s] = ar;
-      s_ui[c * kUPitch + s] = ai;
     }
+    fft64_store(ar, ai, twr, twi, z_r + s * kZPitch, z_i + s * kZPitch, j, scale, yr, yi,
+                (int64_t)t * kM, t < T);
   }
-  __syncthreads();
-
-  idft_store(s_wr, s_wi, s_ur, s_ui, yr, yi, t0, T);
+  cp_async_wait<0>();
 }
 
-// The instance for p > kTapTile: the taps and the input rows they reach are
-// staged kTapTile taps at a time, and u accumulates in shared memory across
-// the tiles, in the same tap order as the one-pass instance.
+// The instance for p > kMaxOnePass, one block per 64 steps: the taps and the
+// input rows they reach are staged kTapTile taps at a time, and u accumulates
+// in shared memory across the tiles, in the one-pass instance's tap order;
+// then the same FFT, 32 steps at a time.
 __global__ void __launch_bounds__(kThreads)
 channelizer_tiled_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                          const float* __restrict__ taps, const float* __restrict__ hr,
-                         const float* __restrict__ hi, const float* __restrict__ hist_r,
-                         const float* __restrict__ hist_i, float* __restrict__ yr,
-                         float* __restrict__ yi, int T, int p, int nh) {
+                         const float* __restrict__ hist_r, const float* __restrict__ hist_i,
+                         float* __restrict__ yr, float* __restrict__ yi, int T, int p, int nh) {
   extern __shared__ __align__(16) float smem[];
-  float* s_wr = smem;
-  float* s_wi = s_wr + kM * kM;
-  float* s_ur = s_wi + kM * kM;
+  float* s_ur = smem;                         // [64][kUPitch]  u_c[t0 + s] at [c][s]
   float* s_ui = s_ur + kM * kUPitch;
   float* s_taps = s_ui + kM * kUPitch;        // [kTapTile][64]
   float* s_xr = s_taps + kTapTile * kM;       // [kSteps + kTapTile][64]
   float* s_xi = s_xr + (kSteps + kTapTile) * kM;
+  float* z_r = s_xi + (kSteps + kTapTile) * kM;  // [kTile][kZPitch]
+  float* z_i = z_r + kTile * kZPitch;
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kSteps;
-  for (int i = tid; i < kM * kM; i += kThreads) {
-    const int src = (i / kM) * kLane + i % kM;
-    s_wr[i] = hr[src];
-    s_wi[i] = hi[src];
-  }
   const int64_t n = (int64_t)T * kM;
   const int c = tid % kM;
   const int lag = c == 0 ? 0 : 1;
@@ -234,29 +313,66 @@ channelizer_tiled_kernel(const float* __restrict__ xr, const float* __restrict__
     }
   }
   __syncthreads();
-  idft_store(s_wr, s_wi, s_ur, s_ui, yr, yi, t0, T);
+
+  const int j = tid % kGroup;
+  float twr[8], twi[8];
+  twiddles(j, twr, twi);
+  const float scale = hr[0];
+  for (int s0 = 0; s0 < kSteps; s0 += kTile) {
+    const int s = s0 + tid / kGroup;
+    float ar[8], ai[8];
+#pragma unroll
+    for (int c1 = 0; c1 < 8; ++c1) {
+      ar[c1] = s_ur[(8 * c1 + j) * kUPitch + s];
+      ai[c1] = s_ui[(8 * c1 + j) * kUPitch + s];
+    }
+    fft64_store(ar, ai, twr, twi, z_r + (tid / kGroup) * kZPitch, z_i + (tid / kGroup) * kZPitch,
+                j, scale, yr, yi, (int64_t)(t0 + s) * kM, t0 + s < T);
+  }
 }
 
 }  // namespace
 
-// Planar fp32 analysis of T steps. xr/xi [T·64]; taps [p, 128], hr/hi
-// [128, 128] from channelizer_tables; hist_r/hist_i [nh], nh ≥ 64·p; yr/yi
-// [T, 64] step-major, 16-byte aligned. T ≥ 1, T·64 < 2^31, p ≥ 1 (past 64
-// taps a branch the tiled instance runs).
-// Launches on `stream` and returns the CUDA error of the launch (0 on success).
+// Planar fp32 analysis of T steps. xr/xi [T·64] and hist_r/hist_i [nh], each
+// 16-byte aligned; taps [p, 128], hr/hi [128, 128] from channelizer_tables
+// (of which hr[0] is read); nh ≥ 64·p a multiple of 128; yr/yi [T, 64]
+// step-major. T ≥ 1, T·64 < 2^31, p ≥ 1 (past 64 taps a branch the tiled
+// instance runs). Launches on `stream` and returns the CUDA error of the
+// launch (0 on success).
 extern "C" int yagi_channelizer_fp32(const float* xr, const float* xi, const float* taps,
                                      const float* hr, const float* hi, const float* hist_r,
                                      const float* hist_i, float* yr, float* yi, int T, int p,
                                      int nh, void* stream) {
-  const bool tiled = p > kTapTile;
-  const size_t smem = smem_bytes(tiled ? kTapTile : p);
-  const auto kernel = tiled ? channelizer_tiled_kernel : channelizer_fp32_kernel;
-  // past 48 KB, shared memory is dynamic only and must be allowed first
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  (void)hi;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (p > kMaxOnePass) {
+    const size_t smem = tiled_smem_bytes();
+    // past 48 KB, shared memory is dynamic only and must be allowed first
+    err = cudaFuncSetAttribute(channelizer_tiled_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    channelizer_tiled_kernel<<<(T + kSteps - 1) / kSteps, kThreads, smem, st>>>(
+        xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = onepass_smem_bytes(p);
+  err = cudaFuncSetAttribute(channelizer_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  // the grid: as many blocks as the card holds at once, or fewer where that
+  // gives every block the same number of tiles (the last block may have fewer)
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, channelizer_fp32_kernel, kThreads,
+                                                        smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kSteps - 1) / kSteps);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, taps, hr, hi, hist_r, hist_i, yr, yi, T, p, nh);
+  const int nt = (T + kTile - 1) / kTile;
+  const int places = sms * (per_sm > 0 ? per_sm : 1);
+  const int each = (nt + places - 1) / places;
+  channelizer_fp32_kernel<<<(nt + each - 1) / each, kThreads, smem, st>>>(
+      xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh, each);
   return (int)cudaGetLastError();
 }

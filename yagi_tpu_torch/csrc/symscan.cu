@@ -1,11 +1,12 @@
 // The symbol synchronizer's scan over a block, two kernels around one loop
 // body (symscan.cuh):
 //
-// * symsync_scan_kernel (K4) replaces yagi_tpu/kernels/symscan.py::_kernel
+// * symsync_staged_kernel (K4) replaces yagi_tpu/kernels/symscan.py::_kernel
 //   (behind symsync_scan): it is fed the precomputed all-branch stream
 //   xs4 [C, n, 4P], groups [re·mf | re·dmf | im·mf | im·dmf], and reads the
-//   four values of the selected branch. Same inputs, same ops: bit-identical
-//   to its plain version.
+//   four values of the selected branch from rows staged in shared memory.
+//   Same inputs, same ops: bit-identical to its plain version. Rows too long
+//   to stage run symsync_scan_kernel, which reads them from device memory.
 // * symsync_fused_kernel (K3) replaces symscan.py::_kernel_fused (behind
 //   symsync_scan_fused): it computes, per emission, only the selected
 //   branch's four dots (re·mf, re·dmf, im·mf, im·dmf over L taps) from the
@@ -20,9 +21,24 @@
 // What bounds them on an H100: the loop is serial per channel, one chain of
 // ~40 dependent operations per slot, 2·n slots per block, so both are
 // latency-bound, not bandwidth- or FLOP-bound (K3 moves ~110 MB a config[1]
-// block, ~33 µs of HBM time). K4 runs one thread per channel and reads its
-// four values straight from device memory: 2 GB per config[1] block of which
-// each slot touches four 4-byte words.
+// block, ~33 µs of HBM time; K4 2 GB, ~0.64 ms).
+//
+// K4: memory off the loop's chain. Each slot picks its branch from the state
+// the slot before it wrote, so a read of its four values from device memory
+// (one channel's rows lie 4P·n floats apart: 32 sectors a warp load, a stream
+// L2 cannot hold) put a DRAM round trip on the chain of every slot, ~1,260
+// cycles a slot. A channel's rows for samples t0 .. t0 + w are one contiguous
+// span of w·4P floats, so a block of `chans` channels splits its warps as
+// agc.cu does: warp 0 runs the loops, one thread per channel, reading from a
+// tile of w rows per channel in shared memory and parking y and valid there;
+// warps 1–4 bring the next tile in by 16-byte cp.async and store the last
+// tile's y and valid in coalesced rows; they meet at one barrier a tile. The
+// host picks chans and w from P and E (kernels/symscan.py::scan_layout): 8
+// channels (C = 1024: 128 blocks, about one per SM) and the widest tile of
+// at most 32 rows that double buffers in a block's shared memory; past one
+// row of 8 channels fewer channels; past one row of one channel, the direct
+// kernel. Three or four tiles a block (smaller, more of them in flight) read
+// within 3% of two (PERF.md §6): the loop, not the copies, sets the pace.
 //
 // K3 gives each channel kLanes = 16 lanes, four groups of kGroup = 4, one
 // group per dot, so a lane does a quarter of the four dots' multiply-adds
@@ -53,7 +69,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kScanThreads = 32;  // K4: one channel per thread
+constexpr int kScanThreads = 32;  // K4 direct: one channel per thread
+constexpr int kCopiers = 128;     // K4 staged: threads that copy, warps 1 to 4
+constexpr int kStagedThreads = 32 + kCopiers;
 constexpr int kGroup = 4;         // K3: lanes per dot (taps j ≡ lane mod 4)
 constexpr int kLanes = 4 * kGroup;  // K3: lanes per channel, one group per dot
 constexpr int kFusedThreads = 128;  // K3: threads per block (4 warps)
@@ -111,6 +129,122 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// K4's tile: rows t0 .. t0 + tn of the block's channels (chans of them from
+// c0), each channel's span of tn·4P floats into its w·4P floats of `dst`, by
+// the copying threads (`who` of kCopiers), 16 bytes a copy; one commit.
+__device__ __forceinline__ void staged_fill(float* dst, const float* __restrict__ xs4, int c0,
+                                            int chans, int t0, int tn, int w, int C, int n,
+                                            int P, int who) {
+  const int row = 4 * P;
+  for (int ch = 0; ch < chans && c0 + ch < C; ++ch) {
+    const float* src = xs4 + ((size_t)(c0 + ch) * n + t0) * row;
+    float* d = dst + (size_t)ch * w * row;
+    for (int u = who; u < tn * P; u += kCopiers) cp_async16(d + 4 * u, src + 4 * u);
+  }
+  cp_async_commit();
+}
+
+// The tile's parked y and valid to device memory, channel by channel in
+// coalesced spans of tn·E slots.
+__device__ __forceinline__ void staged_drain(const float2* ys, const uint8_t* vs,
+                                             float2* __restrict__ y, uint8_t* __restrict__ valid,
+                                             int c0, int chans, int t0, int tn, int w, int C,
+                                             int n, int E, int who) {
+  for (int ch = 0; ch < chans && c0 + ch < C; ++ch) {
+    const size_t o = ((size_t)(c0 + ch) * n + t0) * E;
+    for (int u = who; u < tn * E; u += kCopiers) {
+      y[o + u] = ys[ch * w * E + u];
+      valid[o + u] = vs[ch * w * E + u];
+    }
+  }
+}
+
+// Shared memory: two tiles (double buffer) of x [chans][w][4P] floats, then
+// two of y [chans][w·E] float2, then two of valid [chans][w·E] bytes:
+// 2·chans·w·(16P + 9E) bytes (kernels/symscan.py::scan_layout mirrors it).
+__global__ void __launch_bounds__(kStagedThreads)
+symsync_staged_kernel(const float* __restrict__ xs4, const int64_t* __restrict__ n_valid,
+                      const float* __restrict__ st_in, const uint8_t* __restrict__ locked,
+                      const float* __restrict__ radj, const float* __restrict__ pll_a,
+                      const float* __restrict__ pll_b, float2* __restrict__ y,
+                      uint8_t* __restrict__ valid, float* __restrict__ st_out,
+                      int32_t* __restrict__ deferred, int C, int n, int P, int E, int k_out,
+                      float kinv, int chans, int w) {
+  extern __shared__ __align__(16) float smem[];
+  const int row = 4 * P;
+  const size_t xtile = (size_t)chans * w * row, ytile = (size_t)chans * w * E;
+  float* xs = smem;                                          // [2][chans][w][4P]
+  float2* ys = reinterpret_cast<float2*>(xs + 2 * xtile);    // [2][chans][w·E]
+  uint8_t* vs = reinterpret_cast<uint8_t*>(ys + 2 * ytile);  // [2][chans][w·E]
+  const int tid = threadIdx.x;
+  const bool copier = tid >= 32;
+  const int who = tid - 32;
+  const int c0 = blockIdx.x * chans;
+  const bool loops = tid < chans && c0 + tid < C;  // this thread runs a channel's loop
+  const int c = loops ? c0 + tid : c0;
+
+  yagi::SymParams p{};
+  yagi::SymState s{};
+  int32_t pend = 0;
+  int64_t nv = n;
+  if (loops) {
+    nv = n_valid ? *n_valid : n;
+    p = sym_params(locked, radj, pll_a, pll_b, kinv, c, P, k_out);
+    s = yagi::sym_load(st_in, C, c);
+  }
+  if (copier) {
+    staged_fill(xs, xs4, c0, chans, 0, min(w, n), w, C, n, P, who);
+    cp_async_wait<0>();
+  }
+  for (int t0 = 0, buf = 0; t0 < n; t0 += w, buf ^= 1) {
+    const int tn = min(w, n - t0);
+    // tile `buf` of x is in; the loop has parked the tile before it and reads
+    // its x no more; the copiers have stored the tile before that
+    __syncthreads();
+    if (copier) {
+      if (t0 > 0)
+        staged_drain(ys + (buf ^ 1) * ytile, vs + (buf ^ 1) * ytile, y, valid, c0, chans,
+                     t0 - w, w, w, C, n, E, who);
+      if (t0 + w < n)
+        staged_fill(xs + (buf ^ 1) * xtile, xs4, c0, chans, t0 + w, min(w, n - t0 - w), w, C,
+                    n, P, who);
+      cp_async_wait<0>();
+    } else if (loops) {
+      const float* xr = xs + buf * xtile + (size_t)tid * w * row;
+      float2* yo = ys + buf * ytile + (size_t)tid * w * E;
+      uint8_t* vo = vs + buf * ytile + (size_t)tid * w * E;
+      for (int tt = 0; tt < tn; ++tt, xr += row) {
+        const bool vs_t = t0 + tt < nv;
+        for (int e = 0; e < E; ++e) {
+          const int bb = yagi::sym_branch(s, P);
+          float yr, yi;
+          const bool act = yagi::sym_emit(s, p, vs_t, xr[bb], xr[P + bb], xr[2 * P + bb],
+                                          xr[3 * P + bb], yr, yi);
+          yo[tt * E + e] = make_float2(yr, yi);
+          vo[tt * E + e] = act;
+        }
+        pend += yagi::sym_pending(s, P, vs_t);
+        yagi::sym_wrap(s, P, vs_t);
+      }
+    }
+  }
+  __syncthreads();  // the last tile's y is parked
+  if (copier) {
+    const int last = (n - 1) / w;
+    staged_drain(ys + (last & 1) * ytile, vs + (last & 1) * ytile, y, valid, c0, chans,
+                 last * w, n - last * w, w, C, n, E, who);
+  }
+  if (loops) {
+    yagi::sym_store(st_out, C, c, s);
+    deferred[c] = pend;
+  }
 }
 
 // K3's tile: xa[c0 + r][t0 .. t0 + w) of the block's kChans channels into
@@ -259,11 +393,11 @@ FusedLayout fused_layout(int L, int P) {
 
 }  // namespace
 
-// K4. xs4: [C, n, 4P] float32; n_valid: device int64 or null; st_in/st_out:
-// [9, C] float32; locked: [C] uint8; radj: [C] float32; pll_a/pll_b: [3]
-// float32 on the device; y: [C, n, E] complex64; valid: [C, n, E] uint8;
-// deferred: [C] int32. Launches on `stream`; returns the launch's CUDA error
-// (0 on success).
+// K4, the direct instance. xs4: [C, n, 4P] float32; n_valid: device int64
+// or null; st_in/st_out: [9, C] float32; locked: [C] uint8; radj: [C]
+// float32; pll_a/pll_b: [3] float32 on the device; y: [C, n, E] complex64;
+// valid: [C, n, E] uint8; deferred: [C] int32. Launches on `stream`; returns
+// the launch's CUDA error (0 on success).
 extern "C" int yagi_symsync_scan(const float* xs4, const int64_t* n_valid, const float* st_in,
                                  const uint8_t* locked, const float* radj, const float* pll_a,
                                  const float* pll_b, void* y, uint8_t* valid, float* st_out,
@@ -273,6 +407,29 @@ extern "C" int yagi_symsync_scan(const float* xs4, const int64_t* n_valid, const
   symsync_scan_kernel<<<blocks, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       xs4, n_valid, st_in, locked, radj, pll_a, pll_b, static_cast<float2*>(y), valid, st_out,
       deferred, C, n, P, E, k_out, kinv);
+  return (int)cudaGetLastError();
+}
+
+// K4, the staged instance: the arguments of yagi_symsync_scan (xs4 16-byte
+// aligned), then the layout, `chans` channels a block (1 to 32) and tiles of
+// w rows, which take 2·chans·w·(16P + 9E) bytes of shared memory.
+extern "C" int yagi_symsync_scan_staged(const float* xs4, const int64_t* n_valid,
+                                        const float* st_in, const uint8_t* locked,
+                                        const float* radj, const float* pll_a,
+                                        const float* pll_b, void* y, uint8_t* valid,
+                                        float* st_out, int32_t* deferred, int C, int n, int P,
+                                        int E, int k_out, float kinv, int chans, int w,
+                                        void* stream) {
+  if (chans < 1 || chans > 32 || w < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * chans * w * (16 * (size_t)P + 9 * (size_t)E);
+  // past 48 KB, shared memory is dynamic only and must be allowed first
+  cudaError_t err = cudaFuncSetAttribute(symsync_staged_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (C + chans - 1) / chans;
+  symsync_staged_kernel<<<blocks, kStagedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xs4, n_valid, st_in, locked, radj, pll_a, pll_b, static_cast<float2*>(y), valid, st_out,
+      deferred, C, n, P, E, k_out, kinv, chans, w);
   return (int)cudaGetLastError();
 }
 

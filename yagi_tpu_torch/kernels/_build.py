@@ -45,6 +45,8 @@ _SIGNATURES = {
     # xs4, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
     # deferred, C, n, P, E, k_out, 1/k, stream
     "yagi_symsync_scan": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # the same, then chans, w (K4's staged layout)
+    "yagi_symsync_scan_staged": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     # xa, g, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,
     # deferred, C, n, L, P, E, k_out, 1/k, stream
     "yagi_symsync_fused": [_P] * 12 + [_I] * 6 + [_F, _P],

@@ -29,3 +29,9 @@ def check_tensors(fn: str, device: torch.device, specs: dict) -> None:
             raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (a
+    kernel that copies 16-byte chunks needs the start aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -18,9 +18,13 @@ Two implementations of one function, chosen by the device of the input:
   run it.
 * ``csrc/channelizer.cu``, the hand-written Hopper kernel, which replaces
   ``yagi_tpu/kernels/channelizer.py::_chan_kernel``. CUDA tensors run it, or
-  the call raises; nothing falls back. Up to 64 taps a branch it stages the
-  bank whole; a longer bank (``create_kaiser(m=33)``: p = 66) runs its
-  second instance, which walks the taps in tiles of 64, for any p ≥ 1.
+  the call raises; nothing falls back. It computes the IDFT as an FFT:
+  since b(c) = (M − c) mod M, W'[c, k] = scale·e^{−2πi·ck/M}, so
+  y[t, ·] = scale · DFT(u[t, ·]) over the lanes (:func:`branch_outputs`
+  gives u). Up to 64 taps a branch its persistent blocks keep a ring of
+  input rows in shared memory; a longer bank (``create_kaiser(m=33)``:
+  p = 66) runs its second instance, which walks the taps in tiles of 64,
+  for any p ≥ 1.
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._check import check_tensors, route
+from ._check import aligned16, check_tensors, route
 
-__all__ = ["channelizer_tables", "fused_channelizer_apply", "fused_channelizer_reference",
-           "halo_rows"]
+__all__ = ["branch_outputs", "channelizer_tables", "fused_channelizer_apply",
+           "fused_channelizer_reference", "halo_rows"]
 
 _LANE = 128
 _M = 64  # channels (the kernel is specialized to M = 64, the config[4] workload)
@@ -69,14 +73,12 @@ def halo_rows(p: int) -> int:
     return max((p + 1) // 2, (p - 1) // 2 + 1)
 
 
-def fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int):
-    """Plain-torch channelizer: same arguments and result as
-    :func:`fused_channelizer_apply`, as the TPU kernel computes it over the
-    whole block at once (one tile of all rows).
-
-    On the card the IDFT dots are float32 matmuls: set
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` for a full-fp32 oracle.
-    """
+def branch_outputs(xr, xi, taps, hist_r, hist_i, *, p: int):
+    """The branch FIR outputs u [T, 64] (re, im), step-major, lane c in
+    column c (branch b(c)), as the TPU kernel forms them: two M-blocks per
+    128-lane row, the commutator as a one-row shift with lanes 0 and 64
+    patched, tap j summed after taps 0 .. j − 1. Arguments as
+    :func:`fused_channelizer_apply`."""
     t2 = xr.shape[-1] // _LANE
     halo = halo_rows(p)
     lane = torch.arange(_LANE, device=xr.device)
@@ -99,11 +101,26 @@ def fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int)
             shift = j // 2
             term = taps[j] * src[halo - shift : halo - shift + t2]
             acc = term if acc is None else acc + term
-        return acc
+        return acc.reshape(t2 * _S, _M)
 
+    return branch_fir(*streams(xr, hist_r)), branch_fir(*streams(xi, hist_i))
+
+
+def fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int):
+    """Plain-torch channelizer: same arguments and result as
+    :func:`fused_channelizer_apply`, as the TPU kernel computes it over the
+    whole block at once (one tile of all rows): :func:`branch_outputs`, then
+    the IDFT as ``[R2, 256] @ [256, 128]`` dots against the stacked
+    block-diagonal twiddles.
+
+    On the card the IDFT dots are float32 matmuls: set
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` for a full-fp32 oracle.
+    """
+    t2 = xr.shape[-1] // _LANE
+    ur, ui = branch_outputs(xr, xi, taps, hist_r, hist_i, p=p)
     # complex IDFT as two stacked K=256 dots:
     #   yr = [ur|ui] @ [H_re; −H_im],  yi = [ur|ui] @ [H_im; H_re]
-    u = torch.cat([branch_fir(*streams(xr, hist_r)), branch_fir(*streams(xi, hist_i))], dim=1)
+    u = torch.cat([ur.reshape(t2, _LANE), ui.reshape(t2, _LANE)], dim=1)
     yr = u @ torch.cat([hr, -hi])
     yi = u @ torch.cat([hi, hr])
     return yr.reshape(t2 * _S, _M), yi.reshape(t2 * _S, _M)
@@ -146,6 +163,8 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
 
     from ._build import library
 
+    # the kernel copies 16-byte chunks: a plane that starts elsewhere is copied
+    xr, xi, hist_r, hist_i = (aligned16(t) for t in (xr, xi, hist_r, hist_i))
     n = xr.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"stream length {n} exceeds the kernel's index range")

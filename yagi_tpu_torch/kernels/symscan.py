@@ -32,7 +32,10 @@ falls back):
   ``xs4`` float32 [C, n, 4P] with groups **[re·mf | re·dmf | im·mf |
   im·dmf]** (K4's order; yagi_tpu's ``branch_outputs_4xP`` stacks
   (re·mf, im·mf, re·dmf, im·dmf) instead). Plain version
-  :func:`symsync_scan_reference`; the two are bit-identical.
+  :func:`symsync_scan_reference`; the two are bit-identical. Its blocks
+  stage tiles of each channel's rows in shared memory in the layout
+  :func:`scan_layout` chooses from P and E; a row too long to stage runs its
+  direct instance, which reads the rows from device memory.
 * K3, :func:`symsync_fused_apply` (replaces ``symscan.py::_kernel_fused``):
   fed the raw samples ``xa`` complex64 [C, n + L] (the L-sample window, then
   the block) and the taps ``g`` float32 [2P, L], g[i, j] = [mf; dmf][i, L−1−j]
@@ -62,16 +65,18 @@ import ctypes
 import numpy as np
 import torch
 
-from ._check import check_tensors, route
+from ._check import aligned16, check_tensors, route
 
 __all__ = [
     "STATE_ROWS",
     "branch_outputs",
     "fused_fits",
     "fused_smem_bytes",
+    "scan_layout",
     "symsync_fused_apply",
     "symsync_fused_reference",
     "symsync_scan_apply",
+    "symsync_scan_launch",
     "symsync_scan_reference",
     "symsync_scan_xla",
 ]
@@ -80,6 +85,7 @@ STATE_ROWS = 9  # b, bf, tau, tau_decim, rate, delta, dec, v0, v1
 LANES = 4  # K3's lanes per dot, each summing every LANES-th tap (csrc/symscan.cu)
 FUSED_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on an H100
 _FUSED_CHANS, _FUSED_TILE = 8, 128  # K3's channels per block and samples per tile
+_SCAN_CHANS, _SCAN_MAX_TILE = 8, 32  # K4's channels per block and rows per tile, at most
 
 
 def _pitch(length: int, rem: int, mod: int) -> int:
@@ -105,6 +111,25 @@ def fused_fits(L: int, P: int) -> bool:
     the same bits (the counterpart of yagi_tpu's ``fused_ok`` gate, with the
     card's limit in place of the VMEM budget)."""
     return fused_smem_bytes(L, P) <= FUSED_SMEM_LIMIT
+
+
+def scan_layout(P: int, E: int) -> tuple[int, int, int] | None:
+    """K4's staged layout for P branches and E slots a sample: ``(chans,
+    w, bytes)``, channels a block, rows (samples) a tile and the block's
+    shared memory, two tiles of x [chans, w, 4P] float32 and of the parked
+    y [chans, w·E] complex64 and valid [chans, w·E] bytes:
+    2·chans·w·(16P + 9E) bytes (``csrc/symscan.cu::yagi_symsync_scan_staged``
+    computes the same from chans and w). 8 channels a block and the widest
+    tile up to 32 rows that fits the card's 232,448 bytes; where not one row
+    of 8 channels fits, fewer channels a block, one row a tile; None where
+    not one row of one channel fits (P > 7262 at E = 2): the direct
+    instance, which reads the rows from device memory, takes that bank."""
+    per = 2 * (16 * P + 9 * E)  # bytes of a (channel, row), double buffered
+    w = min(_SCAN_MAX_TILE, FUSED_SMEM_LIMIT // (_SCAN_CHANS * per))
+    if w >= 1:
+        return _SCAN_CHANS, w, _SCAN_CHANS * w * per
+    chans = FUSED_SMEM_LIMIT // per
+    return (chans, 1, chans * per) if chans >= 1 else None
 
 
 def branch_outputs(xa, g):
@@ -270,7 +295,9 @@ def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: in
     ``yagi_tpu/kernels/symscan.py::symsync_scan``.
 
     CPU tensors run :func:`symsync_scan_reference`; CUDA tensors launch the
-    kernel (counted in ``symsync_scan_apply.launches``) or raise.
+    kernel (counted in ``symsync_scan_apply.launches``) or raise: the staged
+    instance in :func:`scan_layout`'s layout, or the direct one where that
+    is None.
     """
     if not isinstance(xs4, torch.Tensor) or xs4.dim() != 3:
         raise ValueError("symsync_scan_apply: xs4 must be a [C, n, 4P] tensor")
@@ -284,24 +311,39 @@ def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: in
         return symsync_scan_reference(xs4, n_valid, state, locked, radj, pll_a, pll_b, P=P,
                                       E=E, k_out=k_out, k=k)
 
-    from ._build import library
-
-    y, valid, st, deferred = _outputs(C, n, E, xs4.device)
-    with torch.cuda.device(xs4.device):
-        stream = torch.cuda.current_stream(xs4.device).cuda_stream
-        rc = library().yagi_symsync_scan(
-            xs4.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
-            radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(), valid.data_ptr(),
-            st.data_ptr(), deferred.data_ptr(), C, n, P, E, k_out,
-            ctypes.c_float(np.float32(1.0 / k)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"symsync scan kernel launch failed with CUDA error {rc}")
+    out = symsync_scan_launch(xs4, n_valid, state, locked, radj, pll_a, pll_b, P=P, E=E,
+                              k_out=k_out, k=k, layout=scan_layout(P, E))
     symsync_scan_apply.launches += 1
-    return y, valid, st, deferred
+    return out
 
 
 symsync_scan_apply.launches = 0
+
+
+def symsync_scan_launch(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E: int,
+                        k_out: int, k: int, layout):
+    """One launch of K4 on CUDA tensors already checked, not counted: the
+    staged instance in ``layout`` (:func:`scan_layout`'s ``(chans, w, _)``),
+    or the direct instance for None. :func:`symsync_scan_apply` passes its
+    layout; the A/B and timing tools pass None to run the direct one."""
+    from ._build import library
+
+    C, n, _ = xs4.shape
+    xs4 = aligned16(xs4)  # the staged instance copies 16-byte chunks
+    y, valid, st, deferred = _outputs(C, n, E, xs4.device)
+    with torch.cuda.device(xs4.device):
+        stream = torch.cuda.current_stream(xs4.device).cuda_stream
+        args = (xs4.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
+                radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(),
+                valid.data_ptr(), st.data_ptr(), deferred.data_ptr(), C, n, P, E, k_out,
+                ctypes.c_float(np.float32(1.0 / k)))
+        if layout is None:  # a row too long to stage: the direct instance
+            rc = library().yagi_symsync_scan(*args, stream)
+        else:
+            rc = library().yagi_symsync_scan_staged(*args, *layout[:2], stream)
+    if rc != 0:
+        raise RuntimeError(f"symsync scan kernel launch failed with CUDA error {rc}")
+    return y, valid, st, deferred
 
 
 def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E: int,

@@ -1,7 +1,8 @@
 """A/B of a kernel's versions on one card: an earlier version (v1) against
 the package's own (v2), for ``qam_eq_scan`` (``csrc/qam.cu``), K3
-``symsync_fused`` (``csrc/symscan.cu``), ``agc_scan`` (``csrc/agc.cu``) and
-K1, the fused chain (``csrc/chain.cu``), where a third version runs too: the
+``symsync_fused`` and K4 ``symsync_scan`` (``csrc/symscan.cu``), ``agc_scan``
+(``csrc/agc.cu``), K2, the channelizer (``csrc/channelizer.cu``), and K1, the
+fused chain (``csrc/chain.cu``), where a third version runs too: the
 two-stage formulation of ``tools/variants/chain_twostage.cu``. It is the
 card's counterpart of ``tools/kernel_variants.py``, the TPU A/B of K1's
 formulations.
@@ -10,23 +11,29 @@ v1's sources sit in a directory of their own, taken from the commit to
 compare against, for example::
 
     mkdir -p build/ab_v1
-    for f in agc.cu chain.cu nco.cuh qam.cu symscan.cu symscan.cuh; do
+    for f in agc.cu chain.cu channelizer.cu nco.cuh qam.cu symscan.cu symscan.cuh; do
         git show <commit>:yagi_tpu_torch/csrc/$f > build/ab_v1/$f
     done
-    python -m yagi_tpu_torch.tools.kernel_ab --v1 build/ab_v1
+    python -m yagi_tpu_torch.tools.kernel_ab --v1 build/ab_v1 [--only channelizer,symsync_scan]
 
-A directory with only some of the sources runs only their cases. Each version
+A directory with only some of the sources runs only their cases, and
+``--only`` keeps the cases whose names contain one of its words. Each version
 is built into its own library (``kernels/_build.py``), and the kernel
 wrappers are pointed at it in turn. At each path's shape (config[3]:
 ``agc_scan`` on 2048 channels × 4096 samples, ``qam_eq_scan`` on 2048
-channels × 8192 slots from K3, and K3 at k_out = 2; config[1]: K3 at
-C = 1024, n = 3976, n_valid = 3965; config[0]: K1 on 16 channels × 2^17
+channels × 8192 slots from K3, and K3 at k_out = 2; config[1]: K3 and K4 at
+C = 1024, n = 3976, n_valid = 3965; K4 also at the bank past K3's shared
+memory, 64 filters of 176 taps, on 1024 channels × 1024 samples; config[4]:
+K2 at M = 64, T = 2^15, p = 8; config[0]: K1 on 16 channels × 2^17
 samples, on planes and on complex64; random input from a seed) every
 version's outputs and new state are first held against v1's, bit for bit
-for the loops and within 1e-4 of |a| + 1e-3 for K1, then each is timed by
+for the loops, within 1e-4 of |a| + 1e-3 for K1 and within 1e-4 of the
+block's rms for K2 (whose outputs, rms ~11, come within 0.01 of 0, where the
+per-sample criterion reads ~1e-3 with no fault), then each is timed by
 CUDA-graph replay in turns, v1, v2, v2, v1. A v1 library with the first
 ``chain.cu``'s entry point (banded taps, no complex64 layout) is called
-through it, its complex64 case as split, kernel, join. Another variant of a
+through it, its complex64 case as split, kernel, join; one without K4's
+staged entry point runs K4's direct instance. Another variant of a
 kernel (a lane count, a tile size) is an edited copy of its source in a
 directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
@@ -46,17 +53,23 @@ import numpy as np
 import torch
 
 from ..chains import FusedRxChain
+from ..filter import Symsync
 from ..kernels import _build
 from ..kernels.agc import agc_scan_apply
 from ..kernels.chain import fused_chain_apply, fused_chain_apply_c64
+from ..kernels.channelizer import fused_channelizer_apply
 from ..kernels.qam import qam_eq_scan_apply
-from ..kernels.symscan import symsync_fused_apply
-from .paths import (C0, C1, C3, CHAIN, T0, T1, T3, complex_block, make_fused, make_msresamp,
-                    make_qamrx, make_symsync)
+from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
+                               symsync_scan_launch)
+from .paths import (C0, C1, C3, CHAIN, M4, T0, T1, T3, T4, complex_block, make_channelizer,
+                    make_fused, make_msresamp, make_qamrx, make_symsync)
 from .timing import graph_ms
 
 REPS = 10
 CHAIN_TOL = 1e-4  # K1's versions against v1: |a − b| / (|a| + 1e-3)
+CHZ_TOL = ("rms", 1e-4)  # K2's versions against v1: max |a − b| / rms(v1)
+GATE_BANK = dict(k=4, m=22, beta=0.3, num_filters=64)  # L = 176: past K3's shared memory
+GATE_SHAPE = (1024, 1024)  # (C, n) of K4's case at that bank: 1.07 GB of stream
 VARIANTS = Path(__file__).resolve().parent / "variants"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of other sources than the package's, beside its own:
@@ -148,6 +161,36 @@ def chain_calls(device, rng):
             f"C={C0}, T={T0}, P={p}, Kp={chain.taps.shape[1]}")
 
 
+def channelizer_calls(device, rng):
+    """K2's calls at config[4]: four input sets (64 MB, more than L2 holds)."""
+    fz = make_channelizer(device)
+    n, nh = T4 * M4, fz.hist_r.shape[0]
+
+    def f32(k):
+        return torch.from_numpy(rng.standard_normal(k, dtype=np.float32)).to(device)
+
+    sets = [(f32(n), f32(n), fz.taps, fz.hr, fz.hi, f32(nh), f32(nh)) for _ in range(4)]
+    return ([lambda a=a: fused_channelizer_apply(*a, p=fz.p, r2=fz.r2) for a in sets] * 5,
+            f"M={M4}, T={T4}, p={fz.p}")
+
+
+def scan_calls(ss, c: int, n: int, n_valid, device, rng):
+    """K4's calls on two streams from branch_outputs of random input through
+    bank ``ss``: the wrapper (the staged instance) where the library has it,
+    else the direct instance, K4's first version."""
+    L = ss.mf.shape[1]
+    kw = dict(E=2, **ss.kernel_args())
+    loop = [kw.pop(k) for k in ("state", "locked", "radj", "pll_a", "pll_b")]
+    xs4 = [branch_outputs(complex_block(rng, (c, n + L), device), ss.taps()) for _ in range(2)]
+
+    def call(x):
+        if hasattr(_build.library(), "yagi_symsync_scan_staged"):
+            return symsync_scan_apply(x, n_valid, *loop, **kw)
+        return symsync_scan_launch(x, n_valid, *loop, **kw, layout=None)
+
+    return [lambda x=x: call(x) for x in xs4]
+
+
 def cases(device):
     """(name, the C entry point a library needs for it, [calls per input
     set], shape note, the tolerance against v1 or None for bit identity, the
@@ -176,7 +219,18 @@ def cases(device):
                                       a.locked, a.squelch_mode, a.squelch_timer, timeout=100)
            for x in (complex_block(rng, (C3, T3), device) for _ in range(2))]
     planar, c64, chain_note = chain_calls(device, rng)
+    chz, chz_note = channelizer_calls(device, rng)
+    k4_1 = scan_calls(ss1, C1, n1, nv, device, rng)
+    gate = Symsync.create_rnyquist("rrcos", **GATE_BANK, batch_shape=(GATE_SHAPE[0],),
+                                   device=device).set_lf_bw(0.02)
+    k4_gate = scan_calls(gate, *GATE_SHAPE, None, device, rng)
     return [
+        ("channelizer config[4]", "yagi_channelizer_fp32", chz, chz_note, CHZ_TOL, TURNS),
+        ("symsync_scan config[1]", "yagi_symsync_scan", k4_1,
+         f"C={C1}, n={n1}, n_valid={n1 - 11}, P={ss1.npfb}, E=2, k_out=1", None, TURNS),
+        ("symsync_scan gate bank", "yagi_symsync_scan", k4_gate,
+         f"C={GATE_SHAPE[0]}, n={GATE_SHAPE[1]}, L={gate.mf.shape[1]}, P={gate.npfb}, E=2",
+         None, TURNS),
         ("symsync_fused config[1]", "yagi_symsync_fused", k3_1,
          f"C={C1}, n={n1}, n_valid={n1 - 11}, L={L}, E=2, k_out=1", None, TURNS),
         ("symsync_fused config[3]", "yagi_symsync_fused", k3_3,
@@ -198,21 +252,29 @@ def serves(lib, entry: str) -> bool:
 
 
 def agrees(got, want, tol):
-    """Bit identity (``tol`` None), or the largest |a − b| / (|b| + 1e-3) where
-    it stays below ``tol`` and False where it does not."""
+    """Bit identity (``tol`` None); or the largest |a − b| / (|b| + 1e-3)
+    (``tol`` a number), or max |a − b| over the rms of b (``tol`` ("rms",
+    bound)), where it stays below the bound, and False where it does not."""
     if tol is None:
         return all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
     def cplx(t):  # a (re, im) pair of planes as complex values
         return [torch.complex(*t)] if len(t) == 2 and not t[0].is_complex() else t
 
-    worst = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
-                for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
-    print(f"[ab] largest relative difference from v1: {worst:.3e}")
+    if isinstance(tol, tuple):
+        tol = tol[1]
+        worst = max(float((a - b).abs().max() / b.abs().square().mean().sqrt())
+                    for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
+        print(f"[ab] largest difference from v1 over its rms: {worst:.3e}")
+    else:
+        worst = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+                    for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
+        print(f"[ab] largest relative difference from v1: {worst:.3e}")
     return worst < tol and worst
 
 
 def build_log_lines(log: str) -> list[str]:
-    keep = ("qam_eq_scan", "symsync_fused", "agc_scan", "chain_", "registers", "spill")
+    keep = ("qam_eq_scan", "symsync_", "agc_scan", "chain_", "channelizer", "registers",
+            "spill")
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
 
@@ -220,6 +282,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--v1", required=True, help="directory with v1's sources")
     parser.add_argument("--out", default="build/kernel_ab.json")
+    parser.add_argument("--only", default="",
+                        help="comma-separated words: run only the cases whose names hold one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device; torch sees none")
@@ -238,7 +302,10 @@ def main(argv=None) -> None:
     libs = {name: _build.bind(path, SIGNATURES) for name, (path, _) in builds.items()}
 
     result = {"card": card, "cases": {}}
+    only = [w for w in args.only.split(",") if w]
     for name, entry, calls, note, tol, turns in cases(device):
+        if only and not any(w in name for w in only):
+            continue
         if not serves(libs["v1"], entry):
             print(f"[ab] {name}: v1 has no {entry}, skipped")
             continue

@@ -1,6 +1,6 @@
-"""The shapes and inputs of the config[0], config[1] and config[3] paths, in one place
-for ``chip_smoke.py`` and the tools that time those paths on the card
-(:mod:`.kernel_ab`, :mod:`.step_profile`)."""
+"""The shapes and inputs of the config[0], config[4], config[1] and config[3]
+paths, in one place for ``chip_smoke.py`` and the tools that time those paths
+on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
 from __future__ import annotations
 
@@ -9,12 +9,21 @@ import torch
 
 from ..chains import FusedRxChain, QamRx
 from ..filter import MsResamp, Symsync
+from ..multichannel import FusedChannelizer
 
 # config[0] (bench.py:44-82): 64-tap Kaiser FIR → 2× interpolator → mix-down
 # over 16 channels, blocks of 2^17
 C0, T0 = 16, 1 << 17
 CHAIN = dict(n_taps=64, fc=0.2, as_=60.0, rate=2.0)
 MIX_FREQ = 0.35
+
+# config[4] (bench.py:85-125): 64-channel polyphase channelizer (Kaiser
+# prototype, m = 4, 60 dB) → FM discriminator (kf = 0.1), 2^15 analyzer steps
+# (2^21 complex samples) per block, seed 1
+M4, T4 = 64, 1 << 15
+CHZ = dict(num_channels=M4, m=4, as_=60.0, r2=128)
+KF = 0.1
+CHZ_SEED = 1
 
 # config[1] (bench.py:160-192): MsResamp → Symsync over 1024 channels,
 # blocks of 4096
@@ -39,6 +48,10 @@ def complex_block(rng, shape, device) -> torch.Tensor:
 def make_fused(c: int, device, **kw) -> FusedRxChain:
     return FusedRxChain.create(**{**CHAIN, "mix_freq": MIX_FREQ, **kw}, batch_shape=(c,),
                                device=device)
+
+
+def make_channelizer(device, **kw) -> FusedChannelizer:
+    return FusedChannelizer.create_kaiser(**{**CHZ, **kw}, device=device)
 
 
 def make_msresamp(c: int, device) -> MsResamp:

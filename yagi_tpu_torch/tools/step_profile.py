@@ -1,15 +1,22 @@
-"""Eager step time of config[0], config[1] and config[3] on one card, and
-where the device time goes.
+"""Eager step time of config[0], config[4], config[1] and config[3] on one
+card, and where the device time goes.
 
 For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
 between CUDA events, the host's time to enqueue a step, then a
 ``torch.profiler`` table of device time by kernel over 5 more steps.
 
-* config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
-* config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``, 1024
-  channels × 4096 samples;
-* config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples.
+* ``0``, config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
+* ``4``, config[4]: ``FusedChannelizer.analyzer_execute_planar`` (M = 64,
+  2^15 steps, p = 8) → ``Freqdem.demodulate`` on the channel-major view, 2^21
+  complex samples a block, seed 1;
+* ``1``, config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``,
+  1024 channels × 4096 samples (K3); ``1p``, the same with
+  ``backend="pallas"``: ``branch_outputs`` builds the all-branch stream and
+  K4 runs the loop on it;
+* ``3``, config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples.
+
+``--configs`` picks some of them (default all), for example ``4,1p``.
 
 The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
@@ -70,13 +77,37 @@ def config0(device):
     return step
 
 
-def config1(device):
+def config4(device):
+    m4, t4, seed = (getattr(paths, k, d) for k, d in (("M4", 64), ("T4", 1 << 15),
+                                                       ("CHZ_SEED", 1)))
+    rng = np.random.default_rng(seed)
+    xs = [tuple(torch.from_numpy(rng.standard_normal(m4 * t4, dtype=np.float32)).to(device)
+                for _ in range(2)) for _ in range(4)]
+    from yagi_tpu_torch.modem import Freqdem
+
+    if hasattr(paths, "make_channelizer"):
+        chz = paths.make_channelizer(device)
+    else:  # another checkout, whose tools/paths.py has no config[4] yet
+        from yagi_tpu_torch.multichannel import FusedChannelizer
+
+        chz = FusedChannelizer.create_kaiser(m4, 4, 60.0, r2=128, device=device)
+    state = [chz, Freqdem.create(getattr(paths, "KF", 0.1), batch_shape=(m4,), device=device), 0]
+
+    def step():
+        yr, yi, state[0] = state[0].analyzer_execute_planar(*xs[state[2] % 4])
+        _, state[1] = state[1].demodulate(torch.complex(yr, yi).T)
+        state[2] += 1
+
+    return step
+
+
+def config1(device, backend: str = "auto"):
     xs = blocks(C1, T1, device)
     state = [make_msresamp(C1, device), make_symsync(C1, device), 0]
 
     def step():
         y, cnt, state[0] = state[0].execute_block(xs[state[2] % 4])
-        _, _, state[1] = state[1].execute_slots(y, n_valid=cnt)
+        _, _, state[1] = state[1].execute_slots(y, n_valid=cnt, backend=backend)
         state[2] += 1
 
     return step
@@ -118,6 +149,7 @@ def measure(name: str, step, steps: int) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--configs", default="0,4,1,1p,3")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device; torch sees none")
@@ -126,9 +158,17 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     print(f"[step] card: {card}")
-    measure("config[0] FusedRxChain.step", config0(device), 10 * args.steps)
-    measure("config[1] MsResamp -> Symsync", config1(device), args.steps)
-    measure("config[3] QamRx.step_masked", config3(device), args.steps)
+    runs = {
+        "0": ("config[0] FusedRxChain.step", lambda: config0(device), 10 * args.steps),
+        "4": ("config[4] FusedChannelizer -> Freqdem", lambda: config4(device), 10 * args.steps),
+        "1": ("config[1] MsResamp -> Symsync", lambda: config1(device), args.steps),
+        "1p": ("config[1] MsResamp -> Symsync(backend='pallas')",
+               lambda: config1(device, "pallas"), max(2, args.steps // 4)),
+        "3": ("config[3] QamRx.step_masked", lambda: config3(device), args.steps),
+    }
+    for key in args.configs.split(","):
+        name, make, steps = runs[key]
+        measure(name, make(), steps)
 
 
 if __name__ == "__main__":
