@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-Five paths of the port, yagi_tpu_torch, each at its real size:
+Six paths of the port, yagi_tpu_torch, each at its real size:
 
 * BASELINE config[0]: 64-tap Kaiser FIR → 2× polyphase interpolator → u32
   NCO mix-down, 16 channels, blocks of 2^17 complex samples (FusedRxChain,
@@ -24,7 +24,13 @@ Five paths of the port, yagi_tpu_torch, each at its real size:
   over 2048 channels, blocks of 4096 complex samples: kernels agc_scan
   (csrc/agc.cu), K3 at k_out = 2 and qam_eq_scan (csrc/qam.cu), once each
   per block; besides the noise blocks, an impaired 16-QAM signal decoded
-  in every channel.
+  in every channel;
+* BASELINE config[2]: the FM stereo receiver FmStereoRx (Freqdem, kf 0.5 →
+  four 129-tap FIRs as banded matmuls → pilot-tone stereo matrix → two
+  first-order de-emphasis IIRs, alpha 0.05) over 512 channels, blocks of
+  2^14 complex samples (bench.py's draw, seed 3): kernel iir_chunked
+  (csrc/iir.cu, body csrc/iir.cuh) twice a block; its sequential form
+  iir_scan serves every filter that is not parallelize()d.
 
 Seven phases:
 
@@ -40,20 +46,31 @@ Seven phases:
    persistent blocks split unevenly), qam_eq_scan at 17 and 31 taps,
    agc_scan at tile edges, K4 at P = 256, 1024, 7262 (smaller staged
    layouts) and 7263 (the direct instance), and a Symsync bank past K3's
-   shared memory, which "auto" hands to K4;
+   shared memory, which "auto" hands to K4; iir_scan bit for bit at TF
+   lengths 1, 2, 3, 5, 7, 10 and 3200 (its register, shared-memory and
+   device-memory instances), SOS with 1, 4, 5 and 7 sections and the
+   integrator, real, complex and complex-coefficient, C = 1, 3, 512, T = 1,
+   127, 129, 2^14; iir_chunked within 2e-5 (TF) / 1e-4 (SOS) of its plain
+   version and of iir_scan at orders 0, 1, 2 and 8, T = 1, 20, 1000, 8292
+   and 2^14;
 5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
    for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
    8, the first 2 held bit for bit against the chain with every stage on
-   its plain version); every launch count is set to 0 just before a path
-   and read just after it; block-split invariance;
+   its plain version; config[2] against the chain with its de-emphasis on
+   the plain version, within 2e-5, then 4 blocks with the de-emphasis on
+   iir_scan); every launch count is set to 0 just before a path and read
+   just after it; block-split invariance;
 6. signal: config[3] decodes an impaired 16-QAM signal in all 2048
-   channels (tail symbol error rate 0, tail EVM below −25 dB);
+   channels (tail symbol error rate 0, tail EVM below −25 dB); config[2]
+   decodes FM stereo tones in 4 channels (amplitudes within 5%,
+   separation above 40 dB);
 7. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
-   version) in turns with its staged one, and the config[0], config[4],
-   config[1] and config[3] steps.
+   version) in turns with its staged one, the plain iir_scan_reference by
+   one eager call at config[2]'s shape, and the config[0], config[4],
+   config[1], config[3] and config[2] steps.
 
 Prints one line per check, a JSON line of per-kernel results (with each
 kernel's bound at its path's shape: bytes at 3.35 TB/s or fp32 operations
@@ -79,8 +96,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from yagi_tpu_torch._src.struct import U32  # noqa: E402
 from yagi_tpu_torch.agc import Agc, AgcSquelchMode  # noqa: E402
-from yagi_tpu_torch.chains import QamRx, RxChain  # noqa: E402
+from yagi_tpu_torch.chains import FmStereoRx, QamRx, RxChain  # noqa: E402
 from yagi_tpu_torch.design import FirFilterShape, fir_design_prototype  # noqa: E402
+from yagi_tpu_torch.design import iir as iirdes  # noqa: E402
 from yagi_tpu_torch.kernels.agc import agc_scan_apply, agc_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels import _build  # noqa: E402
 from yagi_tpu_torch.kernels.chain import (  # noqa: E402
@@ -94,7 +112,15 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     fused_channelizer_reference,
     halo_rows,
 )
-from yagi_tpu_torch.filter import Symsync  # noqa: E402
+from yagi_tpu_torch.filter import IirFilter, Symsync  # noqa: E402
+from yagi_tpu_torch.kernels.iir import (  # noqa: E402
+    chunked_fits,
+    iir_chunked_apply,
+    iir_chunked_reference,
+    iir_scan_apply,
+    iir_scan_reference,
+    scan_instance,
+)
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
 from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: E402
 from yagi_tpu_torch.errors import ConfigError  # noqa: E402
@@ -110,24 +136,29 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     symsync_scan_launch,
     symsync_scan_reference,
 )
-from yagi_tpu_torch.modem import Freqdem, Modem  # noqa: E402
+from yagi_tpu_torch.modem import Freqdem, Freqmod, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
 from yagi_tpu_torch.tools.paths import (  # noqa: E402
     C0 as C,
     C1,
+    C2,
     C3,
     CHAIN,
     CHZ,
     KF,
     M4,
     MIX_FREQ,
+    FM_SEED,
     QAM_SEED,
     T0 as T,
     T1,
+    T2,
     T3,
     T4,
     complex_block,
+    fm_block,
+    make_fmstereo,
     make_fused,
     make_msresamp,
     make_qamrx,
@@ -200,6 +231,40 @@ QAM_EVM_DB, QAM_THETA_MIN, QAM_TAIL = -25.0, 0.05, 800
 # acquisition can decide it (PERF.md §6); so up to this share of the
 # channels may miss the SER and EVM marks, each one printed.
 QAM_FALSE_LOCK_MAX = 0.005
+
+# config[2] (bench.py:199-218): FmStereoRx over C2 channels, blocks of T2
+# (tools/paths.py), its two de-emphasis IIRs on iir_chunked. iir_scan rounds
+# every op alone in one order, so it is held to bit identity; iir_chunked
+# runs the same recurrence in another summation order and is held as
+# tests/test_iir_parallel.py holds yagi_tpu's parallel route: max |a − b| /
+# max |a| below 2e-5 (TF, first order included) or 1e-4 (Butterworth and
+# integrator SOS), a block split below 1e-5.
+IIR_TF_TOL, IIR_SOS_TOL, IIR_SPLIT_TOL = 2e-5, 1e-4, 1e-5
+N_FM_SEQ = 4  # config[2] blocks on the sequential route (iir_scan)
+N_FM_STEPS = 20  # eager config[2] steps timed
+# iir_scan's checks: (form, taps (TF) or sections (SOS), type, C, T). TF
+# lengths 2 (the de-emphasis) and 3, 5, 7 (the golden cases), 1 (no
+# feedback); 10 takes the ring in shared memory, 3200 (complex) the ring in
+# device memory; SOS 1 and 4 sections and the 8th-order integrator in
+# registers, 5 and 7 in the ring
+IIR_SCAN_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 1, 1), ("tf", 1, "cccf", 3, 129),
+                  ("tf", 3, "crcf", 3, 127),
+                  ("tf", 3, "crcf", C2, 1), ("tf", 5, "cccf", 3, 129), ("tf", 7, "rrrf", C2, 129),
+                  ("tf", 7, "cccf", 1, 127), ("tf", 10, "rrrf", 3, 129),
+                  ("tf", 10, "cccf", 3, 127), ("tf", 3200, "cccf", 2, 3),
+                  ("sos", 1, "rrrf", 3, 129), ("sos", 1, "crcf", C2, 127),
+                  ("sos", "integrator", "rrrf", 3, 129), ("sos", 4, "crcf", 1, 127),
+                  ("sos", 5, "rrrf", 3, 129), ("sos", 7, "crcf", 3, 127))
+# iir_chunked's checks: (form, taps or sections, type, C, T): orders 0, 1, 2
+# and 8, T = 1, T below one chunk (32), T not a multiple of the chunk or of
+# the 8192-sample segment, T2; SOS stages of order 2; TF order 9 is past the
+# chunked kernel and runs iir_scan
+IIR_CHUNK_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 3, 1), ("tf", 2, "crcf", 3, 20),
+                   ("tf", 1, "rrrf", 3, 1000),
+                   ("tf", 3, "rrrf", 3, 8292), ("tf", 3, "cccf", 3, 1000),
+                   ("tf", 9, "rrrf", 3, 1000), ("tf", 9, "cccf", 2, T2),
+                   ("sos", "lowpass7", "rrrf", 3, 8292), ("sos", "lowpass7", "crcf", 5, T2),
+                   ("sos", "integrator", "rrrf", 3, 1000), ("tf", 10, "rrrf", 3, 300))
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
 # op rounded alone, one evaluation order.
@@ -210,7 +275,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 KERNELS = (fused_chain_apply, fused_chain_apply_c64, fused_channelizer_apply, mix_down_apply,
-           symsync_fused_apply, symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply)
+           symsync_fused_apply, symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply,
+           iir_scan_apply, iir_chunked_apply)
 
 
 def reset_counts() -> None:
@@ -299,13 +365,14 @@ def phase_build() -> None:
 
 
 def phase_default_device() -> None:
-    """An entry point called without a device builds on the current card."""
-    rx = QamRx.create(batch_shape=(4,))
-    devices = sorted({str(t.device) for t in tensors_of(rx)})
+    """Entry points called without a device build on the current card."""
     want = str(torch.device("cuda", torch.cuda.current_device()))
-    print(f"[default-device] QamRx.create() with no device: its {len(tensors_of(rx))} tensors "
-          f"lie on {devices}")
-    require(devices == [want], f"default device {devices}, want [{want}]")
+    for name, rx in (("QamRx", QamRx.create(batch_shape=(4,))),
+                     ("FmStereoRx", FmStereoRx.create(batch_shape=(4,)))):
+        devices = sorted({str(t.device) for t in tensors_of(rx)})
+        print(f"[default-device] {name}.create() with no device: its {len(tensors_of(rx))} "
+              f"tensors lie on {devices}")
+        require(devices == [want], f"{name}: default device {devices}, want [{want}]")
 
 
 def kernel_inputs(rng, c: int, t: int, mix_freq: float, device, rate: float = 2.0):
@@ -1294,6 +1361,260 @@ def phase_timing_config3(device, card: str, plain_ms: dict) -> dict:
             "qam_eq_scan": ((eq_1 + eq_2) / 2, plain_ms["qam_eq_scan"])}
 
 
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| / max |a| (tests/test_iir_parallel.py's measure); 0 for
+    empty tensors (the state of a filter with no feedback)."""
+    if a.numel() == 0:
+        return 0.0
+    return ((a - b).abs().max() / (a.abs().max() + 1e-12)).item()
+
+
+def iir_case(rng, form, n, typ: str, c: int, t: int, device) -> tuple:
+    """(x, b, a, scale, v) of a stable filter: TF with n taps (random poles
+    within 0.6/order of 0, random numerator), SOS with n Butterworth
+    sections, ``"lowpass7"`` (IirFilter.create_lowpass(7, 0.1)) or
+    ``"integrator"``; a random [c, t] signal of ``typ`` (rrrf, crcf: real
+    coefficients; cccf: complex), a scale other than 1 and a random state."""
+    cx, cc = typ != "rrrf", typ == "cccf"
+    sig = torch.complex64 if cx else torch.float32
+
+    def rand(shape, complex_):
+        z = rng.standard_normal(shape)
+        return z + 1j * rng.standard_normal(shape) if complex_ else z
+
+    if form == "tf":
+        m = n - 1
+        poles = 0.6 * rand(m, cc) / max(m, 1) / (np.sqrt(2) if cc else 1)
+        f = IirFilter.create(0.3 * rand(n, cc), np.atleast_1d(np.poly(poles)), device=device)
+        b, a = f.b, f.a
+        v = 0.5 * rand((c, m), cx)
+    else:
+        if n == "integrator":
+            f = IirFilter.create_integrator(device=device)
+        elif n == "lowpass7":
+            f = IirFilter.create_lowpass(7, 0.1, device=device)
+        else:
+            f = IirFilter.create_prototype(iirdes.IirFilterShape.BUTTER, iirdes.IirBandType.LOWPASS,
+                                           iirdes.IirFormat.SECOND_ORDER_SECTIONS, 2 * n, 0.1,
+                                           device=device)
+        b, a = f.b, f.a
+        v = 0.5 * rand((c, f.nsos, 2), cx)
+    scale = torch.tensor(0.7 + 0.2j if cc else 0.7, dtype=b.dtype, device=device)
+    x = torch.from_numpy(rand((c, t), cx)).to(sig).to(device)
+    return x, b, a, scale, torch.from_numpy(v).to(sig).to(device)
+
+
+def phase_kernel_vs_plain_iir(device) -> dict:
+    """iir_scan against iir_scan_reference bit for bit at IIR_SCAN_CASES,
+    and iir_chunked against iir_chunked_reference (the log-depth form) and
+    against iir_scan within IIR_TF_TOL / IIR_SOS_TOL at IIR_CHUNK_CASES,
+    each from a nonzero state; returns max |error| at config[2]'s shape (the
+    de-emphasis's form, [C2, T2])."""
+    rng = np.random.default_rng(SEED + 40)
+    out = {}
+    for form, n, typ, c, t in IIR_SCAN_CASES:
+        x, b, a, scale, v = iir_case(rng, form, n, typ, c, t, device)
+        sos = form == "sos"
+        state_len = v.shape[1] * v.shape[2] if sos else v.shape[1]
+        got = iir_scan_apply(x, b, a, scale, v, sos=sos)
+        want = iir_scan_reference(x, b, a, scale, v, sos=sos)
+        same = [same_bits(p, q) for p, q in zip(got, want)]
+        err = (got[0] - want[0]).abs().max().item()
+        print(f"[kernel-vs-plain] iir_scan {form} {n} {typ} C={c} T={t} (instance "
+              f"{scan_instance(state_len, x.is_complex())[0]}): bit-identical (y, state) {same}; "
+              f"max abs err {err:.3e}")
+        require(all(same) and bool(torch.isfinite(got[0]).all()),
+                f"iir_scan vs plain, {form} {n} {typ} C={c} T={t}")
+        if (form, n, c, t) == ("tf", 2, C2, T2):
+            out["iir_scan"] = err
+    for form, n, typ, c, t in IIR_CHUNK_CASES:
+        x, b, a, scale, v = iir_case(rng, form, n, typ, c, t, device)
+        sos = form == "sos"
+        order, nst = (2, v.shape[1]) if sos else (v.shape[1], 1)
+        fits = chunked_fits(order, nst, x.is_complex(), b.is_complex())
+        tol = IIR_SOS_TOL if sos else IIR_TF_TOL
+        torch.cuda.synchronize()
+        reset_counts()
+        got = iir_chunked_apply(x, b, a, scale, v, sos=sos)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = iir_chunked_reference(x, b, a, scale, v, sos=sos)
+        seq = iir_scan_apply(x, b, a, scale, v, sos=sos)
+        errs = [rel_max(w, g) for w, g in zip(want, got)]
+        errs_seq = [rel_max(w, g) for w, g in zip(seq, got)]
+        print(f"[kernel-vs-plain] iir_chunked {form} {n} {typ} C={c} T={t} (order {order}, "
+              f"{nst} stage(s), chunked kernel {fits}): max |a - b| / max |a| (y, state) vs the "
+              f"log-depth form {errs[0]:.3e}, {errs[1]:.3e}; vs iir_scan {errs_seq[0]:.3e}, "
+              f"{errs_seq[1]:.3e} (< {tol}); launches {counts['iir_chunked_apply']} chunked, "
+              f"{counts['iir_scan_apply']} sequential")
+        require(max(errs + errs_seq) < tol and bool(torch.isfinite(got[0]).all()),
+                f"iir_chunked vs plain, {form} {n} {typ} C={c} T={t}")
+        require((counts["iir_chunked_apply"], counts["iir_scan_apply"]) == ((1, 0) if fits else (0, 1)),
+                f"iir_chunked's shape gate: {counts}")
+        if (form, n, c, t) == ("tf", 2, C2, T2):
+            out["iir_chunked"] = (got[0] - want[0]).abs().max().item()
+    return out
+
+
+def fm_chain(device, parallel: bool = True) -> FmStereoRx:
+    """config[2]'s chain; with ``parallel`` False its de-emphasis filters run
+    the sequential recurrence (iir_scan)."""
+    rx = make_fmstereo(C2, device)
+    return rx if parallel else rx.replace(deemph_l=rx.deemph_l.replace(parallel=False),
+                                          deemph_r=rx.deemph_r.replace(parallel=False))
+
+
+def phase_main_path_config2(device) -> dict:
+    """Stream N_BLOCKS config[2] blocks through FmStereoRx.step (iir_chunked
+    twice a block), held against the same chain with the de-emphasis on its
+    plain version; then N_FM_SEQ blocks with the de-emphasis on iir_scan;
+    block splits. Returns each kernel's launches from its run."""
+    rng = np.random.default_rng(FM_SEED)
+    blocks = [fm_block(rng, (C2, T2), device) for _ in range(N_BLOCKS)]
+    rx = fm_chain(device)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = []
+    for x in blocks:
+        left, right, level, rx = rx.step(x)
+        outs.append((left, right, level))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[main-path] FmStereoRx.step: {N_BLOCKS} blocks of [{C2}, {T2}] complex64, kernel "
+          f"launches {counts}")
+    require(all(v == (2 * N_BLOCKS if k == "iir_chunked_apply" else 0) for k, v in counts.items()),
+            f"launches {counts}: want {2 * N_BLOCKS} of iir_chunked_apply, no other")
+    launches = {"iir_chunked": counts["iir_chunked_apply"]}
+
+    plain = fm_chain(device)
+    worst = [0.0, 0.0]
+    for i, (x, (left, right, level)) in enumerate(zip(blocks, outs)):
+        lp, rp, pp, plain = plain._step(x, plain=True)
+        require(tuple(left.shape) == tuple(right.shape) == (C2, T2) and tuple(level.shape) == (C2,)
+                and left.dtype == right.dtype == level.dtype == torch.float32, f"block {i}: shapes")
+        require(bool(torch.isfinite(left).all() & torch.isfinite(right).all()), f"block {i}: finite")
+        errs = [rel_max(lp, left), rel_max(rp, right)]
+        require(max(errs) < IIR_TF_TOL and torch.equal(level, pp),
+                f"block {i}: vs the plain chain {errs}, pilot level equal {torch.equal(level, pp)}")
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+    state_errs = [rel_max(getattr(plain, f).v, getattr(rx, f).v) for f in ("deemph_l", "deemph_r")]
+    other = [d for d in state_diff(rx, plain) if not d.startswith("deemph_")]
+    print(f"[main-path] FmStereoRx vs the chain with the de-emphasis on iir_chunked_reference over "
+          f"{N_BLOCKS} blocks: max |a - b| / max |a| L {worst[0]:.3e}, R {worst[1]:.3e} (< "
+          f"{IIR_TF_TOL}), pilot_level bit-identical; de-emphasis states {state_errs[0]:.3e}, "
+          f"{state_errs[1]:.3e}; other state fields that differ {other}; pilot level "
+          f"{outs[-1][2].mean().item():.4f} (mean)")
+    require(max(state_errs) < IIR_TF_TOL and not other, "carried state vs the plain chain")
+
+    seq = fm_chain(device, parallel=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    s_outs = []
+    for x in blocks[:N_FM_SEQ]:
+        left, right, _, seq = seq.step(x)
+        s_outs.append((left, right))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches["iir_scan"] = counts["iir_scan_apply"]
+    errs = [max(rel_max(o[j], so[j]) for o, so in zip(outs, s_outs)) for j in (0, 1)]
+    print(f"[main-path] FmStereoRx, de-emphasis sequential: {N_FM_SEQ} blocks, kernel launches "
+          f"{counts}; vs the chunked route max |a - b| / max |a| L {errs[0]:.3e}, R {errs[1]:.3e}")
+    require(counts["iir_scan_apply"] == 2 * N_FM_SEQ and counts["iir_chunked_apply"] == 0,
+            f"launches {counts}: want {2 * N_FM_SEQ} of iir_scan_apply")
+    require(max(errs) < IIR_TF_TOL, "sequential route vs the chunked one")
+
+    # one 2T block equals two T blocks, the chain and a 5th-order Butterworth
+    # lowpass alone (tests/test_iir_parallel.py::test_block_split_invariance)
+    x2 = torch.cat(blocks[:2], -1)
+    one = fm_chain(device).step(x2)
+    a = fm_chain(device).step(blocks[0])
+    b = a[3].step(blocks[1])
+    split = [rel_max(one[j], torch.cat([a[j], b[j]], -1)) for j in (0, 1)]
+    lp = IirFilter.create_lowpass(5, 0.2, batch_shape=(C2,), device=device).parallelize()
+    r2 = planes(rng, (C2, 2 * T2), device)
+    y_all, _ = lp.execute_block(r2)
+    y_a, lp2 = lp.execute_block(r2[:, :T2])
+    y_b, _ = lp2.execute_block(r2[:, T2:])
+    split.append(rel_max(y_all, torch.cat([y_a, y_b], -1)))
+    print(f"[main-path] block split 2T vs T+T: FmStereoRx L {split[0]:.3e}, R {split[1]:.3e}; "
+          f"Butterworth 5 on iir_chunked {split[2]:.3e} (< {IIR_SPLIT_TOL})")
+    require(max(split) < IIR_SPLIT_TOL, f"block split {split}")
+    return launches
+
+
+def phase_signal_config2(device) -> None:
+    """tests/test_aux.py's stereo test in 4 channels: L and R tones (0.8 at
+    0.010, 0.5 at 0.021, each channel its own phase) pilot-stereo encoded, FM
+    modulated (kf 0.25), decoded by FmStereoRx (kf 0.125, no de-emphasis):
+    tone amplitudes within 5%, separation above 40 dB."""
+    n, c, fp, d = 1 << 15, 4, 0.095, 600
+    t = np.arange(n)
+    ph = np.arange(c)[:, None] * 0.7
+    L = 0.8 * np.sin(2 * np.pi * 0.010 * t + ph)
+    R = 0.5 * np.sin(2 * np.pi * 0.021 * t + ph)
+    comp = (0.5 * (L + R) + 0.1 * np.cos(2 * np.pi * fp * t)
+            + 0.5 * (L - R) * np.cos(2 * np.pi * 2 * fp * t))
+    iq, _ = Freqmod.create(0.25, batch_shape=(c,), device=device).modulate(
+        torch.from_numpy((comp * 0.5).astype(np.float32)).to(device))
+    rx = FmStereoRx.create(kf=0.125, f_pilot=fp, deemph_alpha=1.0, batch_shape=(c,), device=device)
+    left, right, _, _ = rx.step(iq)
+    e = torch.from_numpy(np.exp(-2j * np.pi * np.outer([0.010, 0.021], t[d:]))).to(device)
+
+    def amp(x):  # [c, 2]: 2·|mean(x·e^{−j2πft})| at the two tones
+        return 2 * (x[:, d:].to(torch.complex128) @ e.T / (n - d)).abs()
+
+    al, ar = amp(left), amp(right)
+    sep_l = 20 * torch.log10(al[:, 0] / al[:, 1])
+    sep_r = 20 * torch.log10(ar[:, 1] / ar[:, 0])
+    print(f"[signal] FM stereo in {c} channels, n = {n}: L tone {al[:, 0].tolist()} (0.8), R tone "
+          f"{ar[:, 1].tolist()} (0.5); separation L {sep_l.min().item():.1f} dB, R "
+          f"{sep_r.min().item():.1f} dB (> 40)")
+    require(bool(((al[:, 0] - 0.8).abs() <= 0.04).all() & ((ar[:, 1] - 0.5).abs() <= 0.025).all()),
+            "tone amplitudes within 5%")
+    require(bool((sep_l > 40).all() & (sep_r > 40).all()), "stereo separation > 40 dB")
+
+
+def phase_timing_config2(device, card: str) -> dict:
+    """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
+    config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
+    iir_scan_reference by one eager call at the same shape, then the eager
+    config[2] step; returns {name: (kernel ms, plain ms)}."""
+    rng = np.random.default_rng(SEED + 41)
+    f = make_fmstereo(1, device).deemph_l
+    # N_ROT input sets (134 MB) so the 50 MB L2 cannot hold the input
+    sets = [(planes(rng, (C2, T2), device), f.b, f.a, f.scale, planes(rng, (C2, 1), device))
+            for _ in range(N_ROT)]
+    chunk = [lambda a=a: iir_chunked_apply(*a, sos=False) for a in sets] * 5
+    scan = [lambda a=a: iir_scan_apply(*a, sos=False) for a in sets] * 5
+    plain = [lambda a=a: iir_chunked_reference(*a, sos=False) for a in sets] * 5
+    p1, c1, s1, s2, c2, p2 = (graph_ms(fn) for fn in (plain, chunk, scan, scan, chunk, plain))
+    c_ms, s_ms, p_ms = (c1 + c2) / 2, (s1 + s2) / 2, (p1 + p2) / 2
+    ps_ms = cuda_ms(lambda: iir_scan_reference(*sets[0], sos=False), iters=1, warmup=1)
+    print(f"[timing] {card}: iir_chunked {c_ms:.4f} ms/filter ({c1:.4f}, {c2:.4f}), iir_scan "
+          f"{s_ms:.4f} ({s1:.4f}, {s2:.4f}), iir_chunked_reference (log-depth torch) {p_ms:.4f} "
+          f"({p1:.4f}, {p2:.4f}), by graph replay; iir_scan_reference {ps_ms:.2f} ms (one eager "
+          f"call after one); the de-emphasis at [{C2}, {T2}] float32")
+
+    blocks = [fm_block(rng, (C2, T2), device) for _ in range(N_ROT)]
+
+    def step_msps(iters: int, warmup: int, plain_: bool) -> float:
+        state = [fm_chain(device), 0]
+
+        def step():
+            x = blocks[state[1] % N_ROT]
+            state[0] = state[0]._step(x, plain=plain_)[3]
+            state[1] += 1
+
+        return C2 * T2 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
+
+    f_msps = step_msps(N_FM_STEPS, 3, False)
+    p_msps = step_msps(4, 1, True)
+    print(f"[timing] {card}: config[2] step FmStereoRx.step {f_msps:.1f} Msps ({N_FM_STEPS} eager "
+          f"steps over {N_ROT} blocks), de-emphasis on iir_chunked_reference {p_msps:.1f} Msps (4 "
+          f"eager steps) (input complex Msamples/s, [{C2}, {T2}] blocks)")
+    return {"iir_scan": (s_ms, ps_ms), "iir_chunked": (c_ms, p_ms)}
+
+
 def kernel_work(device, sym_emitted: float) -> dict:
     """(bytes, operations) of one launch of each kernel at its path's shape:
     the bytes of its inputs and outputs, each once; the fewest real
@@ -1316,6 +1637,7 @@ def kernel_work(device, sym_emitted: float) -> dict:
             C3 * T3 * 8 * L + C3 * T3 * 2 * 20)
     S, h, m = 2 * T3, rx.eq.h_len, rx.table.shape[0]
     eq_state = nbytes(*rx.eq_scan_args()[4].values())
+    iir = (C2 * T2 * 4 * 2 + C2 * 4 * 2 + 3 * 4, C2 * T2 * 3)
     chain = (4 * C * T * 2 * (1 + fused.p) + nbytes(fused.taps, fused.hist_r, fused.hist_i),
              C * T * (4 * CHAIN["n_taps"] + fused.p * (4 * pfb1 + 8)))
     return {
@@ -1338,6 +1660,10 @@ def kernel_work(device, sym_emitted: float) -> dict:
         # the dot, M distances, the LMS update, ~30 ops of PLL and derotation
         "qam_eq_scan": (C3 * S * (8 + 1 + 8 + 8 + 1) + 2 * eq_state + m * 8 + C3 * 3 * 4,
                         C3 * S * (8 * h + 5 * m + 10 * h + 30)),
+        # config[2]'s de-emphasis: x in, y out (float32), the state in and
+        # out, b0, a1, the scale; per sample v0 = x − a1·v1 and y = b0·v0
+        "iir_scan": iir,
+        "iir_chunked": iir,  # the same function
     }
 
 
@@ -1369,12 +1695,16 @@ def main() -> None:
     errs.update({k: v[0] for k, v in qam.items()})
     launches.update(phase_main_path_config3(device))
     phase_signal_config3(device)
+    errs.update(phase_kernel_vs_plain_iir(device))
+    launches.update(phase_main_path_config2(device))
+    phase_signal_config2(device)
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),
         "mix_down": phase_timing_mix(device, smi),
         **phase_timing_config1(device, smi),
         **phase_timing_config3(device, smi, {k: v[1] for k, v in qam.items()}),
+        **phase_timing_config2(device, smi),
     }
     sources = {
         "chain_fp32": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
@@ -1388,14 +1718,16 @@ def main() -> None:
         # no pallas_call: the lax.scan bodies these loops stand for
         "agc_scan": ("yagi_tpu_torch/csrc/agc.cu", "yagi_tpu/agc/agc.py:260"),
         "qam_eq_scan": ("yagi_tpu_torch/csrc/qam.cu", "yagi_tpu/chains/qam.py:173"),
+        "iir_scan": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/iirfilt.py:317"),
+        "iir_chunked": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/_linrec.py:49"),
     }
     bounds = {k: bound(w) for k, w in kernel_work(device, emitted).items()}
     b3 = bounds.pop("symsync_fused config[3]")
     print(f"[bound] symsync_fused (K3) at config[3] (C={C3}, n={T3}, k_out=2): {b3[0]:.4f} ms "
           f"({b3[1]}); at config[1]: {bounds['symsync_fused'][0]:.4f} ms")
     # no single PyTorch call computes any of these functions: FIR ⊛ PFB with
-    # a u32 NCO, PFB + DFT, a u32-exact mix, and loops that feed their
-    # decisions back (PERF.md §6)
+    # a u32 NCO, PFB + DFT, a u32-exact mix, loops that feed their
+    # decisions back, and an IIR recurrence (PERF.md §6)
     # K4's first version stays in its source as the direct instance (for rows
     # too long to stage), so its time is taken in this run too, as v1_ms
     print(json.dumps({"kernels": [{

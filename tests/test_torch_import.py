@@ -48,6 +48,15 @@ _MODULES = (
     "yagi_tpu_torch.tools.paths",
     "yagi_tpu_torch.tools.kernel_ab",
     "yagi_tpu_torch.tools.step_profile",
+    "yagi_tpu_torch.math.poly",
+    "yagi_tpu_torch.design.iir",
+    "yagi_tpu_torch.filter.iirfilt",
+    "yagi_tpu_torch.filter.iirfiltsos",
+    "yagi_tpu_torch.filter._linrec",
+    "yagi_tpu_torch.filter.iirhilb",
+    "yagi_tpu_torch.filter.firhilb",
+    "yagi_tpu_torch.chains.fm",
+    "yagi_tpu_torch.kernels.iir",
 )
 
 

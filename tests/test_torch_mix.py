@@ -96,7 +96,7 @@ def test_rejects_bad_input(bad):
 
 
 # ------------------------------------------------------------ build recipe
-_SOURCES = ["agc.cu", "chain.cu", "channelizer.cu", "mix.cu", "qam.cu", "symscan.cu"]
+_SOURCES = ["agc.cu", "chain.cu", "channelizer.cu", "iir.cu", "mix.cu", "qam.cu", "symscan.cu"]
 
 
 @pytest.mark.parametrize("name", _SOURCES)

@@ -1,6 +1,7 @@
 """FIR filter design (host-side float64): Kaiser, raised-cosine, root-raised-
 cosine, the (root-)Nyquist prototype dispatch for those three shapes, the
-filter-length estimators, and the PM halfband.
+filter-length estimators, the PM halfband, the notch, and the frequency
+response and group delay of a tap vector.
 
 Copied from :mod:`yagi_tpu.design.fir` (design/kaiser.rs, rcos.rs, rrcos.rs,
 pm_halfband.rs, mod.rs), bit for bit. The other prototype shapes (PM, the
@@ -23,6 +24,7 @@ from .pm import FirPmWeightType, fir_design_pm
 __all__ = [
     "FirFilterShape",
     "fir_design_kaiser",
+    "fir_design_notch",
     "kaiser_beta_stopband_attenuation",
     "fir_design_rcos",
     "fir_design_rrcos",
@@ -33,6 +35,8 @@ __all__ = [
     "estimate_req_filter_len_kaiser",
     "estimate_req_filter_stopband_attenuation",
     "estimate_req_filter_transition_bandwidth",
+    "freqresponse",
+    "fir_group_delay",
 ]
 
 
@@ -130,6 +134,25 @@ def fir_design_kaiser(n: int, fc: float, as_: float, mu: float = 0.0) -> np.ndar
     beta = kaiser_beta_stopband_attenuation(as_)
     t = np.arange(n, dtype=np.float64) - (n - 1) / 2.0 + mu
     return sincf(2.0 * fc * t) * mwin.kaiser(n, beta)
+
+
+def fir_design_notch(m: int, f0: float, as_: float) -> np.ndarray:
+    """FIR notch filter (design/mod.rs:336)."""
+    if m < 1 or m > 1000:
+        raise ConfigError(f"filter semi-length ({m}) out of range [1,1000]")
+    if f0 < -0.5 or f0 > 0.5:
+        raise ConfigError(f"notch frequency ({f0}) out of range [-0.5,0.5]")
+    if as_ <= 0.0:
+        raise ConfigError("stop-band attenuation must be greater than zero")
+    n = 2 * m + 1
+    beta = kaiser_beta_stopband_attenuation(as_)
+    i = np.arange(n, dtype=np.float64)
+    p = -np.cos(2.0 * np.pi * f0 * (i - m))
+    w = mwin.kaiser(n, beta)
+    h = p * w
+    h = h / np.sum(h * p)
+    h[m] += 1.0
+    return h
 
 
 # ----------------------------------------------------------- Nyquist shapes
@@ -246,3 +269,26 @@ def fir_design_prototype(
     if ftype == FirFilterShape.RRCOS:
         return fir_design_rrcos(k, m, beta, dt)
     raise ConfigError(f"prototype shape {ftype.value!r} is not ported; use kaiser, rcos or rrcos")
+
+
+# ---------------------------------------------------------------- analysis
+def freqresponse(h, fc: float) -> complex:
+    """Frequency response at fc (design/mod.rs:666)."""
+    h = np.asarray(h)
+    i = np.arange(len(h), dtype=np.float64)
+    ejwt = np.exp(-2j * np.pi * float(fc) * i)
+    return complex(np.sum(h * ejwt))
+
+
+def fir_group_delay(h, fc: float) -> float:
+    """FIR group delay at fc (design/mod.rs:687)."""
+    h = np.asarray(h, dtype=np.float64)
+    if len(h) == 0:
+        raise ConfigError("fir_group_delay(), length must be greater than zero")
+    if fc < -0.5 or fc > 0.5:
+        raise ConfigError("fir_group_delay(), fc must be in [-0.5,0.5]")
+    i = np.arange(len(h), dtype=np.float64)
+    ejwt = np.exp(2j * np.pi * fc * i)
+    t0 = np.sum(h * ejwt * i)
+    t1 = np.sum(h * ejwt)
+    return float((t0 / t1).real)

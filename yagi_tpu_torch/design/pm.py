@@ -4,7 +4,8 @@ Copied from :mod:`yagi_tpu.design.pm` (pm.rs; [McClellan:1973],
 [Janovetz:1998]) for the PM halfband behind ``Resamp2``: float64 throughout,
 the reference's grid construction, barycentric Lagrange interpolation,
 extremal search with alternation enforcement and stopping criteria, so the
-taps equal yagi_tpu's bit for bit. The differentiator and Hilbert types are
+taps equal yagi_tpu's bit for bit; and the PM lowpass behind
+``FirFilter.create_firdespm``. The differentiator and Hilbert types are
 not ported.
 """
 
@@ -17,7 +18,7 @@ import numpy as np
 
 from ..errors import ConfigError
 
-__all__ = ["FirPmWeightType", "fir_design_pm"]
+__all__ = ["FirPmWeightType", "fir_design_pm", "fir_design_pm_lowpass"]
 
 _IEXT_SEARCH_TOL = 1e-15  # pm.rs:33
 
@@ -242,3 +243,26 @@ class _FirDesignPm:
 def fir_design_pm(h_len: int, bands, des, weights=None, wtype=None) -> np.ndarray:
     """One-shot Parks-McClellan design (pm.rs:607), bandpass type."""
     return _FirDesignPm(h_len, bands, des, weights, wtype).execute()
+
+
+def fir_design_pm_lowpass(n: int, fc: float, as_: float, mu: float = 0.0) -> np.ndarray:
+    """PM lowpass given cutoff + attenuation (pm.rs:632)."""
+    from .fir import estimate_req_filter_transition_bandwidth
+
+    if mu < -0.5 or mu > 0.5:
+        raise ConfigError(f"mu ({mu}) out of range [-0.5,0.5]")
+    if fc < 0.0 or fc > 0.5:
+        raise ConfigError(f"cutoff frequency ({fc}) out of range (0, 0.5)")
+    if n == 0:
+        raise ConfigError("filter length must be greater than zero")
+
+    ft = estimate_req_filter_transition_bandwidth(as_, n)
+    fp = fc - 0.5 * ft
+    fs = fc + 0.5 * ft
+    return fir_design_pm(
+        n,
+        [0.0, fp, fs, 0.5],
+        [1.0, 0.0],
+        weights=[1.0, 1.0],
+        wtype=[FirPmWeightType.FLAT, FirPmWeightType.EXP],
+    )

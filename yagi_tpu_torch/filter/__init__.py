@@ -1,7 +1,11 @@
 """Streaming filters (reference layer L4), the subset the ported slices need."""
 
 from .firfilt import FirFilter  # noqa: F401
+from .firhilb import FirHilbertFilter  # noqa: F401
 from .firpfb import pfb_decompose  # noqa: F401
+from .iirfilt import IirFilter  # noqa: F401
+from .iirfiltsos import IirFilterSos  # noqa: F401
+from .iirhilb import IirDecimationFilter, IirHilbertFilter, IirInterpolationFilter  # noqa: F401
 from .msresamp import MsResamp  # noqa: F401
 from .msresamp2 import MsResamp2  # noqa: F401
 from .resamp import Resamp  # noqa: F401

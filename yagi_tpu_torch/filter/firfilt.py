@@ -54,13 +54,86 @@ class FirFilter:
         """Kaiser windowed-sinc lowpass (firfilt.rs:93)."""
         return cls.create(design.fir_design_kaiser(n, fc, as_, mu), **kw)
 
+    @classmethod
+    def create_rnyquist(
+        cls, ftype, k: int, m: int, beta: float, mu: float = 0.0, **kw
+    ) -> "FirFilter":
+        """(root-)Nyquist prototype (firfilt.rs:112)."""
+        return cls.create(design.fir_design_prototype(ftype, k, m, beta, mu), **kw)
+
+    @classmethod
+    def create_firdespm(cls, h_len: int, fc: float, as_: float, **kw) -> "FirFilter":
+        """Parks-McClellan lowpass, scaled by bandwidth (firfilt.rs:129-134)."""
+        h = design.fir_design_pm_lowpass(h_len, fc, as_, 0.0)
+        return cls.create(h * (0.5 / fc), **kw)
+
+    @classmethod
+    def create_rect(cls, n: int, **kw) -> "FirFilter":
+        """Rectangular prototype (firfilt.rs:148)."""
+        if n == 0 or n > 1024:
+            raise ConfigError("filter length must be in [1,1024]")
+        return cls.create(np.ones(n, dtype=np.float32), **kw)
+
+    @classmethod
+    def create_dc_blocker(cls, m: int, as_: float, **kw) -> "FirFilter":
+        """DC-blocking filter (firfilt.rs:166)."""
+        return cls.create(design.fir_design_notch(m, 0.0, as_), **kw)
+
+    @classmethod
+    def create_notch(cls, m: int, as_: float, f0: float, dtype=None, **kw) -> "FirFilter":
+        """Notch filter; complex dtype mixes a DC blocker to f0 (firfilt.rs:25-43)."""
+        if dtype is not None and dtype.is_complex:
+            h = design.fir_design_notch(m, 0.0, as_)
+            i = np.arange(len(h))
+            phi = 2.0 * np.pi * f0 * (i - float(m))
+            h = h * np.exp(1j * phi)
+            return cls.create(h, dtype=dtype, **kw)
+        h = design.fir_design_notch(m, f0, as_)
+        return cls.create(h, dtype=dtype, **kw)
+
+    # ------------------------------------------------------------- properties
+    @property
+    def h_len(self) -> int:
+        return self.h.shape[0]
+
+    def __len__(self) -> int:
+        return self.h_len
+
     # ------------------------------------------------------------- streaming
+    def reset(self) -> "FirFilter":
+        """Clear sample history (firfilt.rs:209)."""
+        return self.replace(window=torch.zeros_like(self.window))
+
+    def push(self, x) -> "FirFilter":
+        """Push one sample into the history (firfilt.rs:220)."""
+        x = torch.as_tensor(x, dtype=self.window.dtype, device=self.window.device)
+        x = torch.broadcast_to(x, self.window.shape[:-1])
+        return self.replace(window=torch.cat([self.window[..., 1:], x[..., None]], dim=-1))
+
+    def write(self, x) -> "FirFilter":
+        """Push a block without producing output (firfilt.rs:230)."""
+        x = torch.as_tensor(x, dtype=self.window.dtype, device=self.window.device)
+        xa = torch.cat([self.window, x], dim=-1)
+        return self.replace(window=xa[..., xa.shape[-1] - self.h_len :])
+
+    def execute(self) -> torch.Tensor:
+        """Output for the current window (firfilt.rs:241): Σ h[k]·w[newest-k]."""
+        dt = torch.promote_types(self.window.dtype, self.h.dtype)
+        y = torch.sum(self.h.flip(0).to(dt) * self.window.to(dt), dim=-1)
+        return y * self.scale
+
+    def execute_one(self, x):
+        """push + execute (firfilt.rs:256)."""
+        q = self.push(x)
+        return q.execute(), q
+
     def execute_block(self, x) -> tuple[torch.Tensor, "FirFilter"]:
         """Filter a block; returns (y, updated filter) (firfilt.rs:267).
 
         y[..., n] = scale · Σ_k h[k] · x[..., n-k], history crossing block
         boundaries via the carried window.
         """
+        x = torch.as_tensor(x, device=self.window.device)
         xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
         y = causal_conv_valid(xa, self.h) * self.scale
         return y, self.replace(window=xa[..., xa.shape[-1] - self.h.shape[0] :])
@@ -71,3 +144,14 @@ class FirFilter:
         return self.replace(
             scale=torch.tensor(scale, dtype=self.h.dtype, device=self.h.device)
         )
+
+    def get_scale(self):
+        return self.scale
+
+    def freqresponse(self, fc: float) -> complex:
+        """Frequency response at fc, including scale (firfilt.rs:325)."""
+        return design.freqresponse(self.h.cpu().numpy(), fc) * complex(self.scale.cpu().numpy())
+
+    def groupdelay(self, fc: float) -> float:
+        """Group delay at fc (firfilt.rs:339)."""
+        return design.fir_group_delay(self.h.cpu().numpy().real, fc)

@@ -8,6 +8,12 @@ from .channelizer import (  # noqa: F401
     fused_channelizer_apply,
     fused_channelizer_reference,
 )
+from .iir import (  # noqa: F401
+    iir_chunked_apply,
+    iir_chunked_reference,
+    iir_scan_apply,
+    iir_scan_reference,
+)
 from .mix import mix_down_apply, mix_down_reference  # noqa: F401
 from .symscan import (  # noqa: F401
     branch_outputs,

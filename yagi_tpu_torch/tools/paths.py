@@ -1,13 +1,13 @@
-"""The shapes and inputs of the config[0], config[4], config[1] and config[3]
-paths, in one place for ``chip_smoke.py`` and the tools that time those paths
-on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
+"""The shapes and inputs of the config[0], config[4], config[1], config[3]
+and config[2] paths, in one place for ``chip_smoke.py`` and the tools that
+time those paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..chains import FusedRxChain, QamRx
+from ..chains import FmStereoRx, FusedRxChain, QamRx
 from ..filter import MsResamp, Symsync
 from ..multichannel import FusedChannelizer
 
@@ -37,6 +37,13 @@ LF_BW = 0.02
 C3, T3 = 2048, 1 << 12
 QAM_SEED = 4
 
+# config[2] (bench.py:199-218): FmStereoRx with its defaults (kf 0.5, pilot
+# 0.095, audio 0.075, de-emphasis alpha 0.05, 129 taps) over 512 channels,
+# blocks of 2^14, default_rng(3) standard-normal complex × 0.1
+C2, T2 = 512, 1 << 14
+FM_SEED = 3
+FM_SCALE = 0.1
+
 
 def complex_block(rng, shape, device) -> torch.Tensor:
     """Standard-normal complex64 of ``shape`` from ``rng``, on ``device``."""
@@ -64,3 +71,14 @@ def make_symsync(c: int, device) -> Symsync:
 
 def make_qamrx(c: int, device) -> QamRx:
     return QamRx.create(batch_shape=(c,), device=device)
+
+
+def make_fmstereo(c: int, device) -> FmStereoRx:
+    return FmStereoRx.create(batch_shape=(c,), device=device)
+
+
+def fm_block(rng, shape, device) -> torch.Tensor:
+    """config[2]'s input as bench.py draws it: float64 standard-normal real
+    parts, then imaginary parts, from ``rng``, as complex64 × 0.1."""
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return torch.from_numpy(x * FM_SCALE).to(device)

@@ -1,5 +1,5 @@
-"""Eager step time of config[0], config[4], config[1] and config[3] on one
-card, and where the device time goes.
+"""Eager step time of config[0], config[4], config[1], config[3] and
+config[2] on one card, and where the device time goes.
 
 For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
@@ -14,7 +14,10 @@ between CUDA events, the host's time to enqueue a step, then a
   1024 channels × 4096 samples (K3); ``1p``, the same with
   ``backend="pallas"``: ``branch_outputs`` builds the all-branch stream and
   K4 runs the loop on it;
-* ``3``, config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples.
+* ``3``, config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples;
+* ``2``, config[2]: ``FmStereoRx.step``, 512 channels × 2^14 samples
+  (default_rng(3) standard-normal × 0.1): the discriminator, four 129-tap
+  FIRs as banded matmuls, the two de-emphasis IIRs on ``iir_chunked``.
 
 ``--configs`` picks some of them (default all), for example ``4,1p``.
 
@@ -124,6 +127,18 @@ def config3(device):
     return step
 
 
+def config2(device):
+    rng = np.random.default_rng(paths.FM_SEED)
+    xs = [paths.fm_block(rng, (paths.C2, paths.T2), device) for _ in range(4)]
+    state = [paths.make_fmstereo(paths.C2, device), 0]
+
+    def step():
+        state[0] = state[0].step(xs[state[1] % 4])[3]
+        state[1] += 1
+
+    return step
+
+
 def measure(name: str, step, steps: int) -> None:
     for _ in range(3):
         step()
@@ -142,14 +157,14 @@ def measure(name: str, step, steps: int) -> None:
         for _ in range(5):
             step()
         torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10,
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=14,
                                     max_name_column_width=50))
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=20)
-    parser.add_argument("--configs", default="0,4,1,1p,3")
+    parser.add_argument("--configs", default="0,4,1,1p,3,2")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device; torch sees none")
@@ -165,6 +180,7 @@ def main(argv=None) -> None:
         "1p": ("config[1] MsResamp -> Symsync(backend='pallas')",
                lambda: config1(device, "pallas"), max(2, args.steps // 4)),
         "3": ("config[3] QamRx.step_masked", lambda: config3(device), args.steps),
+        "2": ("config[2] FmStereoRx.step", lambda: config2(device), args.steps),
     }
     for key in args.configs.split(","):
         name, make, steps = runs[key]
