@@ -47,12 +47,15 @@ Seven phases:
    agc_scan at tile edges, K4 at P = 256, 1024, 7262 (smaller staged
    layouts) and 7263 (the direct instance), and a Symsync bank past K3's
    shared memory, which "auto" hands to K4; iir_scan bit for bit at TF
-   lengths 1, 2, 3, 5, 7, 10 and 3200 (its register, shared-memory and
-   device-memory instances), SOS with 1, 4, 5 and 7 sections and the
-   integrator, real, complex and complex-coefficient, C = 1, 3, 512, T = 1,
-   127, 129, 2^14; iir_chunked within 2e-5 (TF) / 1e-4 (SOS) of its plain
-   version and of iir_scan at orders 0, 1, 2 and 8, T = 1, 20, 1000, 8292
-   and 2^14;
+   lengths 1, 2 and 3 (its order-specialised instances), 5, 7 and 9 (the
+   generic register instance), 10 and 3200 (the shared-memory and
+   device-memory rings), SOS with 1 to 4 sections (specialised), 5 and 7
+   and the integrator, real, complex and complex-coefficient, C = 1, 3, 5,
+   9, 512, T = 1 to 2^14, across slabs and ragged; iir_chunked within 2e-5
+   (TF) / 1e-4 (SOS) of its plain version and of iir_scan at orders 0, 1,
+   2, 4 and 8 (its order-1, order-2 and generic instances), T = 1 to 12,389
+   (three segments and a ragged fourth) and 2^14, C = 3, 5, 512 and 1001
+   (a second wave of blocks);
 5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
    for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
@@ -115,6 +118,7 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
 from yagi_tpu_torch.filter import IirFilter, Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     chunked_fits,
+    chunked_instance,
     iir_chunked_apply,
     iir_chunked_reference,
     iir_scan_apply,
@@ -242,27 +246,44 @@ QAM_FALSE_LOCK_MAX = 0.005
 IIR_TF_TOL, IIR_SOS_TOL, IIR_SPLIT_TOL = 2e-5, 1e-4, 1e-5
 N_FM_SEQ = 4  # config[2] blocks on the sequential route (iir_scan)
 N_FM_STEPS = 20  # eager config[2] steps timed
-# iir_scan's checks: (form, taps (TF) or sections (SOS), type, C, T). TF
-# lengths 2 (the de-emphasis) and 3, 5, 7 (the golden cases), 1 (no
-# feedback); 10 takes the ring in shared memory, 3200 (complex) the ring in
-# device memory; SOS 1 and 4 sections and the 8th-order integrator in
-# registers, 5 and 7 in the ring
-IIR_SCAN_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 1, 1), ("tf", 1, "cccf", 3, 129),
-                  ("tf", 3, "crcf", 3, 127),
-                  ("tf", 3, "crcf", C2, 1), ("tf", 5, "cccf", 3, 129), ("tf", 7, "rrrf", C2, 129),
-                  ("tf", 7, "cccf", 1, 127), ("tf", 10, "rrrf", 3, 129),
+# iir_scan's checks: (form, taps (TF) or sections (SOS), type, C, T). Every
+# instance runs: TF lengths 1, 2, 3 (orders 0, 1, 2, specialised) in each
+# signal type, 4 to 9 (the generic register instance, 9 its largest), 10
+# (the ring in shared memory) and 3200 (complex: the ring in device memory);
+# SOS 1 to 4 sections (specialised; the 8th-order integrator is 4) and 5, 7
+# (the ring). T below a 16-byte group, not a multiple of one, across slabs
+# (256 samples) with a ragged last one, and T2.
+IIR_SCAN_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 1, 1), ("tf", 2, "crcf", 3, 1001),
+                  ("tf", 2, "cccf", 5, 517),
+                  ("tf", 1, "rrrf", 3, 1001), ("tf", 1, "crcf", 3, 130), ("tf", 1, "cccf", 3, 129),
+                  ("tf", 3, "rrrf", 3, 1001), ("tf", 3, "crcf", 3, 127), ("tf", 3, "crcf", C2, 1),
+                  ("tf", 3, "cccf", 9, 600),
+                  ("tf", 5, "cccf", 3, 129), ("tf", 7, "rrrf", C2, 129), ("tf", 7, "cccf", 1, 127),
+                  ("tf", 9, "crcf", 3, 1001), ("tf", 10, "rrrf", 3, 129),
                   ("tf", 10, "cccf", 3, 127), ("tf", 3200, "cccf", 2, 3),
                   ("sos", 1, "rrrf", 3, 129), ("sos", 1, "crcf", C2, 127),
+                  ("sos", 2, "rrrf", 3, 1001), ("sos", 3, "crcf", 3, 600),
                   ("sos", "integrator", "rrrf", 3, 129), ("sos", 4, "crcf", 1, 127),
-                  ("sos", 5, "rrrf", 3, 129), ("sos", 7, "crcf", 3, 127))
-# iir_chunked's checks: (form, taps or sections, type, C, T): orders 0, 1, 2
-# and 8, T = 1, T below one chunk (32), T not a multiple of the chunk or of
-# the 8192-sample segment, T2; SOS stages of order 2; TF order 9 is past the
-# chunked kernel and runs iir_scan
+                  ("sos", 4, "rrrf", 9, 1001), ("sos", 5, "rrrf", 3, 129),
+                  ("sos", 7, "crcf", 3, 127))
+# iir_chunked's checks: (form, taps or sections, type, C, T): orders 1 and 2
+# (specialised) in each signal type, 0, 4 and 8 (generic); T = 1, T below
+# one chunk (32), T not a multiple of the chunk, of a 16-byte group or of the
+# 4096-sample segment, T across three segments and more with a ragged last
+# one, T2; C not a multiple of any grouping, and 1001 channels, more blocks
+# than the card holds at once (a second wave); a pole at
+# radius 0.995 ("tfslow", first order: at order 2 such poles part the two
+# float32 plain versions by 5.7e-5, more than the tolerance), whose carry
+# reaches across warps; SOS stages of order 2 (the integrator's poles lie on
+# the unit circle); TF order 9 is past the chunked kernel and runs iir_scan
 IIR_CHUNK_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 3, 1), ("tf", 2, "crcf", 3, 20),
+                   ("tf", 2, "cccf", 5, 12389), ("tf", 2, "rrrf", 1001, 300),
                    ("tf", 1, "rrrf", 3, 1000),
-                   ("tf", 3, "rrrf", 3, 8292), ("tf", 3, "cccf", 3, 1000),
+                   ("tf", 3, "rrrf", 3, 8292), ("tf", 3, "crcf", 5, 12389),
+                   ("tf", 3, "cccf", 3, 1000), ("tf", 5, "crcf", 3, 5000),
                    ("tf", 9, "rrrf", 3, 1000), ("tf", 9, "cccf", 2, T2),
+                   ("tfslow", 2, "rrrf", 3, 12389), ("tfslow", 2, "crcf", 5, 9000),
+                   ("tfslow", 2, "cccf", 3, 5000),
                    ("sos", "lowpass7", "rrrf", 3, 8292), ("sos", "lowpass7", "crcf", 5, T2),
                    ("sos", "integrator", "rrrf", 3, 1000), ("tf", 10, "rrrf", 3, 300))
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
@@ -1371,7 +1392,9 @@ def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def iir_case(rng, form, n, typ: str, c: int, t: int, device) -> tuple:
     """(x, b, a, scale, v) of a stable filter: TF with n taps (random poles
-    within 0.6/order of 0, random numerator), SOS with n Butterworth
+    within 0.6/order of 0, random numerator; for ``"tfslow"`` poles at radius
+    0.995, whose state lasts ~200 samples, so a chunked carry across chunks
+    and warps shows in the output), SOS with n Butterworth
     sections, ``"lowpass7"`` (IirFilter.create_lowpass(7, 0.1)) or
     ``"integrator"``; a random [c, t] signal of ``typ`` (rrrf, crcf: real
     coefficients; cccf: complex), a scale other than 1 and a random state."""
@@ -1382,10 +1405,15 @@ def iir_case(rng, form, n, typ: str, c: int, t: int, device) -> tuple:
         z = rng.standard_normal(shape)
         return z + 1j * rng.standard_normal(shape) if complex_ else z
 
-    if form == "tf":
+    if form in ("tf", "tfslow"):
         m = n - 1
         poles = 0.6 * rand(m, cc) / max(m, 1) / (np.sqrt(2) if cc else 1)
-        f = IirFilter.create(0.3 * rand(n, cc), np.atleast_1d(np.poly(poles)), device=device)
+        if form == "tfslow":  # conjugate pairs (and one real pole) for real coefficients
+            ang = rng.uniform(0.05, 3.0, m if cc else m // 2)
+            poles = 0.995 * (np.exp(1j * ang) if cc else np.concatenate(
+                [np.exp(1j * ang), np.exp(-1j * ang), np.ones(m % 2)]))
+        a = np.atleast_1d(np.poly(poles))
+        f = IirFilter.create(0.3 * rand(n, cc), a if cc else a.real, device=device)
         b, a = f.b, f.a
         v = 0.5 * rand((c, m), cx)
     else:
@@ -1421,7 +1449,8 @@ def phase_kernel_vs_plain_iir(device) -> dict:
         same = [same_bits(p, q) for p, q in zip(got, want)]
         err = (got[0] - want[0]).abs().max().item()
         print(f"[kernel-vs-plain] iir_scan {form} {n} {typ} C={c} T={t} (instance "
-              f"{scan_instance(state_len, x.is_complex())[0]}): bit-identical (y, state) {same}; "
+              f"{scan_instance(state_len, x.is_complex(), sos)[0]}): bit-identical (y, state) "
+              f"{same}; "
               f"max abs err {err:.3e}")
         require(all(same) and bool(torch.isfinite(got[0]).all()),
                 f"iir_scan vs plain, {form} {n} {typ} C={c} T={t}")
@@ -1443,7 +1472,8 @@ def phase_kernel_vs_plain_iir(device) -> dict:
         errs = [rel_max(w, g) for w, g in zip(want, got)]
         errs_seq = [rel_max(w, g) for w, g in zip(seq, got)]
         print(f"[kernel-vs-plain] iir_chunked {form} {n} {typ} C={c} T={t} (order {order}, "
-              f"{nst} stage(s), chunked kernel {fits}): max |a - b| / max |a| (y, state) vs the "
+              f"{nst} stage(s), chunked kernel {fits}, instance {chunked_instance(order)}): "
+              f"max |a - b| / max |a| (y, state) vs the "
               f"log-depth form {errs[0]:.3e}, {errs[1]:.3e}; vs iir_scan {errs_seq[0]:.3e}, "
               f"{errs_seq[1]:.3e} (< {tol}); launches {counts['iir_chunked_apply']} chunked, "
               f"{counts['iir_scan_apply']} sequential")

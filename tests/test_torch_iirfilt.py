@@ -625,34 +625,84 @@ def test_apply_rejects_bad_input(bad):
 
 
 # ------------------------------------------------------------- shape gates
+_SLABS = {False: 4 * 8 * (256 * 4 + 16), True: 4 * 8 * (256 * 8 + 16)}
+
+
 @pytest.mark.parametrize("state_len, cx, inst, smem", [
-    (1, False, "register", 4 * 8 * 129 * 4),
-    (8, True, "register", 4 * 8 * 129 * 8),
-    (9, False, "shared", 4 * 8 * 129 * 4 + 8 * 9 * 4),
-    (3116, True, "shared", 232448),
-    (3117, True, "global", 4 * 8 * 129 * 8),
-    (6748, False, "shared", 232448),
-    (6749, False, "global", 4 * 8 * 129 * 4),
+    (1, False, "tf1", _SLABS[False]),
+    (8, True, "register", _SLABS[True]),
+    (9, False, "shared", _SLABS[False] + 8 * 9 * 4),
+    (2600, True, "shared", 232448),
+    (2601, True, "global", _SLABS[True]),
+    (6224, False, "shared", 232448),
+    (6225, False, "global", _SLABS[False]),
 ])
 def test_scan_instance_mirrors_the_kernel(state_len, cx, inst, smem):
-    """iir_scan's instance: up to SCAN_REG state values in registers, then a
-    ring in shared memory while the card's 232,448 bytes hold it, then a
-    ring in device memory: no state length the filters accept is refused."""
+    """iir_scan's instance: up to SCAN_REG state values in registers (TF of
+    order 0, 1, 2 in its specialised instance), then a ring in shared memory
+    while the card's 232,448 bytes hold it, then a ring in device memory: no
+    state length the filters accept is refused."""
     assert kiir.scan_instance(state_len, cx) == (inst, smem)
     assert smem <= kiir.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("sos, order, want", [
+    (False, 0, "tf0"), (False, 1, "tf1"), (False, 2, "tf2"), (False, 3, "register"),
+    (False, 8, "register"), (False, 9, "shared"),
+    (True, 1, "sos1"), (True, 2, "sos2"), (True, 3, "sos3"), (True, 4, "sos4"), (True, 5, "shared"),
+])
+@pytest.mark.parametrize("cx", [False, True], ids=["real", "complex"])
+def test_scan_instance_picks_the_specialised_instance(sos, order, want, cx):
+    """TF orders 0–2 and SOS filters of 1–4 sections run an instance with
+    the order fixed at compile time; the other register states the generic
+    one; longer states a ring. The name is one csrc/iir.cu numbers."""
+    state_len = 2 * order if sos else order
+    assert kiir.scan_instance(state_len, cx, sos)[0] == want
+    assert want in kiir.SCAN_INSTANCES
+
+
+@pytest.mark.parametrize("m, want", [(0, "generic"), (1, "order1"), (2, "order2"), (3, "generic"),
+                                     (8, "generic")])
+def test_chunked_instance_picks_the_specialised_instance(m, want):
+    """iir_chunked runs stages of order 1 (config[2]'s de-emphasis) and 2
+    (every SOS stage) with the order fixed at compile time."""
+    assert kiir.chunked_instance(m) == want
+    assert want in kiir.CHUNK_INSTANCES
+
+
+@pytest.mark.parametrize("form, n, typ, scan_code, chunk_code", [
+    ("tf", 2, "rrrf", 4, 1), ("tf", 3, "cccf", 5, 2), ("tf", 1, "crcf", 3, 0),
+    ("tf", 6, "rrrf", 0, 0), ("sos", None, "crcf", 9, 2),
+])
+def test_wrappers_pass_the_chosen_instance(monkeypatch, form, n, typ, scan_code, chunk_code):
+    """On a CUDA tensor the wrappers launch the instance the chooser names,
+    by csrc/iir.cu's number (the launch itself is stood in for here)."""
+    rng = np.random.default_rng(43)
+    x, b, a, scale, v = _kernel_args(rng, form, n, typ, 2, 16)
+    sos = form == "sos"
+    seen = []
+    monkeypatch.setattr(kiir, "route", lambda device, fn: "cuda")
+    monkeypatch.setattr(kiir, "_launch", lambda fn, *args: seen.append((fn, args[-1])))
+    kiir.iir_scan_apply(x, b, a, scale, v, sos=sos)
+    kiir.iir_chunked_apply(x, b, a, scale, v, sos=sos)
+    assert seen == [("yagi_iir_scan", scan_code), ("yagi_iir_chunked", chunk_code)]
+
+
+def _chunked_smem(m, nst, cx, cc):
+    e, mm, m2, npow = (8 if cx else 4), max(m, 1), m * m, 33
+    return (2 * 128 * 32 * e + nst * (npow + 2) * m2 * (16 if cc else 8) + 2 * nst * (m + 1) * 8
+            + nst * mm * 8 + 4 * mm * 8 + nst * npow * m2 * (8 if cc else 4))
+
+
 @pytest.mark.parametrize("m, nst, cx, cc, fits", [
     (1, 1, False, False, True), (2, 4, True, False, True), (8, 1, True, True, True),
-    (2, 628, True, False, True), (9, 1, False, False, False), (2, 629, True, False, False),
+    (2, 97, True, False, True), (9, 1, False, False, False), (2, 98, True, False, False),
 ])
 def test_chunked_gate_mirrors_the_kernel(m, nst, cx, cc, fits):
-    """iir_chunked takes stages of order ≤ 8 whose powers and working copies
-    fit the card's shared memory; the rest go to iir_scan."""
-    e = 8 if cx else 4
-    want = (256 * 33 * e + max(m, 1) * 256 * e + 2 * nst * (m + 1) * 8 + nst * max(m, 1) * 8
-            + nst * 8 * m * m * (8 if cc else 4) + 2 * nst * m * m * (16 if cc else 8))
-    assert kiir.chunked_smem_bytes(m, nst, cx, cc) == want
+    """iir_chunked takes stages of order ≤ 8 whose two segment buffers,
+    powers and working copies fit the card's shared memory; the rest go to
+    iir_scan."""
+    assert kiir.chunked_smem_bytes(m, nst, cx, cc) == _chunked_smem(m, nst, cx, cc)
     assert kiir.chunked_fits(m, nst, cx, cc) == fits
 
 
@@ -663,12 +713,109 @@ def test_python_mirror_matches_the_cu_constants():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
+    def enum(name):
+        return int(re.search(rf"\b{name} = (\d+)\b", src).group(1))
+
     assert const("kSmemLimit") == kiir.SMEM_LIMIT
     assert const("kChans") == kiir.SCAN_CHANS
     assert const("kTile") == kiir.SCAN_TILE
     assert const("kReg") == kiir.SCAN_REG
     assert const("kCT") == kiir.CHUNK_THREADS
     assert const("kCL") == kiir.CHUNK_LEN
-    assert const("kCLog") == kiir.CHUNK_LOG == kiir.CHUNK_THREADS.bit_length() - 1
+    assert const("kWarpLog") == kiir.CHUNK_WARP_LOG == (kiir.CHUNK_THREADS // 32).bit_length() - 1
+    assert "constexpr int kNPow = 32 + kWarpLog - 1;" in src
+    assert kiir.CHUNK_POWERS == 32 + kiir.CHUNK_WARP_LOG - 1
     assert const("kCMax") == kiir.CHUNK_MAX_M
+    assert [enum(k) for k in ("kInstRegister", "kInstShared", "kInstGlobal")] == [
+        kiir.SCAN_INSTANCES[k] for k in ("register", "shared", "global")]
+    assert all(kiir.SCAN_INSTANCES[f"tf{m}"] == enum("kInstTf0") + m for m in range(3))
+    assert all(kiir.SCAN_INSTANCES[f"sos{n}"] == enum("kInstSos1") + n - 1 for n in range(1, 5))
+    assert [enum(k) for k in ("kChunkGeneric", "kChunkOrder1", "kChunkOrder2")] == [
+        kiir.CHUNK_INSTANCES[k] for k in ("generic", "order1", "order2")]
     assert '#include "iir.cuh"' in src
+
+
+# ------------------------------------------------- the chunked kernel's carry
+def _chunk_carry_model(x, b, a, v, *, chunk, lanes, warps):
+    """iir_chunked's algorithm for a TF filter, in float64 torch: segments of
+    ``warps`` × ``lanes`` chunks of ``chunk`` samples; per segment each chunk
+    runs the all-pole recurrence from a zero state (chunk 0 from the carried
+    state); the end states are carried by a doubling scan inside each warp
+    with Z(2^d), then across the warps' end states with Z(lanes·2^d), then
+    each chunk adds Z(lane + 1) times the previous warp's end state, Z(k) =
+    M^(chunk·k); each chunk reruns the DF-II step from the end state of the
+    chunk before it; the last chunk's rerun state is carried. Returns
+    (y before the scale, the new state)."""
+    C, T = x.shape
+    m = a.shape[0] - 1
+    x, a, b, v = x.double(), a.double(), b.double(), v.double()
+    M = torch.zeros(m, m, dtype=torch.float64)
+    M[0] = -a[1:]
+    M[1:, :-1] += torch.eye(m - 1, dtype=torch.float64)
+    Z = {k: torch.linalg.matrix_power(M, chunk * k) for k in [*range(1, lanes + 1)] +
+         [lanes << d for d in range(warps.bit_length())]}
+    seg = chunk * lanes * warps
+    ys, carry = [], v.clone()
+    for t0 in range(0, T, seg):
+        xs = x[:, t0:t0 + seg]
+        n = xs.shape[1]
+        xs = torch.nn.functional.pad(xs, (0, seg - n)).reshape(C, warps * lanes, chunk)
+        live = (torch.arange(seg).reshape(warps * lanes, chunk) < n)  # [chunks, chunk]
+        s = torch.zeros(C, warps * lanes, m, dtype=torch.float64)
+        s[:, 0] = carry
+        for i in range(chunk):  # 1. all-pole from zero (chunk 0 from the carry)
+            v0 = xs[:, :, i] - (s * a[1:]).sum(-1)
+            s = torch.where(live[:, i, None], torch.cat([v0[..., None], s[..., :-1]], -1), s)
+        s = s.reshape(C, warps, lanes, m)
+        for d in range(lanes.bit_length() - 1):  # 2. inside each warp
+            h = 1 << d
+            p = torch.nn.functional.pad(s, (0, 0, h, 0))[:, :, :lanes]
+            s = s + p @ Z[h].T
+        tot = s[:, :, -1]
+        for d in range(warps.bit_length() - 1):  # across the warps
+            h = 1 << d
+            tot = tot + torch.nn.functional.pad(tot, (0, 0, h, 0))[:, :warps] @ Z[lanes * h].T
+        for lane in range(lanes):  # the previous warp's end state carried in
+            s[:, 1:, lane] += tot[:, :-1] @ Z[lane + 1].T
+        s = s.reshape(C, warps * lanes, m)
+        e = torch.cat([carry[:, None], s[:, :-1]], 1)  # 3. the state entering each chunk
+        y = torch.zeros(C, warps * lanes, chunk, dtype=torch.float64)
+        for i in range(chunk):
+            v0 = xs[:, :, i] - (e * a[1:]).sum(-1)
+            y[:, :, i] = b[0] * v0 + (e * b[1:]).sum(-1)
+            e = torch.where(live[:, i, None], torch.cat([v0[..., None], e[..., :-1]], -1), e)
+        ys.append(y.reshape(C, seg)[:, :n])
+        carry = e[:, (n - 1) // chunk]
+    return torch.cat(ys, 1), carry
+
+
+def _slow_tf_coefs(rng, order: int):
+    """A real TF filter whose poles lie at radius 0.995 (conjugate pairs, and
+    one real pole for an odd order): a state decays over ~200 samples, so
+    the carry across chunks and across warps (Z(32) = 0.995^1024 ≈ 0.006)
+    shows in the output."""
+    ang = rng.uniform(0.05, 3.0, order // 2)
+    poles = np.concatenate([0.995 * np.exp(1j * ang), 0.995 * np.exp(-1j * ang),
+                            [0.995] * (order % 2)])
+    return rng.standard_normal(order + 1) * 0.3, np.poly(poles).real
+
+
+@pytest.mark.parametrize("order", [1, 2, 8])
+def test_chunk_carry_model_matches_the_sequential_recurrence(order):
+    """The chunked kernel's carry (chunks of CHUNK_LEN, 32 lanes a warp,
+    CHUNK_THREADS / 32 warps a block, segments carried one to the next), as a
+    float64 model, against iir_scan_reference over a T across two segments
+    with a ragged last chunk, from a nonzero state, with poles slow enough
+    that every level of the carry shows: the scan's tree and powers are the
+    same recurrence."""
+    rng = np.random.default_rng(44 + order)
+    seg = kiir.CHUNK_THREADS * kiir.CHUNK_LEN
+    b, a = (torch.from_numpy(c).float() for c in _slow_tf_coefs(rng, order))
+    x = torch.from_numpy(_signal(rng, (3, seg + 1000), False)).float()
+    v = torch.from_numpy(_signal(rng, (3, order), False)).float()
+    scale = torch.tensor(0.7)
+    y_ref, v_ref = kiir.iir_scan_reference(x, b, a, scale, v, sos=False)
+    y, v_new = _chunk_carry_model(x, b, a, v, chunk=kiir.CHUNK_LEN, lanes=32,
+                                  warps=kiir.CHUNK_THREADS // 32)
+    assert _rel(y_ref, (0.7 * y).float()) < TF_TOL
+    assert _rel(v_ref, v_new.float()) < TF_TOL

@@ -14,6 +14,9 @@
 //
 // A value is a float2 in registers; for a real signal the imaginary part is
 // never computed (kCx false). kCc: complex coefficients (a complex signal).
+// The register bodies take the state's size kReg as a template parameter and
+// the order m at run time, each term predicated on k <= m; an instance
+// specialised to one order passes m = kReg, and the predicates fold away.
 
 #pragma once
 
@@ -26,6 +29,7 @@ namespace yagi_iir {
 template <bool kCx, bool kCc>
 struct Ops {
   static_assert(kCx || !kCc, "complex coefficients need a complex signal");
+  static constexpr bool kIsCx = kCx;
   using Elem = std::conditional_t<kCx, float2, float>;  // a sample in memory
 
   static __device__ __forceinline__ float2 load(Elem e) {

@@ -58,8 +58,8 @@ _SIGNATURES = {
     "yagi_qam_eq_scan": [_P] * 29 + [_I] * 5 + [_P],
     # x, b, a, scale, v_in, y, v_out, scratch, C, T, m, sos, cx, cc, inst, stream
     "yagi_iir_scan": [_P] * 8 + [_I] * 7 + [_P],
-    # x, b, a, scale, v_in, y, v_out, C, T, m, nst, cx, cc, stream
-    "yagi_iir_chunked": [_P] * 7 + [_I] * 6 + [_P],
+    # x, b, a, scale, v_in, y, v_out, C, T, m, nst, cx, cc, inst, stream
+    "yagi_iir_chunked": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

@@ -22,8 +22,9 @@ beside its plain version:
 * ``iir_chunked`` — the same filter cut into chunks along time (one thread
   a chunk): each chunk runs the all-pole recurrence from a zero state, the
   chunk end states are carried along the channel by a doubling scan with
-  the companion matrix's chunk powers (``_linrec.py``'s composition), and
-  each chunk reruns the whole DF-II step from its true entering state.
+  the companion matrix's chunk powers (``_linrec.py``'s composition; inside
+  a warp by shuffles, then across the warps' end states), and each chunk
+  reruns the whole DF-II step from its true entering state.
   The same recurrence in another summation order: held by tolerance to its
   plain version :func:`iir_chunked_reference` (``allpole_parallel`` and the
   numerator over the ``ext`` sequence, ``iirfilt.py:233-266``), the form of
@@ -37,12 +38,17 @@ coefficients' type; ``v`` the state of the signal type, TF [C, n − 1] or SOS
 [C, nsos, 2], newest first. Both return ``(y, v_new)``, ``y`` [C, T] of the
 signal type, the state in a fresh array.
 
-The shape gates are decided here, in Python, before a launch, mirroring the
-``.cu`` (:func:`scan_instance`, :func:`chunked_fits`): a state of up to
-``SCAN_REG`` values lives in registers, a longer one in a ring in shared
-memory, or in device memory where shared memory cannot hold it; the chunked
-form takes orders up to ``CHUNK_MAX_M`` and otherwise hands the block to the
-sequential kernel (another summation order of the same function).
+The instances and shape gates are decided here, in Python, before a
+launch, mirroring the ``.cu`` (:func:`scan_instance`,
+:func:`chunked_instance`, :func:`chunked_fits`): ``iir_scan`` runs a TF
+filter of order 0, 1 or 2 and an SOS filter of 1 to 4 sections in an
+instance specialised to that order, other states of up to ``SCAN_REG``
+values in a generic register instance, a longer one in a ring in shared
+memory, or in device memory where shared memory cannot hold it;
+``iir_chunked`` runs stages of order 1 and 2 in specialised instances and
+orders 0 and 3 to ``CHUNK_MAX_M`` in a generic one, and otherwise hands the
+block to the sequential kernel (another summation order of the same
+function).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ __all__ = [
     "iir_chunked_apply",
     "iir_chunked_reference",
     "scan_instance",
+    "chunked_instance",
     "chunked_fits",
     "chunked_smem_bytes",
 ]
@@ -64,47 +71,67 @@ __all__ = [
 # csrc/iir.cu's constants, mirrored: change them together
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on an H100
 SCAN_CHANS = 8  # iir_scan: loop threads (channels) a block
-SCAN_TILE = 128  # iir_scan: samples a slab
+SCAN_TILE = 256  # iir_scan: samples a slab
 SCAN_REG = 8  # iir_scan: state values (TF m, SOS 2·nsos) held in registers
-CHUNK_THREADS = 256  # iir_chunked: chunks a segment, one thread each
+# iir_scan's instances, as csrc/iir.cu numbers them: the generic register
+# instance (TF order ≤ SCAN_REG), the two rings, then the specialised ones
+SCAN_INSTANCES = {"register": 0, "shared": 1, "global": 2, "tf0": 3, "tf1": 4, "tf2": 5,
+                  "sos1": 6, "sos2": 7, "sos3": 8, "sos4": 9}
+CHUNK_THREADS = 128  # iir_chunked: chunks a segment, one thread each
 CHUNK_LEN = 32  # iir_chunked: samples a chunk
-CHUNK_LOG = 8  # log2(CHUNK_THREADS): the doubling scan's steps
+CHUNK_WARP_LOG = 2  # log2(CHUNK_THREADS / 32): the scan's steps across warps
 CHUNK_MAX_M = 8  # iir_chunked: the largest order of a stage
+# iir_chunked's chunk powers M^(CHUNK_LEN·k): k = 1 … 32, then 64, 128, …
+CHUNK_POWERS = 32 + CHUNK_WARP_LOG - 1
+CHUNK_INSTANCES = {"generic": 0, "order1": 1, "order2": 2}
 
 
 def _elem(cx: bool) -> int:
     return 8 if cx else 4
 
 
-def scan_instance(state_len: int, cx: bool) -> tuple[str, int]:
+def scan_instance(state_len: int, cx: bool, sos: bool = False) -> tuple[str, int]:
     """``iir_scan``'s instance for a state of ``state_len`` values (TF m, SOS
     2·nsos) of a real or complex signal, and its dynamic shared memory in
-    bytes: ``"register"``, ``"shared"`` (a ring of the state in shared
-    memory) or ``"global"`` (the ring in device memory), as
-    ``csrc/iir.cu::scan_smem_bytes`` decides."""
-    slabs = 4 * SCAN_CHANS * (SCAN_TILE + 1) * _elem(cx)
+    bytes (``csrc/iir.cu::scan_smem_bytes``): ``"tf0"``, ``"tf1"``,
+    ``"tf2"`` (TF of that order) or ``"sos1"`` … ``"sos4"`` (SOS of that
+    many sections), the state in registers and the order fixed at compile
+    time; ``"register"`` (a TF state of up to ``SCAN_REG`` values, the order
+    read at run time); ``"shared"`` (a ring of the state in shared memory)
+    or ``"global"`` (the ring in device memory)."""
+    e = _elem(cx)
+    slabs = 4 * SCAN_CHANS * (SCAN_TILE * e + 16)  # two slabs of x rows, two of y rows
     if state_len <= SCAN_REG:
-        return "register", slabs
-    ring = SCAN_CHANS * state_len * _elem(cx)
+        if sos:
+            return f"sos{state_len // 2}", slabs
+        return (f"tf{state_len}" if state_len <= 2 else "register"), slabs
+    ring = SCAN_CHANS * state_len * e
     if slabs + ring <= SMEM_LIMIT:
         return "shared", slabs + ring
     return "global", slabs
 
 
+def chunked_instance(m: int) -> str:
+    """``iir_chunked``'s instance for stages of order ``m``: ``"order1"`` and
+    ``"order2"`` have the order fixed at compile time (config[2]'s
+    de-emphasis; every SOS stage), ``"generic"`` reads it at run time."""
+    return {1: "order1", 2: "order2"}.get(m, "generic")
+
+
 def chunked_smem_bytes(m: int, nst: int, cx: bool, cc: bool) -> int:
     """``iir_chunked``'s dynamic shared memory for ``nst`` stages of order
-    ``m``, as ``csrc/iir.cu::chunked_smem_bytes`` computes it: the segment
-    (pitch CHUNK_LEN + 1), the scan's exchange rows, coefficients and carried
-    states (float2 each), the chunk powers (float, or float2 for complex
-    coefficients) and their float64 (or complex128) working copies."""
+    ``m``, as ``csrc/iir.cu::chunked_smem_bytes`` computes it: two segment
+    buffers, the chunk powers' float64 (or complex128) working copies,
+    coefficients, carried states and the warps' end states (float2 each),
+    and the chunk powers (float, or float2 for complex coefficients)."""
     e = _elem(cx)
-    seg = CHUNK_THREADS * (CHUNK_LEN + 1) * e
-    xch = max(m, 1) * CHUNK_THREADS * e
+    segs = 2 * CHUNK_THREADS * CHUNK_LEN * e
+    work = nst * (CHUNK_POWERS + 2) * m * m * (16 if cc else 8)
     coefs = 2 * nst * (m + 1) * 8
     carry = nst * max(m, 1) * 8
-    q = nst * CHUNK_LOG * m * m * (8 if cc else 4)
-    work = 2 * nst * m * m * (16 if cc else 8)
-    return seg + xch + coefs + carry + q + work
+    tot = (CHUNK_THREADS // 32) * max(m, 1) * 8
+    q = nst * CHUNK_POWERS * m * m * (8 if cc else 4)
+    return segs + work + coefs + carry + tot + q
 
 
 def chunked_fits(m: int, nst: int, cx: bool, cc: bool) -> bool:
@@ -263,9 +290,6 @@ def _state_len(m: int, sos: bool) -> int:
     return 2 * m if sos else m
 
 
-_INSTANCES = {"register": 0, "shared": 1, "global": 2}
-
-
 def iir_scan_apply(x, b, a, scale, v, *, sos: bool):
     """``iir_scan``: the sequential recurrence over a block, arguments and
     result as the module docstring says.
@@ -279,12 +303,12 @@ def iir_scan_apply(x, b, a, scale, v, *, sos: bool):
     y = torch.empty_like(x)
     v_new = torch.empty_like(v)
     if C and T:
-        inst, _ = scan_instance(_state_len(m, sos), x.is_complex())
+        inst, _ = scan_instance(_state_len(m, sos), x.is_complex(), sos)
         # the ring of the "global" instance: [state values, C] of the signal type
         scratch = (torch.empty((_state_len(m, sos), C), dtype=x.dtype, device=x.device)
                    if inst == "global" else y)
         _launch("yagi_iir_scan", x, b, a, scale, v, y, v_new, scratch.data_ptr(), C, T, m,
-                int(sos), int(x.is_complex()), int(b.is_complex()), _INSTANCES[inst])
+                int(sos), int(x.is_complex()), int(b.is_complex()), SCAN_INSTANCES[inst])
         iir_scan_apply.launches += 1
     else:
         v_new.copy_(v)
@@ -313,7 +337,7 @@ def iir_chunked_apply(x, b, a, scale, v, *, sos: bool):
     v_new = torch.empty_like(v)
     if C and T:
         _launch("yagi_iir_chunked", x, b, a, scale, v, y, v_new, C, T, order, nst,
-                int(x.is_complex()), int(b.is_complex()))
+                int(x.is_complex()), int(b.is_complex()), CHUNK_INSTANCES[chunked_instance(order)])
         iir_chunked_apply.launches += 1
     else:
         v_new.copy_(v)

@@ -1,7 +1,8 @@
 """A/B of a kernel's versions on one card: an earlier version (v1) against
 the package's own (v2), for ``qam_eq_scan`` (``csrc/qam.cu``), K3
 ``symsync_fused`` and K4 ``symsync_scan`` (``csrc/symscan.cu``), ``agc_scan``
-(``csrc/agc.cu``), K2, the channelizer (``csrc/channelizer.cu``), and K1, the
+(``csrc/agc.cu``), K2, the channelizer (``csrc/channelizer.cu``), ``iir_scan``
+and ``iir_chunked`` (``csrc/iir.cu``, body ``csrc/iir.cuh``), and K1, the
 fused chain (``csrc/chain.cu``), where a third version runs too: the
 two-stage formulation of ``tools/variants/chain_twostage.cu``. It is the
 card's counterpart of ``tools/kernel_variants.py``, the TPU A/B of K1's
@@ -11,10 +12,11 @@ v1's sources sit in a directory of their own, taken from the commit to
 compare against, for example::
 
     mkdir -p build/ab_v1
-    for f in agc.cu chain.cu channelizer.cu nco.cuh qam.cu symscan.cu symscan.cuh; do
+    for f in agc.cu chain.cu channelizer.cu iir.cu iir.cuh nco.cuh qam.cu symscan.cu \
+             symscan.cuh; do
         git show <commit>:yagi_tpu_torch/csrc/$f > build/ab_v1/$f
     done
-    python -m yagi_tpu_torch.tools.kernel_ab --v1 build/ab_v1 [--only channelizer,symsync_scan]
+    python -m yagi_tpu_torch.tools.kernel_ab --v1 build/ab_v1 [--only channelizer,iir_scan]
 
 A directory with only some of the sources runs only their cases, and
 ``--only`` keeps the cases whose names contain one of its words. Each version
@@ -25,15 +27,21 @@ channels × 8192 slots from K3, and K3 at k_out = 2; config[1]: K3 and K4 at
 C = 1024, n = 3976, n_valid = 3965; K4 also at the bank past K3's shared
 memory, 64 filters of 176 taps, on 1024 channels × 1024 samples; config[4]:
 K2 at M = 64, T = 2^15, p = 8; config[0]: K1 on 16 channels × 2^17
-samples, on planes and on complex64; random input from a seed) every
-version's outputs and new state are first held against v1's, bit for bit
-for the loops, within 1e-4 of |a| + 1e-3 for K1 and within 1e-4 of the
-block's rms for K2 (whose outputs, rms ~11, come within 0.01 of 0, where the
-per-sample criterion reads ~1e-3 with no fault), then each is timed by
-CUDA-graph replay in turns, v1, v2, v2, v1. A v1 library with the first
-``chain.cu``'s entry point (banded taps, no complex64 layout) is called
-through it, its complex64 case as split, kernel, join; one without K4's
-staged entry point runs K4's direct instance. Another variant of a
+samples, on planes and on complex64; config[2]: ``iir_scan`` and
+``iir_chunked`` on the de-emphasis, [512, 2^14] float32, and on the
+4-section Butterworth lowpass (order 8, cutoff 0.1) at the same shape;
+random input from a seed) every version's outputs and new state are first
+held against v1's, bit for bit for the loops (``iir_scan`` among them),
+within 1e-4 of |a| + 1e-3 for K1, within 1e-4 of the block's rms for K2
+(whose outputs, rms ~11, come within 0.01 of 0, where the per-sample
+criterion reads ~1e-3 with no fault), and within max |a − b| / max |b| of
+2e-5 (TF) or 1e-4 (SOS) for ``iir_chunked`` (another summation order), then
+each is timed by CUDA-graph replay in turns, v1, v2, v2, v1. A v1 library
+with the first ``chain.cu``'s entry point (banded taps, no complex64
+layout) is called through it, its complex64 case as split, kernel, join;
+one without K4's staged entry point runs K4's direct instance; the first
+``iir.cu`` (no instance argument to ``yagi_iir_chunked``, no order-specialised
+``iir_scan`` instances) is called through its own signatures. Another variant of a
 kernel (a lane count, a tile size) is an edited copy of its source in a
 directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
@@ -53,7 +61,8 @@ import numpy as np
 import torch
 
 from ..chains import FusedRxChain
-from ..filter import Symsync
+from ..design import iir as iirdes
+from ..filter import IirFilter, Symsync
 from ..kernels import _build
 from ..kernels.agc import agc_scan_apply
 from ..kernels.chain import fused_chain_apply, fused_chain_apply_c64
@@ -61,13 +70,19 @@ from ..kernels.channelizer import fused_channelizer_apply
 from ..kernels.qam import qam_eq_scan_apply
 from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
                                symsync_scan_launch)
-from .paths import (C0, C1, C3, CHAIN, M4, T0, T1, T3, T4, complex_block, make_channelizer,
-                    make_fused, make_msresamp, make_qamrx, make_symsync)
+from ..kernels.iir import iir_chunked_apply, iir_scan_apply
+from .paths import (C0, C1, C2, C3, CHAIN, M4, T0, T1, T2, T3, T4, complex_block,
+                    make_channelizer, make_fmstereo, make_fused, make_msresamp, make_qamrx,
+                    make_symsync)
 from .timing import graph_ms
 
 REPS = 10
 CHAIN_TOL = 1e-4  # K1's versions against v1: |a − b| / (|a| + 1e-3)
 CHZ_TOL = ("rms", 1e-4)  # K2's versions against v1: max |a − b| / rms(v1)
+# iir_chunked's versions against v1: max |a − b| / max |v1| (chip_smoke.py's
+# IIR_TF_TOL, IIR_SOS_TOL)
+IIR_TF_TOL, IIR_SOS_TOL = ("max", 2e-5), ("max", 1e-4)
+N_ROT = 4  # IIR input sets: 134 MB, more than the 50 MB L2 holds
 GATE_BANK = dict(k=4, m=22, beta=0.3, num_filters=64)  # L = 176: past K3's shared memory
 GATE_SHAPE = (1024, 1024)  # (C, n) of K4's case at that bank: 1.07 GB of stream
 VARIANTS = Path(__file__).resolve().parent / "variants"
@@ -82,6 +97,9 @@ SIGNATURES = {
     # xr, xi, h, br, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, n_taps, L, stream
     "yagi_chain_twostage": [_P] * 10 + [_I] * 5 + [_P],
 }
+# the first iir.cu's yagi_iir_chunked: x, b, a, scale, v_in, y, v_out, C, T,
+# m, nst, cx, cc, stream (no instance)
+FIRST_IIR_CHUNKED = [_P] * 7 + [_I] * 6 + [_P]
 TURNS = ("v1", "v2", "v2", "v1")
 CHAIN_TURNS = ("v1", "v2", "twostage", "twostage", "v2", "v1")
 
@@ -191,10 +209,74 @@ def scan_calls(ss, c: int, n: int, n_valid, device, rng):
     return [lambda x=x: call(x) for x in xs4]
 
 
-def cases(device):
+def first_iir_abi(csrc: Path) -> bool:
+    """Whether ``csrc``'s ``iir.cu`` is the first one: its chunked entry point
+    takes no instance, and its scan numbers only its register (0), shared (1)
+    and device-memory (2) instances."""
+    src = csrc / "iir.cu"
+    return src.exists() and "int nst, int cx, int cc, void* stream" in src.read_text()
+
+
+FIRST_IIR_LIBS: set = set()  # the paths of libraries built from the first iir.cu
+
+
+def iir_launch(x, b, a, scale, v, *, sos: bool, chunked: bool):
+    """One IIR launch on the library the wrappers point at: through the
+    wrapper, or, for the first ``iir.cu``, through its own entry points (the
+    cases' states fit its register instance, 0)."""
+    lib = _build.library()
+    if lib._name not in FIRST_IIR_LIBS:
+        return (iir_chunked_apply if chunked else iir_scan_apply)(x, b, a, scale, v, sos=sos)
+    C, T = x.shape
+    m = b.shape[0] if sos else b.shape[0] - 1
+    y, v_new = torch.empty_like(x), torch.empty_like(v)
+    ptrs = [t.data_ptr() for t in (x, b, a, scale, v, y, v_new)]
+    cx, cc = int(x.is_complex()), int(b.is_complex())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if chunked:
+        order, nst = (2, m) if sos else (m, 1)
+        rc = lib.yagi_iir_chunked(*ptrs, C, T, order, nst, cx, cc, stream)
+    else:
+        rc = lib.yagi_iir_scan(*ptrs, y.data_ptr(), C, T, m, int(sos), cx, cc, 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"first iir.cu launch failed with CUDA error {rc}")
+    return y, v_new
+
+
+def iir_cases(device, rng) -> list:
+    """The IIR kernels at config[2]'s shape, [C2, T2] float32 from a nonzero
+    state: the de-emphasis (TF [α], [1, −(1 − α)]) and the 4-section
+    Butterworth lowpass (order 8, cutoff 0.1) of chip_smoke.py's checks."""
+    deemph = make_fmstereo(1, device).deemph_l
+    bw = IirFilter.create_prototype(iirdes.IirFilterShape.BUTTER, iirdes.IirBandType.LOWPASS,
+                                    iirdes.IirFormat.SECOND_ORDER_SECTIONS, 8, 0.1, device=device)
+
+    def f32(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+    out = []
+    for f, sos, tol, tag in ((deemph, False, IIR_TF_TOL, "config[2]"),
+                             (bw, True, IIR_SOS_TOL, "sos")):
+        v_shape = (C2, bw.nsos, 2) if sos else (C2, 1)
+        sets = [(f32((C2, T2)), f.b, f.a, f.scale, 0.5 * f32(v_shape)) for _ in range(N_ROT)]
+        note = (f"C={C2}, T={T2}, float32, " + (f"SOS {bw.nsos} sections" if sos else "TF order 1"))
+        for chunked, name, entry in ((True, "iir_chunked", "yagi_iir_chunked"),
+                                     (False, "iir_scan", "yagi_iir_scan")):
+            calls = [lambda s=s, c=chunked, q=sos: iir_launch(*s, sos=q, chunked=c)
+                     for s in sets] * 5
+            out.append((f"{name} {tag}", entry, calls, note, tol if chunked else None, TURNS))
+    return out
+
+
+def cases(device, only=()):
     """(name, the C entry point a library needs for it, [calls per input
     set], shape note, the tolerance against v1 or None for bit identity, the
-    versions in turns): each call runs one kernel launch on a fixed input."""
+    versions in turns): each call runs one kernel launch on a fixed input.
+    With ``only`` naming IIR cases alone, the other paths' inputs are not
+    built."""
+    iir = iir_cases(device, np.random.default_rng(6))
+    if only and all(w.startswith("iir") for w in only):
+        return iir
     rng = np.random.default_rng(5)
     ss1 = make_symsync(C1, device)
     n1 = make_msresamp(C1, device).out_capacity(T1)
@@ -241,6 +323,7 @@ def cases(device):
          TURNS),
         ("chain planar config[0]", "yagi_chain_", planar, chain_note, CHAIN_TOL, CHAIN_TURNS),
         ("chain complex64 config[0]", "yagi_chain_", c64, chain_note, CHAIN_TOL, TURNS),
+        *iir,
     ]
 
 
@@ -253,18 +336,22 @@ def serves(lib, entry: str) -> bool:
 
 def agrees(got, want, tol):
     """Bit identity (``tol`` None); or the largest |a − b| / (|b| + 1e-3)
-    (``tol`` a number), or max |a − b| over the rms of b (``tol`` ("rms",
-    bound)), where it stays below the bound, and False where it does not."""
+    (``tol`` a number), max |a − b| over the rms of b (``tol`` ("rms",
+    bound)) or over max |b| (``tol`` ("max", bound)), where it stays below
+    the bound, and False where it does not."""
     if tol is None:
         return all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
     def cplx(t):  # a (re, im) pair of planes as complex values
-        return [torch.complex(*t)] if len(t) == 2 and not t[0].is_complex() else t
+        planes = len(t) == 2 and not t[0].is_complex() and t[0].shape == t[1].shape
+        return [torch.complex(*t)] if planes else t
 
     if isinstance(tol, tuple):
-        tol = tol[1]
-        worst = max(float((a - b).abs().max() / b.abs().square().mean().sqrt())
-                    for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
-        print(f"[ab] largest difference from v1 over its rms: {worst:.3e}")
+        kind, tol = tol
+        scale = ((lambda b: b.abs().square().mean().sqrt()) if kind == "rms"
+                 else (lambda b: b.abs().max()))
+        worst = max(float((a - b).abs().max() / scale(b))
+                    for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)) if b.numel())
+        print(f"[ab] largest difference from v1 over its {kind}: {worst:.3e}")
     else:
         worst = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
                     for g, w in zip(got, want) for a, b in zip(cplx(g), cplx(w)))
@@ -273,7 +360,7 @@ def agrees(got, want, tol):
 
 
 def build_log_lines(log: str) -> list[str]:
-    keep = ("qam_eq_scan", "symsync_", "agc_scan", "chain_", "channelizer", "registers",
+    keep = ("qam_eq_scan", "symsync_", "agc_scan", "chain_", "channelizer", "iir_", "registers",
             "spill")
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
@@ -300,10 +387,14 @@ def main(argv=None) -> None:
         for ln in build_log_lines(log):
             print(f"[ab] {name} build: {ln}")
     libs = {name: _build.bind(path, SIGNATURES) for name, (path, _) in builds.items()}
+    if first_iir_abi(Path(args.v1)):
+        libs["v1"] = _build.bind(builds["v1"][0],
+                                 {**SIGNATURES, "yagi_iir_chunked": FIRST_IIR_CHUNKED})
+        FIRST_IIR_LIBS.add(libs["v1"]._name)
 
     result = {"card": card, "cases": {}}
     only = [w for w in args.only.split(",") if w]
-    for name, entry, calls, note, tol, turns in cases(device):
+    for name, entry, calls, note, tol, turns in cases(device, only):
         if only and not any(w in name for w in only):
             continue
         if not serves(libs["v1"], entry):
