@@ -30,9 +30,16 @@ Six paths of the port, yagi_tpu_torch, each at its real size:
   first-order de-emphasis IIRs, alpha 0.05) over 512 channels, blocks of
   2^14 complex samples (bench.py's draw, seed 3): kernel iir_chunked
   (csrc/iir.cu, body csrc/iir.cuh) twice a block; its sequential form
-  iir_scan serves every filter that is not parallelize()d.
+  iir_scan serves every filter that is not parallelize()d;
+* the distributed layer yagi_tpu_torch.parallel over NCCL, one rank a card
+  (in this process at world size 1 on a one-card machine, one spawned
+  process a card on more): config[4] at full width streamed through
+  sharded_channelize_stream_fm_to_channels (the plain Firpfbch analyzer,
+  as in yagi_tpu: no kernel lies on this path), the other channelizer
+  functions and time_sharded_fir at config[0]'s width;
+* the FFT layer yagi_tpu_torch.fft (torch.fft, liquid's conventions).
 
-Seven phases:
+Nine phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
@@ -68,7 +75,17 @@ Seven phases:
    channels (tail symbol error rate 0, tail EVM below −25 dB); config[2]
    decodes FM stereo tones in 4 channels (amplitudes within 5%,
    separation above 40 dB);
-7. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+7. parallel: sharded_channelize_stream_fm_to_channels over 16 config[4]
+   blocks of 2^21 samples against Firpfbch → Freqdem block by block with
+   carried state, bit for bit where it holds, else config[4]'s gates (each
+   line says which held); sharded_channelize, sharded_channelize_fm and
+   sharded_channelize_to_channels once each; time_sharded_fir over 16 ×
+   2^17 with 64 Kaiser taps, with and without history, against
+   FirFilter.execute_block; the gather_to_hosts round trip; the streamed
+   path's eager rate beside the unsharded Firpfbch → Freqdem step;
+8. fft: fft_run / ifft_run on the card against tests/golden/fft.npz (2e-4),
+   and a Spgram (nfft 1024) over a config[4] block against the CPU's;
+9. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
@@ -88,19 +105,21 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from yagi_tpu_torch._src.struct import U32  # noqa: E402
 from yagi_tpu_torch.agc import Agc, AgcSquelchMode  # noqa: E402
 from yagi_tpu_torch.chains import FmStereoRx, QamRx, RxChain  # noqa: E402
-from yagi_tpu_torch.design import FirFilterShape, fir_design_prototype  # noqa: E402
+from yagi_tpu_torch.design import FirFilterShape, fir_design_kaiser, fir_design_prototype  # noqa: E402,E501
 from yagi_tpu_torch.design import iir as iirdes  # noqa: E402
 from yagi_tpu_torch.kernels.agc import agc_scan_apply, agc_scan_reference  # noqa: E402
 from yagi_tpu_torch.kernels import _build  # noqa: E402
@@ -115,7 +134,8 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     fused_channelizer_reference,
     halo_rows,
 )
-from yagi_tpu_torch.filter import IirFilter, Symsync  # noqa: E402
+from yagi_tpu_torch.fft import Spgram, fft_run, ifft_run  # noqa: E402
+from yagi_tpu_torch.filter import FirFilter, IirFilter, Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     chunked_fits,
     chunked_instance,
@@ -143,6 +163,20 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
 from yagi_tpu_torch.modem import Freqdem, Freqmod, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
+from yagi_tpu_torch.parallel import (  # noqa: E402
+    make_stream_mesh,
+    sharded_channelize,
+    sharded_channelize_fm,
+    sharded_channelize_stream_fm_to_channels,
+    sharded_channelize_to_channels,
+    time_sharded_fir,
+)
+from yagi_tpu_torch.parallel.multihost import (  # noqa: E402
+    distribute_time_stream,
+    gather_to_hosts,
+    global_time_mesh,
+    initialize_multihost,
+)
 from yagi_tpu_torch.tools.paths import (  # noqa: E402
     C0 as C,
     C1,
@@ -150,6 +184,7 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     C3,
     CHAIN,
     CHZ,
+    CHZ_SEED,
     KF,
     M4,
     MIX_FREQ,
@@ -286,6 +321,15 @@ IIR_CHUNK_CASES = (("tf", 2, "rrrf", C2, T2), ("tf", 2, "rrrf", 3, 1), ("tf", 2,
                    ("tfslow", 2, "cccf", 3, 5000),
                    ("sos", "lowpass7", "rrrf", 3, 8292), ("sos", "lowpass7", "crcf", 5, T2),
                    ("sos", "integrator", "rrrf", 3, 1000), ("tf", 10, "rrrf", 3, 300))
+# The FFT layer: the reference's golden vectors (tests/test_fft.py:38's sizes)
+# at its tolerance 2e-4; a Spgram of a config[4] block (8192 frames summed)
+# on the card against the CPU: cuFFT and pocketfft and two summation orders
+# part the PSD by ~1e-6 relative, held to 1e-4 per bin
+FFT_SIZES = (2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 17, 20, 21, 22, 24, 26, 30, 32, 35, 36,
+             43, 48, 63, 64, 79, 92, 96, 120, 130, 157, 192, 317, 509)
+FFT_TOL = 2e-4
+SPGRAM_NFFT, SPGRAM_TOL = 1024, 1e-4
+
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
 # op rounded alone, one evaluation order.
@@ -1604,6 +1648,222 @@ def phase_signal_config2(device) -> None:
     require(bool((sep_l > 40).all() & (sep_r > 40).all()), "stereo separation > 40 dB")
 
 
+def config4_blocks(n_blocks: int, device) -> torch.Tensor:
+    """config[4]'s input as bench.py:85-125 draws it (seed 1, float64
+    standard-normal real parts, then imaginary parts, as complex64), block
+    after block from one generator: [n_blocks, T4·M4] on ``device``."""
+    rng = np.random.default_rng(CHZ_SEED)
+    n = T4 * M4
+    return torch.stack([torch.from_numpy(
+        (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)).to(device)
+        for _ in range(n_blocks)])
+
+
+def held(what: str, got: torch.Tensor, want: torch.Tensor, gate) -> str:
+    """Bit identity, or where that fails the path's tolerance gate (a
+    callable that returns (error, passed)); which of the two held."""
+    require(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{what}: finite")
+    if torch.equal(got, want):
+        return "bit-identical"
+    err, ok = gate()
+    require(ok, f"{what}: not bit-identical, and outside the gate ({err:.3e})")
+    return f"not bit-identical (max |a - b| {(got - want).abs().max().item():.3e}); gate {err:.3e}"
+
+
+def phase_parallel(device, card: str) -> None:
+    """yagi_tpu_torch.parallel over NCCL, one rank a card: in this process
+    at world size 1 where there is one card, one
+    spawned process a card where there are more. config[4] at full width
+    streamed through sharded_channelize_stream_fm_to_channels, held against
+    Firpfbch → Freqdem block by block with carried state; the other three
+    channelizer functions once; time_sharded_fir at config[0]'s width against
+    FirFilter.execute_block, with and without history; the gather_to_hosts
+    round trip; then the streamed path's eager rate beside the unsharded
+    Firpfbch → Freqdem step. Every rank checks the gathered outputs, so a
+    failure stops all of them."""
+    with socket.socket() as sk:  # a free port on this host: no network
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > 1:
+        torch.multiprocessing.spawn(parallel_rank, args=(n, port, card), nprocs=n, join=True)
+    else:
+        parallel_rank(0, 1, port, card, device)
+
+
+def parallel_rank(rank: int, world: int, port: int, card: str, device=None) -> None:
+    """One rank of phase_parallel; ``device`` None is this rank's card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device is None or device.type == "cuda"  # a CPU rehearsal runs gloo
+    initialize_multihost(f"tcp://127.0.0.1:{port}", world, rank,
+                         backend=None if on_card else "gloo")
+    try:
+        if device is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        want = "nccl" if on_card else "gloo"
+        require(dist.get_backend() == want, f"backend {dist.get_backend()}")
+        mesh = make_stream_mesh(device_type=None if on_card else "cpu")  # the card by default
+        require(mesh.device_type == device.type and tuple(mesh.shape) == (1, world)
+                and tuple(global_time_mesh(device_type=mesh.device_type).shape) == (1, world),
+                f"mesh {mesh}")
+        say(f"[parallel] {want} world of {world} rank(s), one a card ({torch.cuda.device_count()} "
+            f"card(s)); mesh {mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
+        parallel_config4(device, mesh, card)
+        parallel_fir(device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def say(msg: str) -> None:
+    """Print on rank 0 only."""
+    if dist.get_rank() == 0:
+        print(msg, flush=True)
+
+
+def fm_gate(fm, fm_ref, y_ref, prev) -> tuple[float, bool]:
+    err, _ = fm_phase_err(fm, fm_ref, y_ref, prev)
+    return err, err <= FM_TOL
+
+
+def gathered(y_local: torch.Tensor, dim: int) -> torch.Tensor:
+    """gather_to_hosts, back on y_local's device."""
+    return torch.from_numpy(gather_to_hosts(y_local, dim)).to(y_local.device)
+
+
+def parallel_config4(device, mesh, card: str) -> None:
+    rank, world = dist.get_rank(), dist.get_world_size()
+    blocks = config4_blocks(N_BLOCKS, device)  # every rank draws the stream, keeps its share
+    n = T4 * M4
+    per = n // world
+    mine = blocks[:, rank * per:(rank + 1) * per].contiguous()
+    chz = Firpfbch.create_kaiser(M4, CHZ["m"], CHZ["as_"], device=device)
+    p = chz.p
+    m = gathered(sharded_channelize_stream_fm_to_channels(chz, KF, mine, mesh), 1)
+
+    ref = Firpfbch.create_kaiser(M4, CHZ["m"], CHZ["as_"], device=device)
+    dem = Freqdem.create(KF, (M4,), device=device)
+    ys, fms = [], []
+    for x in blocks:
+        y, ref = ref.analyzer_execute(x)
+        fm, dem = dem.demodulate(y)
+        ys.append(y)
+        fms.append(fm)
+    y_ref, fm_ref = torch.stack(ys), torch.stack(fms)
+    whole = torch.equal(m, fm_ref)
+    prev = torch.cat([torch.zeros_like(y_ref[:1, :, -1]), y_ref[:-1, :, -1]])
+
+    def gate():
+        worst = max(fm_gate(m[i], fm_ref[i], y_ref[i], prev[i])[0] for i in range(N_BLOCKS))
+        return worst, worst <= FM_TOL
+
+    how = held("stream FM, blocks 1..", m[1:], fm_ref[1:], gate)
+    how0 = held("stream FM, block 0 past the transient", m[0][:, p + 1:], fm_ref[0][:, p + 1:],
+                gate)
+    say(f"[parallel] sharded_channelize_stream_fm_to_channels: {N_BLOCKS} blocks of {n} "
+        f"complex64 (M={M4}, T={T4}, p={p}, kf={KF}, bench.py's seed {CHZ_SEED}) over {world} "
+        f"rank(s), gathered, against Firpfbch -> Freqdem block by block: blocks 1..{N_BLOCKS - 1} "
+        f"{how}; block 0 from step {p + 1} {how0}; all {N_BLOCKS} blocks whole bit-identical "
+        f"{whole}")
+
+    y0, fm0 = y_ref[0], fm_ref[0]
+    x_local = distribute_time_stream(mine[0], mesh)
+    require(x_local.data_ptr() == mine[0].data_ptr(), "distribute_time_stream copied the block")
+
+    def rms_gate(got):
+        return lambda: (rel_rms(y0[:, p:], got[:, p:]), rel_rms(y0[:, p:], got[:, p:]) < CHZ_TOL)
+
+    y2_local = sharded_channelize_to_channels(chz, x_local, mesh)
+    y1 = gathered(sharded_channelize(chz, x_local, mesh), -1)
+    y2 = gathered(y2_local, 0)
+    m1 = gathered(sharded_channelize_fm(chz, KF, x_local, mesh), -1)
+    h1 = held("sharded_channelize", y1[:, p:], y0[:, p:], rms_gate(y1))
+    h2 = held("sharded_channelize_to_channels", y2[:, p:], y0[:, p:], rms_gate(y2))
+    h3 = held("sharded_channelize_fm", m1[:, p + 2:], fm0[:, p + 2:],
+              lambda: fm_gate(m1[:, p + 2:], fm0[:, p + 2:], y0[:, p + 2:], y0[:, p + 1]))
+    say(f"[parallel] one block of {n}: sharded_channelize {h1}; sharded_channelize_to_channels "
+        f"(all_to_all) {h2}; sharded_channelize_fm ((p+1)·M halo) {h3}; against Firpfbch "
+        f"(-> Freqdem) from step p (FM p + 2); FM gate {FM_TOL} rad, channels {CHZ_TOL} of the rms")
+    group = M4 // world
+    require(torch.equal(y2[rank * group:(rank + 1) * group], y2_local), "gather_to_hosts round trip")
+    say(f"[parallel] gather_to_hosts round trip: {tuple(y2.shape)} {y2.dtype}, each rank's group "
+        f"in place; distribute_time_stream kept the block in place on {x_local.device}")
+
+    def stream():
+        return sharded_channelize_stream_fm_to_channels(chz, KF, mine, mesh)
+
+    state = [Firpfbch.create_kaiser(M4, CHZ["m"], CHZ["as_"], device=device),
+             Freqdem.create(KF, (M4,), device=device), 0]
+
+    def step():
+        y, state[0] = state[0].analyzer_execute(blocks[state[2] % N_BLOCKS])
+        _, state[1] = state[1].demodulate(y)
+        state[2] += 1
+
+    s_ms = cuda_ms(stream, 3, warmup=1)
+    u_ms = cuda_ms(step, 2 * N_BLOCKS)
+    say(f"[timing] {card}: parallel/ streamed config[4] over {world} rank(s) "
+        f"(sharded_channelize_stream_fm_to_channels, {N_BLOCKS} blocks of {n}, {per} a rank): "
+        f"{N_BLOCKS * n / (s_ms * 1e-3) / 1e6:.1f} Msps ({s_ms:.3f} ms a call, rank 0); "
+        f"unsharded Firpfbch -> Freqdem step on one card {n / (u_ms * 1e-3) / 1e6:.1f} Msps "
+        f"({u_ms:.3f} ms a block); input complex Msamples/s, eager calls between CUDA events")
+
+
+def parallel_fir(device, mesh) -> None:
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(SEED + 20)
+    h = fir_design_kaiser(CHAIN["n_taps"], CHAIN["fc"], CHAIN["as_"], 0.0)
+    L = len(h)
+    x = complex_block(rng, (C, T), device)
+    hist = complex_block(rng, (C, L - 1), device)
+    step = T // world
+    base = FirFilter.create(h, batch_shape=(C,), dtype=torch.complex64, device=device)
+    for name, hh, f in (("without history", None, base), ("with history", hist, base.write(hist))):
+        y = gathered(time_sharded_fir(h, x[:, rank * step:(rank + 1) * step], mesh, history=hh),
+                     -1)
+        parts = []
+        for b in range(world):  # the same time blocks in sequence
+            yb, f = f.execute_block(x[:, b * step:(b + 1) * step])
+            parts.append(yb)
+        want = torch.cat(parts, dim=-1)
+        how = held(f"time_sharded_fir {name}", y, want,
+                   lambda: (rel_err(want, y), rel_err(want, y) < REL_TOL))
+        say(f"[parallel] time_sharded_fir {name}: [{C}, {T}] complex64 over {world} rank(s), "
+            f"{L} Kaiser taps, against FirFilter.execute_block over the same blocks: {how}")
+
+
+def phase_fft(device) -> None:
+    """fft_run / ifft_run on the card against the reference's golden vectors
+    (tests/golden/fft.npz, tolerance 2e-4 as tests/test_fft.py), and one
+    Spgram (nfft 1024) over a config[4] block against the same object on
+    the CPU."""
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "golden", "fft.npz"))
+    worst = [0.0, 0.0]
+    for n in FFT_SIZES:
+        x = torch.from_numpy(golden[f"FFT_TEST_X{n}"]).to(device)
+        y = fft_run(x)
+        z = ifft_run(y) / n
+        worst = [max(worst[0], (y.cpu() - torch.from_numpy(golden[f"FFT_TEST_Y{n}"])).abs()
+                     .max().item()), max(worst[1], (z - x).abs().max().item())]
+    print(f"[fft] fft_run / ifft_run on {device} at the {len(FFT_SIZES)} golden sizes "
+          f"{FFT_SIZES[0]}..{FFT_SIZES[-1]}: max abs err forward {worst[0]:.3e}, round trip "
+          f"{worst[1]:.3e} (< {FFT_TOL})")
+    require(max(worst) < FFT_TOL, f"fft against the golden vectors {worst}")
+
+    x = config4_blocks(1, device)[0]
+    sp = Spgram.create(SPGRAM_NFFT, device=device).write(x)
+    sp_cpu = Spgram.create(SPGRAM_NFFT, device="cpu").write(x.cpu())
+    a, b = sp.get_psd_mag().cpu(), sp_cpu.get_psd_mag()
+    err = ((a - b).abs() / b).max().item()
+    print(f"[fft] Spgram(nfft={SPGRAM_NFFT}) over a config[4] block ({x.numel()} samples, "
+          f"{sp.num_transforms} transforms) on the card against the CPU: max relative err of "
+          f"the PSD {err:.3e} (< {SPGRAM_TOL}); {10 * np.log10(a.mean().item()):.2f} dB mean")
+    require(sp.num_transforms == sp_cpu.num_transforms and err < SPGRAM_TOL,
+            f"Spgram card vs CPU {err}")
+
+
 def phase_timing_config2(device, card: str) -> dict:
     """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
     config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
@@ -1728,6 +1988,8 @@ def main() -> None:
     errs.update(phase_kernel_vs_plain_iir(device))
     launches.update(phase_main_path_config2(device))
     phase_signal_config2(device)
+    phase_parallel(device, smi)
+    phase_fft(device)
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),

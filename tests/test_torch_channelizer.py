@@ -14,7 +14,15 @@
   into the twiddles, so they agree within 1e-4 relative error
   (tests/test_fused_channelizer.py);
 * the slice as a whole, channelizer → FM discriminator, by wrapped phase;
-* streaming state, load_state, the ConfigError contract, device dispatch.
+* streaming state, load_state, the ConfigError contract, device dispatch;
+* the sliding-transform banks Firpfbch2 (M/2 samples a step) and Firpfbchr
+  (P a step): against a float64 evaluation of their definition (within 1e-5
+  of the rms), and against yagi_tpu. yagi_tpu's Firpfbch2 forms its
+  twiddle's phase 2π·k·e/M in float32 from the global sample index e, so its
+  error grows with e (~2^-23 of the phase, 7e-3 of the rms at M = 64 after
+  6,400 samples); the port takes k·e mod M and a table of the M roots of
+  unity. Both are held to yagi_tpu within that growth (Firpfbchr's yagi_tpu
+  twiddle reduces e mod M first, so its phase stays below 2π·M).
 
 The CUDA kernel itself runs only on a GPU; chip_smoke.py holds it against
 fused_channelizer_reference there.
@@ -31,6 +39,8 @@ from yagi_tpu.kernels.channelizer import channelizer_tables as j_tables
 from yagi_tpu.kernels.channelizer import fused_channelizer_apply as j_apply
 from yagi_tpu.modem import Freqdem as JFreqdem
 from yagi_tpu.multichannel import Firpfbch as JFirpfbch
+from yagi_tpu.multichannel import Firpfbch2 as JFirpfbch2
+from yagi_tpu.multichannel import Firpfbchr as JFirpfbchr
 from yagi_tpu.multichannel import FusedChannelizer as JFused
 from yagi_tpu.design import FirFilterShape as JFirFilterShape
 from yagi_tpu_torch._src.struct import load_state
@@ -43,7 +53,7 @@ from yagi_tpu_torch.kernels.channelizer import (
     fused_channelizer_reference,
 )
 from yagi_tpu_torch.modem import Freqdem
-from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer
+from yagi_tpu_torch.multichannel import Firpfbch, Firpfbch2, Firpfbchr, FusedChannelizer
 
 torch.set_num_threads(1)
 
@@ -437,3 +447,116 @@ def test_fused_with_66_taps_a_branch_matches_yagi_tpu():
         assert _rel_rms(np.asarray(yj), yt.numpy()) < 1e-5, f"block {blk} vs yagi_tpu"
         assert _rel_rms(yr.numpy(), yt.numpy()) < 1e-5, f"block {blk} vs Firpfbch"
         np.testing.assert_array_equal(tf.hist_r.numpy(), np.asarray(jf.hist_r))
+
+
+# ------------------------------------------------------- Firpfbch2, Firpfbchr
+def _taps(bank) -> np.ndarray:
+    """The prototype h[j] = branches[j mod M, j // M], float64."""
+    br = bank.branches.numpy().astype(np.float64)
+    M = br.shape[0]
+    return np.array([br[j % M, j // M] for j in range(br.size)])
+
+
+def _direct(x, h, M: int, P: int, T: int, e0: int = 0) -> np.ndarray:
+    """y_k[t] = Σ_j h[j]·x[e_t − j]·e^{−j2πk(e_t − j)/M} in float64, with
+    e_t = (t+1)·P − 1 counted from the stream start (e0 samples before x)."""
+    n = np.arange(x.size) + e0
+    e = (np.arange(T) + 1) * P - 1
+    out = np.zeros((M, T), np.complex128)
+    for k in range(M):
+        out[k] = np.convolve(x * np.exp(-2j * np.pi * k * n / M), h)[e]
+    return out
+
+
+@pytest.mark.parametrize("channels", [8, 16, 64])
+def test_firpfbch2_matches_its_definition(channels):
+    """Streamed in three blocks: the step parity and the twiddle follow the
+    global sample index across blocks."""
+    rng = np.random.default_rng(70 + channels)
+    bank = Firpfbch2.create(channels, 4, 60.0, device=DEV)
+    half, steps = channels // 2, (13, 40, 7)
+    x = _cplx(rng, half * sum(steps))
+    ys, pos = [], 0
+    for n in steps:
+        y, bank = bank.analyzer_execute(torch.from_numpy(x[pos:pos + n * half]))
+        assert y.shape == (channels, n) and y.dtype == torch.complex64
+        ys.append(y.numpy())
+        pos += n * half
+    assert int(bank.step_parity) == sum(steps) % 2
+    want = _direct(x.astype(np.complex128), _taps(bank), channels, half, sum(steps))
+    assert _rel_rms(want, np.concatenate(ys, axis=-1)) < 1e-5
+
+
+@pytest.mark.parametrize("channels", [8, 64])
+def test_firpfbch2_matches_yagi_tpu(channels):
+    rng = np.random.default_rng(80 + channels)
+    j = JFirpfbch2.create(channels, 4, 60.0)
+    t = Firpfbch2.create(channels, 4, 60.0, device=DEV)
+    np.testing.assert_array_equal(t.branches.numpy(), np.asarray(j.branches))
+    half, pos = channels // 2, 0
+    for n in (25, 50):
+        x = _cplx(rng, n * half)
+        yj, j = j.analyzer_execute(jnp.asarray(x))
+        yt, t = t.analyzer_execute(torch.from_numpy(x))
+        pos += n * half
+        # yagi_tpu's float32 phase 2πk·e/M: a few ulps of the largest phase
+        phase_max = 2 * np.pi * (channels - 1) * pos / channels
+        assert _rel_rms(np.asarray(yj), yt.numpy()) < 1e-5 + 4 * 2.0 ** -23 * phase_max
+        assert int(t.step_parity) == int(j.step_parity)
+        np.testing.assert_array_equal(t.hist.numpy(), np.asarray(j.hist))
+
+
+def test_firpfbch2_tone_isolation_and_errors():
+    """liquid firpfbch2_crcf_n*: a tone at channel k's centre lands in k."""
+    for channels in (8, 64):
+        bank = Firpfbch2.create(channels, 4, 60.0, device=DEV)
+        t = np.arange(256 * channels // 2)
+        for k in (0, 2, channels - 3):
+            x = np.exp(2j * np.pi * (k / channels) * t).astype(np.complex64)
+            y, _ = bank.analyzer_execute(torch.from_numpy(x))
+            p = (y[:, 32:].abs() ** 2).mean(dim=-1).numpy()
+            assert p.argmax() == k and np.sort(p)[-2] / p.max() < 1e-5
+    with pytest.raises(ConfigError):
+        Firpfbch2.create(7, device=DEV)
+    with pytest.raises(ConfigError):
+        Firpfbch2.create(8, device=DEV).analyzer_execute(torch.zeros(6, dtype=torch.complex64))
+    bank = Firpfbch2.create(8, device=DEV).analyzer_execute(torch.ones(12, dtype=torch.complex64))[1]
+    assert int(bank.step_parity) == 1 and int(bank.reset().step_parity) == 0
+    assert not bool(bank.reset().hist.any())
+
+
+@pytest.mark.parametrize("channels, decim", [(8, 8), (8, 5), (16, 5), (12, 12), (20, 7)])
+def test_firpfbchr_matches_its_definition_and_yagi_tpu(channels, decim):
+    rng = np.random.default_rng(channels * 100 + decim)
+    j = JFirpfbchr.create_kaiser(channels, decim, m=3, as_=60.0)
+    t = Firpfbchr.create_kaiser(channels, decim, m=3, as_=60.0, device=DEV)
+    assert t.get_delay() == j.get_delay()
+    x = _cplx(rng, decim * 60)
+    ys = []
+    for blk in (x[: decim * 17], x[decim * 17:]):
+        yj, j = j.analyzer_execute(jnp.asarray(blk))
+        yt, t = t.analyzer_execute(torch.from_numpy(blk))
+        # yagi_tpu reduces e mod M, then forms 2πk·e/M in float32: k·e < M²
+        phase_max = 2 * np.pi * (channels - 1) ** 2 / channels
+        assert _rel_rms(np.asarray(yj), yt.numpy()) < 1e-5 + 4 * 2.0 ** -23 * phase_max
+        assert int(t.sample_count) == int(j.sample_count)
+        np.testing.assert_array_equal(t.hist.numpy(), np.asarray(j.hist))
+        ys.append(yt.numpy())
+    want = _direct(x.astype(np.complex128), _taps(t), channels, decim, 60)
+    assert _rel_rms(want, np.concatenate(ys, axis=-1)) < 1e-5
+
+
+def test_firpfbchr_tone_scale_and_errors():
+    bank = Firpfbchr.create_kaiser(16, 8, m=4, as_=80.0, device=DEV)
+    n = np.arange(128 * 8)
+    y, _ = bank.analyzer_execute(torch.from_numpy(np.exp(2j * np.pi * 3 / 16 * n).astype(np.complex64)))
+    pwr = (y[:, 32:].abs() ** 2).mean(dim=-1).numpy()
+    assert pwr.argmax() == 3 and 10 * np.log10(np.delete(pwr, 3).max() / pwr[3]) < -50.0
+    y2, _ = bank.set_scale(0.5).analyzer_execute(torch.from_numpy(np.exp(2j * np.pi * 3 / 16 * n)
+                                                                 .astype(np.complex64)))
+    torch.testing.assert_close(y2, 0.5 * y)
+    for args in ((1, 1), (8, 0), (8, 9)):
+        with pytest.raises(ConfigError):
+            Firpfbchr.create_kaiser(*args, device=DEV)
+    with pytest.raises(ConfigError):
+        bank.analyzer_execute(torch.zeros(7, dtype=torch.complex64))

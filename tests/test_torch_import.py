@@ -57,6 +57,20 @@ _MODULES = (
     "yagi_tpu_torch.filter.firhilb",
     "yagi_tpu_torch.chains.fm",
     "yagi_tpu_torch.kernels.iir",
+    "yagi_tpu_torch.parallel",
+    "yagi_tpu_torch.parallel.stream",
+    "yagi_tpu_torch.parallel.channelizer",
+    "yagi_tpu_torch.parallel.multihost",
+    "yagi_tpu_torch.fft",
+    "yagi_tpu_torch.fft.r2r",
+    "yagi_tpu_torch.fft.spgram",
+    "yagi_tpu_torch.fft.spwaterfall",
+    "yagi_tpu_torch.fft.asgram",
+    "yagi_tpu_torch.multichannel.firpfbch",
+    "yagi_tpu_torch.multichannel.firpfbchr",
+    "yagi_tpu_torch.math.windows",
+    "yagi_tpu_torch.utils.psd_validate",
+    "yagi_tpu_torch.tools.multihost_worker",
 )
 
 
@@ -75,6 +89,15 @@ def test_import_pulls_in_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_new_names_import_alone():
+    """The slice-6 names resolve from the package root (lazy subpackages)."""
+    import yagi_tpu_torch
+
+    assert yagi_tpu_torch.parallel.sharded_channelize_stream_fm_to_channels
+    assert yagi_tpu_torch.fft.Spgram and yagi_tpu_torch.utils.validate_psd_spgram
+    assert yagi_tpu_torch.multichannel.Firpfbch2 and yagi_tpu_torch.multichannel.Firpfbchr
 
 
 def _error_classes(mod):

@@ -12,10 +12,14 @@ the config[4] path, the 64-channel polyphase channelizer
 discriminator :class:`modem.Freqdem`; the config[1] path, :class:`filter.MsResamp`
 feeding :class:`filter.Symsync` (kernels K3 and K4); and the config[3] 16-QAM
 receiver :class:`chains.QamRx` (AGC, symsync on K3, LMS equalizer and carrier
-PLL, decisions), three kernels per block.
+PLL, decisions), three kernels per block; the config[2] FM stereo receiver
+:class:`chains.FmStereoRx` over the IIR family; the distributed layer
+:mod:`parallel` (one process a card over ``torch.distributed``); the FFT
+layer :mod:`fft`; the oversampled and arbitrary-rate channelizers.
 
 Layer map (mirrors yagi_tpu):
-  math/     host-side design math (float64 NumPy)
+  math/     host-side design math (float64 NumPy): special functions, windows
+  fft/      transforms with liquid's conventions, periodograms, DCT/DST
   design/   FIR design: Kaiser, (root-)raised-cosine, PM halfband
   filter/   streaming FIR, PFB decomposition, resamplers, symbol synchronizer
   nco/      oscillator, mode "exact"
@@ -25,6 +29,9 @@ Layer map (mirrors yagi_tpu):
   multichannel/  polyphase channelizers
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
+  parallel/ sharded streaming over torch.distributed (halo exchange,
+            all_to_all channel redistribution, multi-host wiring)
+  utils/    array helpers, PSD-mask validators
 """
 
 __version__ = "0.1.0"
@@ -37,6 +44,6 @@ def __getattr__(name):
     import importlib
 
     if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
-                "kernels", "chains"):
+                "kernels", "chains", "fft", "parallel", "utils"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

@@ -26,7 +26,7 @@ from .._src.device import resolve_device
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
 
-__all__ = ["Firpfbch"]
+__all__ = ["Firpfbch", "Firpfbch2"]
 
 
 def _grouped_branch_conv(xb: torch.Tensor, branches: torch.Tensor) -> torch.Tensor:
@@ -57,6 +57,29 @@ def _idft(u: torch.Tensor) -> torch.Tensor:
         w = torch.from_numpy(_idft_matrix(M)).to(u.device)
         return w.T @ u
     return torch.fft.ifft(u, dim=-2)
+
+
+def _sliding_residue_conv(xa: torch.Tensor, branches: torch.Tensor, P: int) -> torch.Tensor:
+    """c_r[t] = Σ_q h[r+qM]·xa[e_t − r − qM] for every step t and residue
+    r, with e_t = (L−2) + (t+1)·P and L = p·M: [..., T, M].
+
+    The sliding-transform channelizers' (Firpfbch2, Firpfbchr) branch sums.
+    The window ending at e_t is a strided view of ``xa`` (no gather);
+    reversed and viewed as [p, M], residue r's samples x[e_t − r − qM] are
+    its column r, so a step costs the p·M taps once.
+    """
+    M, p = branches.shape
+    frames = xa[..., P - 1 :].unfold(-1, p * M, P)  # [..., T, L], frame t ends at e_t
+    rev = frames.flip(-1).reshape(frames.shape[:-1] + (p, M))  # [..., T, q, r]
+    return (rev * branches.T).sum(dim=-2)
+
+
+def _twiddle(M: int, e: torch.Tensor) -> torch.Tensor:
+    """[T, M] e^{-j2πk·e_t/M}: the root of unity of (k·e_t) mod M, so the
+    phase is exact for any global sample index e_t (int64)."""
+    roots = np.exp(-2j * np.pi * np.arange(M) / M).astype(np.complex64)
+    k = torch.arange(M, device=e.device)
+    return torch.from_numpy(roots).to(e.device)[(k[None, :] * e[:, None]) % M]
 
 
 def _design_prototype(num_channels: int, m: int, as_: float) -> np.ndarray:
@@ -180,3 +203,77 @@ class Firpfbch:
             else self.window,
         )
         return x, new
+
+
+@struct.state
+class Firpfbch2:
+    """Oversampled analysis bank: M channels, M/2 input samples per step
+    (liquid firpfbch2, n = 8..64).
+
+    Output step t takes the full-prototype window ending at the newest
+    sample: a sliding transform, ``_sliding_residue_conv`` then an M-point
+    inverse DFT and the mix-down twiddle of the global sample index. The
+    index enters only mod M, so the state carries the step parity.
+    """
+
+    num_channels: int = struct.static_field()
+    branches: torch.Tensor = struct.field()  # [M, p], branches[b, q] = h[b + qM]
+    scale: torch.Tensor = struct.field()  # float32 scalar
+    hist: torch.Tensor = struct.field()  # [..., L-1] raw sample history
+    step_parity: torch.Tensor = struct.field()  # int64 0-d: output steps so far, mod 2
+
+    @classmethod
+    def create(cls, num_channels: int, m: int = 4, as_: float = 60.0,
+               batch_shape: tuple = (), device=None) -> "Firpfbch2":
+        device = resolve_device(device)
+        if num_channels < 2 or num_channels % 2:
+            raise ConfigError("number of channels must be even and at least 2")
+        M = num_channels
+        branches = pfb_decompose(_design_prototype(M, m, as_), M)
+        L = branches.shape[1] * M  # full prototype span
+        return cls(
+            num_channels=M,
+            branches=torch.from_numpy(branches.astype(np.float32)).to(device),
+            scale=torch.tensor(1.0, dtype=torch.float32, device=device),
+            hist=torch.zeros(batch_shape + (L - 1,), dtype=torch.complex64, device=device),
+            step_parity=torch.zeros((), dtype=torch.int64, device=device),
+        )
+
+    @property
+    def p(self) -> int:
+        return self.branches.shape[1]
+
+    def reset(self) -> "Firpfbch2":
+        return self.replace(
+            hist=torch.zeros_like(self.hist),
+            step_parity=torch.zeros_like(self.step_parity),
+        )
+
+    def analyzer_execute(self, x) -> tuple[torch.Tensor, "Firpfbch2"]:
+        """x [..., T·M/2] → channels [..., M, T] (2× oversampled outputs).
+
+        y_k[t] = Σ_j h[j]·x[e_t − j]·e^{−j2πk(e_t − j)/M}
+               = e^{−j2πk·e_t/M} Σ_r e^{+j2πkr/M} c_r[t]
+        with e_t = (t+1)·M/2 − 1 counted from the stream start.
+        """
+        x = torch.as_tensor(x, dtype=torch.complex64, device=self.branches.device)
+        M = self.num_channels
+        half = M // 2
+        total = x.shape[-1]
+        if total % half:
+            raise ConfigError(f"input length must be a multiple of M/2={half}")
+        T = total // half
+        L = self.p * M
+
+        xa = torch.cat([self.hist, x], dim=-1)  # [..., L-1+T·half]
+        c = _sliding_residue_conv(xa, self.branches, half)  # [..., T, M]
+        Y = torch.fft.ifft(c, dim=-1, norm="forward")  # Σ_r c_r e^{+j2πkr/M}
+        t = torch.arange(T, device=x.device)
+        e = (t + 1) * half - 1 + self.step_parity * half
+        y = (Y * _twiddle(M, e) * self.scale).transpose(-1, -2)  # [..., M, T]
+
+        new = self.replace(
+            hist=xa[..., xa.shape[-1] - (L - 1) :].clone(),
+            step_parity=(self.step_parity + T) % 2,
+        )
+        return y, new

@@ -1,5 +1,6 @@
 """Eager step time of config[0], config[4], config[1], config[3] and
-config[2] on one card, and where the device time goes.
+config[2] on one card (and of parallel/'s streamed config[4]), and where the
+device time goes.
 
 For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
@@ -18,6 +19,12 @@ between CUDA events, the host's time to enqueue a step, then a
 * ``2``, config[2]: ``FmStereoRx.step``, 512 channels × 2^14 samples
   (default_rng(3) standard-normal × 0.1): the discriminator, four 129-tap
   FIRs as banded matmuls, the two de-emphasis IIRs on ``iir_chunked``.
+
+* ``4s``, ``parallel/`` at world size 1 (one NCCL rank):
+  ``sharded_channelize_stream_fm_to_channels`` over 4 config[4] blocks a
+  step (the plain Firpfbch analyzer, the all_to_all, the FM discriminator);
+  ``4f``, the unsharded Firpfbch → Freqdem over the same 4 blocks a step,
+  state carried.
 
 ``--configs`` picks some of them (default all), for example ``4,1p``.
 
@@ -40,6 +47,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from yagi_tpu_torch.tools import paths
@@ -100,6 +108,39 @@ def config4(device):
         yr, yi, state[0] = state[0].analyzer_execute_planar(*xs[state[2] % 4])
         _, state[1] = state[1].demodulate(torch.complex(yr, yi).T)
         state[2] += 1
+
+    return step
+
+
+def config4_stream(device, sharded: bool):
+    """4 config[4] blocks (bench.py's draw, seed 1) a step: through
+    parallel/'s stream at world size 1, or through Firpfbch → Freqdem."""
+    import socket
+
+    from yagi_tpu_torch.modem import Freqdem
+    from yagi_tpu_torch.multichannel import Firpfbch
+    from yagi_tpu_torch.parallel import make_stream_mesh, sharded_channelize_stream_fm_to_channels
+    from yagi_tpu_torch.parallel.multihost import initialize_multihost
+
+    rng = np.random.default_rng(paths.CHZ_SEED)
+    n = paths.M4 * paths.T4
+    xs = torch.stack([torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                                       .astype(np.complex64)).to(device) for _ in range(4)])
+    if sharded:
+        with socket.socket() as sk:  # a free port on this host: no network
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        initialize_multihost(f"tcp://127.0.0.1:{port}", 1, 0)  # a no-op once joined
+        mesh = make_stream_mesh()
+        chz = Firpfbch.create_kaiser(paths.M4, 4, 60.0, device=device)
+        return lambda: sharded_channelize_stream_fm_to_channels(chz, paths.KF, xs, mesh)
+    state = [Firpfbch.create_kaiser(paths.M4, 4, 60.0, device=device),
+             Freqdem.create(paths.KF, batch_shape=(paths.M4,), device=device)]
+
+    def step():
+        for x in xs:
+            y, state[0] = state[0].analyzer_execute(x)
+            _, state[1] = state[1].demodulate(y)
 
     return step
 
@@ -181,10 +222,16 @@ def main(argv=None) -> None:
                lambda: config1(device, "pallas"), max(2, args.steps // 4)),
         "3": ("config[3] QamRx.step_masked", lambda: config3(device), args.steps),
         "2": ("config[2] FmStereoRx.step", lambda: config2(device), args.steps),
+        "4s": ("parallel/ stream FM, 4 config[4] blocks, world size 1",
+               lambda: config4_stream(device, True), args.steps),
+        "4f": ("Firpfbch -> Freqdem, the same 4 blocks", lambda: config4_stream(device, False),
+               args.steps),
     }
     for key in args.configs.split(","):
         name, make, steps = runs[key]
         measure(name, make(), steps)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,3 +1,10 @@
-"""Array utilities."""
+"""Array utilities and the PSD-mask validators."""
 
 from .compact import compact_valid  # noqa: F401
+from .psd_validate import (  # noqa: F401
+    PsdRegion,
+    validate_psd_signal,
+    validate_psd_signalf,
+    validate_psd_spectrum,
+    validate_psd_spgram,
+)
