@@ -37,9 +37,13 @@ Six paths of the port, yagi_tpu_torch, each at its real size:
   sharded_channelize_stream_fm_to_channels (the plain Firpfbch analyzer,
   as in yagi_tpu: no kernel lies on this path), the other channelizer
   functions and time_sharded_fir at config[0]'s width;
-* the FFT layer yagi_tpu_torch.fft (torch.fft, liquid's conventions).
+* the FFT layer yagi_tpu_torch.fft (torch.fft, liquid's conventions);
+* the streaming filters of layer L4 at config[1]'s width (1024 channels,
+  blocks of 4096 complex samples): the Kaiser interpolator and decimator,
+  FftFilt, Rresamp, Fdelay, OrdFilt, Dds, and an interpolating farrow
+  MsResamp (plain torch: no kernel lies on this path).
 
-Nine phases:
+Ten phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
@@ -85,7 +89,17 @@ Nine phases:
    path's eager rate beside the unsharded Firpfbch → Freqdem step;
 8. fft: fft_run / ifft_run on the card against tests/golden/fft.npz (2e-4),
    and a Spgram (nfft 1024) over a config[4] block against the CPU's;
-9. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+9. filters: FirInterpolationFilter (kaiser, 2x, m 7, 60 dB) then
+   FirDecimationFilter back, FftFilt (64 Kaiser taps, n 4096), Rresamp
+   (P/Q 3/2), Fdelay (nmax 16, delay 3.7), OrdFilt (median, m 3), Dds
+   (2 stages, fc 0.1) decim and interp, and MsResamp at 2.0663/2 with
+   arbitrary_interp "farrow", each over 1024 channels in blocks
+   [4096, 0, 4096, 4096] with the state carried: every output and state
+   tensor on the card, the streamed output equal to one long block and the
+   first 64 channels equal to the CPU run (1e-5 of max(1, |y|), OrdFilt
+   exactly; the Farrow values 1e-4 against the CPU, 0.03 against one long
+   block), and each object's device time a block;
+10. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
@@ -135,7 +149,7 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     halo_rows,
 )
 from yagi_tpu_torch.fft import Spgram, fft_run, ifft_run  # noqa: E402
-from yagi_tpu_torch.filter import FirFilter, IirFilter, Symsync  # noqa: E402
+from yagi_tpu_torch.filter import FirFilter, IirFilter, MsResamp, Resamp, Symsync  # noqa: E402
 from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     chunked_fits,
     chunked_instance,
@@ -161,7 +175,12 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     symsync_scan_reference,
 )
 from yagi_tpu_torch.modem import Freqdem, Freqmod, Modem  # noqa: E402
-from yagi_tpu_torch.multichannel import Firpfbch, FusedChannelizer  # noqa: E402
+from yagi_tpu_torch.multichannel import (  # noqa: E402
+    Firpfbch,
+    Firpfbch2,
+    Firpfbchr,
+    FusedChannelizer,
+)
 from yagi_tpu_torch.nco import Osc  # noqa: E402
 from yagi_tpu_torch.parallel import (  # noqa: E402
     make_stream_mesh,
@@ -198,6 +217,7 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     complex_block,
     fm_block,
     make_fmstereo,
+    make_filters,
     make_fused,
     make_msresamp,
     make_qamrx,
@@ -329,6 +349,22 @@ FFT_SIZES = (2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 17, 20, 21, 22, 24, 26, 30, 32, 35,
              43, 48, 63, 64, 79, 92, 96, 120, 130, 157, 192, 317, 509)
 FFT_TOL = 2e-4
 SPGRAM_NFFT, SPGRAM_TOL = 1024, 1e-4
+# The streaming filters of layer L4 at config[1]'s width (C1 channels,
+# blocks of T1 samples; one of them empty, the state carried), seed 2:
+# the streamed run against one long block on the card, and its first
+# FILTER_CUT channels against the CPU, each within its CPU test's
+# tolerance: 1e-5 of max(1, |y|) (tests/test_torch_filters_l4.py); the
+# Farrow values 1e-4 against the same split on the CPU, and 0.03 against one
+# long block, whose emissions at the block edges take the exact branch dot
+# in the split run and the Farrow values in the long one: the Farrow-vs-PFB
+# tolerance (tests/test_torch_farrow.py, tests/test_farrow_resamp.py)
+FILTER_BLOCKS = (T1, 0, T1, T1)
+FILTER_CUT = 64
+FILTER_TOL, FARROW_TOL, FARROW_SPLIT_TOL = 1e-5, 1e-4, 0.03
+# The empty-block repairs (tests/test_torch_empty_block.py's objects, batch
+# (2,), seed 3): blocks [0, EMPTY_N] equal the block of EMPTY_N alone
+EMPTY_N = 64
+N_FILTER_TIMED = 10  # eager calls timed per object
 
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
@@ -1864,6 +1900,123 @@ def phase_fft(device) -> None:
             f"Spgram card vs CPU {err}")
 
 
+def filter_tols(name: str) -> tuple[float, float]:
+    """An L4 object's tolerances: against one long block, against the CPU."""
+    if name.startswith("OrdFilt"):
+        return 0.0, 0.0
+    if "farrow" in name:
+        return FARROW_SPLIT_TOL, FARROW_TOL
+    return FILTER_TOL, FILTER_TOL
+
+
+def filter_stream(st, step, x, blocks) -> tuple:
+    """x through ``step`` in the given blocks, the state carried: the
+    concatenated valid output (read back by its count) and the final
+    state."""
+    ys, pos = [], 0
+    for n in blocks:
+        y, k, st = step(st, x[..., pos : pos + n])
+        ys.append(y if k is None else y[..., : int(k)])
+        pos += n
+    return torch.cat(ys, dim=-1), st
+
+
+def empty_block_objects(device) -> dict:
+    """tests/test_torch_empty_block.py's objects on ``device``: name →
+    (object, step(obj, x) → (outputs..., state), real input?)."""
+    b = dict(batch_shape=(2,), device=device)
+    return {
+        "Agc": (Agc.create(bandwidth=0.01, **b), lambda o, x: o.execute_block(x), False),
+        "Symsync": (Symsync.create_rnyquist(FirFilterShape.RRCOS, 2, 7, 0.3, num_filters=32, **b),
+                    lambda o, x: o.execute_slots(x), False),
+        "QamRx": (QamRx.create(**b), lambda o, x: o.step_masked(x), False),
+        "Firpfbch2": (Firpfbch2.create(8, 3, 60.0, **b), lambda o, x: o.analyzer_execute(x),
+                      False),
+        "Firpfbchr": (Firpfbchr.create_kaiser(8, 2, 3, **b), lambda o, x: o.analyzer_execute(x),
+                      False),
+        "Resamp 1.37": (Resamp.create(1.37, **b),
+                        lambda o, x: o.execute_block(x, out_capacity=96), False),
+        "Resamp 2.0": (Resamp.create(2.0, **b),
+                       lambda o, x: o.execute_block(x, out_capacity=136), False),
+        "MsResamp 1.37": (MsResamp.create(1.37, **b), lambda o, x: o.execute_block(x), False),
+        "FirFilter": (FirFilter.create_kaiser(21, 0.2, 60.0, **b),
+                      lambda o, x: o.execute_block(x), False),
+        "RxChain": (RxChain.create(**b), lambda o, x: o.step(x), False),
+        "Freqmod": (Freqmod.create(0.3, **b), lambda o, x: o.modulate(x), True),
+        "Freqdem": (Freqdem.create(0.3, **b), lambda o, x: o.demodulate(x), False),
+        "FmStereoRx": (FmStereoRx.create(kf=0.125, f_pilot=0.095, **b),
+                       lambda o, x: o.step(x), False),
+    }
+
+
+def phase_empty_blocks(device) -> None:
+    """Every repaired object on the card: a block of 0 samples returns no
+    samples (or a count of 0 and zeros) and keeps the state, so [0, 64]
+    equals the block of 64 alone, state included."""
+    rng = np.random.default_rng(3)
+    x = complex_block(rng, (2, EMPTY_N), device)
+    for name, (obj, step, real) in empty_block_objects(device).items():
+        xi = x.real.contiguous() if real else x
+        *y0, o0 = step(obj, xi[..., :0])
+        for y in y0:  # no samples, zeros, a count of 0, or a level over no samples
+            require(y.numel() == 0 or not y.any() or (y.is_floating_point() and y.shape == (2,)),
+                    f"{name}: the empty block's output {tuple(y.shape)}")
+        *ya, oa = step(o0, xi)
+        *yb, ob = step(obj, xi)
+        err = 0.0
+        for a, b in zip(ya + tensors_of(oa), yb + tensors_of(ob)):
+            if a.is_floating_point() or a.is_complex():
+                err = max(err, filter_err(a, b))
+            else:
+                require(torch.equal(a, b), f"{name}: [0, {EMPTY_N}] vs [{EMPTY_N}] integers")
+        print(f"[filters] empty block, {name} on {device}: [0, {EMPTY_N}] = [{EMPTY_N}] within "
+              f"{err:.3e}, outputs and state (<= {FILTER_TOL})")
+        require(err <= FILTER_TOL, f"{name}: [0, {EMPTY_N}] vs [{EMPTY_N}] {err}")
+
+
+def filter_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over max(1, max |b|)."""
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+
+
+def phase_filters(device, card: str) -> None:
+    """The empty-block repairs on the card; then layer L4's streaming
+    filters at config[1]'s width: each streamed over FILTER_BLOCKS (an empty
+    block among them) against one long block, every output and state tensor
+    on the card, and FILTER_CUT channels against the CPU; then each
+    object's device time a block from CUDA events."""
+    phase_empty_blocks(device)
+    rng = np.random.default_rng(2)
+    x = complex_block(rng, (C1, sum(FILTER_BLOCKS)), device)
+    x_cut = x[:FILTER_CUT].cpu()
+    objs = make_filters(C1, T1, device)
+    objs_cpu = make_filters(FILTER_CUT, T1, torch.device("cpu"))
+    for (name, st, step), (_, st_cpu, _) in zip(objs, objs_cpu):
+        tol_split, tol_cpu = filter_tols(name)
+        t0 = time.perf_counter()
+        y, end = filter_stream(st, step, x, FILTER_BLOCKS)
+        y_long, _ = filter_stream(st, step, x, (x.shape[-1],))
+        parts = end if isinstance(end, tuple) else (end,)
+        where = {t.device for p in parts for t in tensors_of(p)} | {y.device}
+        require(where == {device}, f"{name}: tensors on {where}, want {device}")
+        e_split = filter_err(y, y_long)
+        require(y.shape == y_long.shape and e_split <= tol_split,
+                f"{name}: streamed vs one long block {e_split} > {tol_split}")
+        y_cpu, _ = filter_stream(st_cpu, step, x_cut, FILTER_BLOCKS)
+        e_cpu = filter_err(y[:FILTER_CUT].cpu(), y_cpu)
+        require(y_cpu.shape == y[:FILTER_CUT].shape and e_cpu <= tol_cpu,
+                f"{name}: card vs CPU {e_cpu} > {tol_cpu}")
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        xb = x[..., : T1]
+        ms = cuda_ms(lambda: step(st, xb), N_FILTER_TIMED)
+        print(f"[filters] {name}: {C1} x {FILTER_BLOCKS} streamed = one long block within "
+              f"{e_split:.3e} (<= {tol_split}), {FILTER_CUT} channels = the CPU within "
+              f"{e_cpu:.3e} (<= {tol_cpu}); "
+              f"{ms:.4f} ms a block of {C1} x {T1} between CUDA events ({card}); "
+              f"checks {check_s:.1f} s")
+
+
 def phase_timing_config2(device, card: str) -> dict:
     """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
     config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
@@ -1990,6 +2143,7 @@ def main() -> None:
     phase_signal_config2(device)
     phase_parallel(device, smi)
     phase_fft(device)
+    phase_filters(device, smi)
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),

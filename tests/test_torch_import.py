@@ -71,6 +71,20 @@ _MODULES = (
     "yagi_tpu_torch.math.windows",
     "yagi_tpu_torch.utils.psd_validate",
     "yagi_tpu_torch.tools.multihost_worker",
+    "yagi_tpu_torch._src.window",
+    "yagi_tpu_torch.filter._conv",
+    "yagi_tpu_torch.filter.firpfb",
+    "yagi_tpu_torch.filter.firinterp",
+    "yagi_tpu_torch.filter.firdecim",
+    "yagi_tpu_torch.filter.fftfilt",
+    "yagi_tpu_torch.filter.rresamp",
+    "yagi_tpu_torch.filter.misc",
+    "yagi_tpu_torch.filter.farrow",
+    "yagi_tpu_torch.filter._farrow_resamp",
+    "yagi_tpu_torch.filter.resamp",
+    "yagi_tpu_torch.filter.resamp2",
+    "yagi_tpu_torch.filter.msresamp2",
+    "yagi_tpu_torch.nco.osc",
 )
 
 
@@ -98,6 +112,17 @@ def test_new_names_import_alone():
     assert yagi_tpu_torch.parallel.sharded_channelize_stream_fm_to_channels
     assert yagi_tpu_torch.fft.Spgram and yagi_tpu_torch.utils.validate_psd_spgram
     assert yagi_tpu_torch.multichannel.Firpfbch2 and yagi_tpu_torch.multichannel.Firpfbchr
+
+
+def test_l4_names_match_yagi_tpu():
+    """Every streaming filter yagi_tpu.filter exports has its counterpart
+    under the same name."""
+    import yagi_tpu.filter as jf
+    import yagi_tpu_torch.filter as tf
+
+    public = sorted(n for n in vars(jf) if not n.startswith("_") and not inspect.ismodule(
+        getattr(jf, n)))
+    assert [n for n in public if not hasattr(tf, n)] == []
 
 
 def _error_classes(mod):

@@ -23,7 +23,6 @@ from yagi_tpu.filter import Resamp as JResamp
 from yagi_tpu.filter import Symsync as JSymsync
 from yagi_tpu.utils.compact import compact_valid as j_compact
 from yagi_tpu_torch._src.struct import load_state
-from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.filter import MsResamp, Resamp, Symsync
 from yagi_tpu_torch.utils import compact_valid
 
@@ -122,13 +121,22 @@ def test_resamp_execute_block_n_matches_yagi_tpu(n_valid):
 
 
 def test_resamp_farrow_is_stored_but_execute_block_raises():
-    t = Resamp.create(RATE1, interp="farrow", device=DEV)
-    assert t.interp == "farrow"
-    with pytest.raises(ConfigError, match="Farrow"):
-        t.execute_block(torch.zeros(64, dtype=torch.complex64))
-    ms = MsResamp.create(1.5, arbitrary_interp="farrow", device=DEV)
-    with pytest.raises(ConfigError, match="Farrow"):
-        ms.execute_block(torch.zeros(64, dtype=torch.complex64))
+    """``interp="farrow"`` is stored, and execute_block no longer raises: it
+    runs the Farrow values. A Resamp at config[1]'s rate and an
+    interpolating MsResamp at 1.5 equal yagi_tpu's farrow outputs, counts
+    exact, values within 1e-4 of max |y| (tests/test_torch_farrow.py holds
+    the Farrow values in full)."""
+    x = _sig(9, 2, 256)
+    pairs = ((JResamp.create(RATE1, interp="farrow", batch_shape=(2,)),
+              Resamp.create(RATE1, interp="farrow", batch_shape=(2,), device=DEV)),
+             (JMsResamp.create(1.5, batch_shape=(2,), arbitrary_interp="farrow"),
+              MsResamp.create(1.5, batch_shape=(2,), arbitrary_interp="farrow", device=DEV)))
+    for j, t in pairs:
+        assert t.interp == "farrow" if isinstance(t, Resamp) else t.arbitrary.interp == "farrow"
+        yj, kj, j = j.execute_block(jnp.asarray(x))
+        yt, kt, t = t.execute_block(torch.from_numpy(x))
+        assert int(kt) == int(kj)
+        _close(yt, yj, 1e-4)
 
 
 @pytest.mark.parametrize("kind", ["complex", "real", "int"])

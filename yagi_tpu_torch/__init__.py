@@ -15,13 +15,16 @@ receiver :class:`chains.QamRx` (AGC, symsync on K3, LMS equalizer and carrier
 PLL, decisions), three kernels per block; the config[2] FM stereo receiver
 :class:`chains.FmStereoRx` over the IIR family; the distributed layer
 :mod:`parallel` (one process a card over ``torch.distributed``); the FFT
-layer :mod:`fft`; the oversampled and arbitrary-rate channelizers.
+layer :mod:`fft`; the oversampled and arbitrary-rate channelizers; the
+rest of the streaming filter layer L4 (interpolators, decimators, FftFilt,
+Rresamp, Fdelay, OrdFilt, the Farrow filters and resampler values, Dds).
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy): special functions, windows
   fft/      transforms with liquid's conventions, periodograms, DCT/DST
   design/   FIR design: Kaiser, (root-)raised-cosine, PM halfband
-  filter/   streaming FIR, PFB decomposition, resamplers, symbol synchronizer
+  filter/   streaming FIR and IIR filters, polyphase banks, resamplers,
+            interpolators and decimators, symbol synchronizer
   nco/      oscillator, mode "exact"
   agc/      automatic gain control
   equalization/  LMS equalizer

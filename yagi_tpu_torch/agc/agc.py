@@ -197,6 +197,8 @@ class Agc:
         """The block through ``agc_scan``: the kernel wrapper, or with
         ``plain`` its plain version on any device (the chain's oracle)."""
         n = x.shape[-1]
+        if n == 0:  # an empty block: no outputs, the state stands
+            return x.to(torch.complex64 if x.is_complex() else x.dtype), self
         batch = x.shape[:-1]
         C = math.prod(batch)
 

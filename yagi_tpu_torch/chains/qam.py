@@ -184,6 +184,11 @@ class QamRx:
         E = self.slots
         batch = self.theta.shape
         C = math.prod(batch)
+        if n == 0:  # an empty block: no slots, the state stands
+            dev = self.theta.device
+            return (torch.zeros(batch + (0,), dtype=torch.int64, device=dev),
+                    torch.zeros(batch + (0,), dtype=torch.complex64, device=dev),
+                    torch.zeros(batch + (0,), dtype=torch.bool, device=dev), self)
 
         y0, agc = self.agc._run(x, plain)
         y, valid, ss, deferred = self.symsync._run_slots(y0, max_emit=E,

@@ -13,6 +13,7 @@ import torch
 
 from .._src import struct
 from .._src.device import resolve_device
+from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
 from ._conv import causal_conv_valid, np_taps
@@ -114,7 +115,7 @@ class FirFilter:
         """Push a block without producing output (firfilt.rs:230)."""
         x = torch.as_tensor(x, dtype=self.window.dtype, device=self.window.device)
         xa = torch.cat([self.window, x], dim=-1)
-        return self.replace(window=xa[..., xa.shape[-1] - self.h_len :])
+        return self.replace(window=carry(self.window, xa))
 
     def execute(self) -> torch.Tensor:
         """Output for the current window (firfilt.rs:241): Σ h[k]·w[newest-k]."""
@@ -136,7 +137,7 @@ class FirFilter:
         x = torch.as_tensor(x, device=self.window.device)
         xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
         y = causal_conv_valid(xa, self.h) * self.scale
-        return y, self.replace(window=xa[..., xa.shape[-1] - self.h.shape[0] :])
+        return y, self.replace(window=carry(self.window, xa))
 
     __call__ = execute_block
 

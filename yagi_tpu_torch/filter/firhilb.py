@@ -15,6 +15,7 @@ import torch
 
 from .._src import struct
 from .._src.device import resolve_device
+from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
 from ._conv import causal_conv_valid
@@ -72,13 +73,13 @@ class FirHilbertFilter:
         # window holds 2m samples; conv left-context is the last 2m-1
         xa = torch.cat([w, xs], dim=-1)
         y = causal_conv_valid(xa[..., 1:], self.hq)
-        return y, xa[..., xa.shape[-1] - 2 * self.m :]
+        return y, carry(w, xa)
 
     def _delay_branch(self, w, xs):
         xa = torch.cat([w, xs], dim=-1)
         n = xs.shape[-1]
         y = xa[..., self.m : self.m + n]
-        return y, xa[..., xa.shape[-1] - 2 * self.m :]
+        return y, carry(w, xa)
 
     def decim_execute_block(self, x) -> tuple[torch.Tensor, "FirHilbertFilter"]:
         """Real [..., 2N] → complex [..., N] (firhilb.rs:190-226).

@@ -13,11 +13,12 @@ ungrouped samples is placed and taken with device-side indices, so a stream
 of blocks never waits on the host. ``execute`` is the host-compacting
 convenience wrapper.
 
-With ``arbitrary_interp="farrow"`` a decimating MsResamp runs as yagi_tpu's
-does: its arbitrary stage is ``Resamp.execute_block_n``, the 256-branch PFB
-gather, whatever ``interp`` says. An interpolating one calls
-``Resamp.execute_block``, which raises for "farrow" until the Farrow values
-are ported.
+With ``arbitrary_interp="farrow"`` an interpolating MsResamp's arbitrary
+stage (``Resamp.execute_block``) takes its values from the prototype FIR and
+a Farrow interpolator at the exact u32 times (filter/_farrow_resamp.py); a
+decimating one runs as yagi_tpu's does: its arbitrary stage is
+``Resamp.execute_block_n``, the 256-branch PFB gather, whatever ``interp``
+says.
 """
 
 from __future__ import annotations
@@ -89,6 +90,27 @@ class MsResamp:
             carry=torch.zeros(batch_shape + (1 << num_hb,), dtype=dtype, device=device),
             carry_len=torch.zeros((), dtype=torch.int64, device=device),
         )
+
+    def reset(self) -> "MsResamp":
+        return self.replace(
+            halfband=self.halfband.reset(),
+            arbitrary=self.arbitrary.reset(),
+            carry=torch.zeros_like(self.carry),
+            carry_len=torch.zeros_like(self.carry_len),
+        )
+
+    def get_rate(self) -> float:
+        return self.rate
+
+    def get_delay(self) -> float:
+        """Composite delay (msresamp.rs:91-105)."""
+        dh = self.halfband.get_delay()
+        da = float(self.arbitrary.get_delay())
+        if self.num_halfband_stages == 0:
+            return da
+        if self.interp:
+            return dh / self.rate_arbitrary + da
+        return dh + (1 << self.num_halfband_stages) * da
 
     def get_num_output(self, num_input: int) -> int:
         """Exact output count (msresamp.rs:113-124); host-side, reads the

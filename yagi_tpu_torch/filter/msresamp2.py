@@ -2,7 +2,9 @@
 
 Port of :mod:`yagi_tpu.filter.msresamp2` (reference: msresamp2.rs): a
 cascade of ≤16 :class:`Resamp2` stages with the per-stage fc/As schedule of
-msresamp2.rs:67-91, chained through their valid-prefix block forms.
+msresamp2.rs:67-91, chained through their block forms (each stage halves or
+doubles the length), or their valid-prefix forms for a fixed-capacity
+buffer with a count on the device.
 """
 
 from __future__ import annotations
@@ -53,6 +55,47 @@ class MsResamp2:
                                          dtype=dtype, device=device))
         return cls(interp=interp, num_stages=num_stages, stages=tuple(stages))
 
+    def reset(self) -> "MsResamp2":
+        return self.replace(stages=tuple(s.reset() for s in self.stages))
+
+    def get_rate(self) -> float:
+        r = float(1 << self.num_stages)
+        return r if self.interp else 1.0 / r
+
+    def get_delay(self) -> float:
+        """Composite delay (msresamp2.rs:121-137)."""
+        delay = 0.0
+        if self.interp:
+            for i in range(self.num_stages):
+                delay = 0.5 * delay + self.stages[self.num_stages - i - 1].m
+        else:
+            for i in range(self.num_stages):
+                delay = 2.0 * delay + (2.0 * self.stages[i].m - 1.0)
+        return delay
+
+    def _zeta(self, device) -> torch.Tensor:
+        """The decimator's 1/2^k output scaling (msresamp2.rs:57,196)."""
+        return torch.tensor(1.0 / (1 << self.num_stages), dtype=torch.float32, device=device)
+
+    def execute_block(self, x):
+        """Interp: N → N·2^k (stage 0 first); decim: N·2^k → N (stage k-1
+        first), the stage order of msresamp2.rs:155-199. Returns (y, state)."""
+        if self.num_stages == 0:
+            return x, self
+        x = torch.as_tensor(x, device=self.stages[0].h1.device)
+        new_stages = list(self.stages)
+        y = x
+        if self.interp:
+            for s in range(self.num_stages):
+                y, new_stages[s] = new_stages[s].interp_execute_block(y)
+        else:
+            for s in range(self.num_stages - 1, -1, -1):
+                y, new_stages[s] = new_stages[s].decim_execute_block(y)
+            y = y * self._zeta(y.device)
+        return y, self.replace(stages=tuple(new_stages))
+
+    __call__ = execute_block
+
     def execute_block_n(self, x, n_valid):
         """Valid-prefix form: x [..., cap] with the first ``n_valid`` samples
         real (an int or a 0-d integer tensor on x's device) → (y, n_out,
@@ -73,6 +116,5 @@ class MsResamp2:
         else:
             for s in range(self.num_stages - 1, -1, -1):
                 y, n, new_stages[s] = new_stages[s].decim_execute_block_n(y, n)
-            y = y * torch.tensor(1.0 / (1 << self.num_stages), dtype=torch.float32,
-                                 device=y.device)
+            y = y * self._zeta(y.device)
         return y, n, self.replace(stages=tuple(new_stages))

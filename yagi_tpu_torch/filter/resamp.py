@@ -13,6 +13,11 @@ semantics. Outputs are a frame gather plus one batched contraction, or, while
 the schedule is provably periodic with phase 0 at block edges, one banded
 matmul (filter/_sched.py).
 
+With ``interp="farrow"`` the values come from the prototype FIR and a
+designed Farrow interpolator at the exact u32 times
+(filter/_farrow_resamp.py), yagi_tpu's production mode for truly arbitrary
+rates: the schedule, counts and state stay the u32 ones.
+
 Because the output count depends on the carried phase, the block calls return
 a fixed-capacity buffer plus the exact count.
 """
@@ -27,12 +32,14 @@ import torch
 from .._src import struct
 from .._src.device import resolve_device
 from .._src.struct import U32
+from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
 from ..math.special import nextpow2
 from ..nco.osc import _rotate_down
+from ._farrow_resamp import farrow_resample_values
 from ._sched import sched_banded_matmul, sched_matmul_ok, u32_static_schedule
-from .firpfb import pfb_decompose
+from .firpfb import branch_dots, pfb_decompose
 
 __all__ = ["Resamp"]
 
@@ -63,11 +70,19 @@ class Resamp:
     # banded-matmul fast path applies. Cleared (None) by a block that can
     # leave a nonzero phase.
     exact_sched: tuple | None = struct.static_field(default=None)
-    # "pfb": the reference's 256-branch evaluation. "farrow" (yagi_tpu's TPU
-    # production mode) is stored, so a farrow MsResamp's decimation stage
-    # (execute_block_n, which always runs the PFB gather) works; its
-    # execute_block raises until the Farrow values are ported.
+    # prototype cutoff (create-time fc; sizes the Farrow design band)
+    fc: float = struct.static_field(default=0.25)
+    # "pfb": the reference's 256-branch evaluation (banded fast path while
+    # exact_sched holds, else the u32 frame gather). "farrow": the prototype
+    # FIR and a designed polynomial interpolator at the exact u32 times
+    # (filter/_farrow_resamp.py), values within the reference's own 1/256
+    # branch rounding
     interp: str = struct.static_field(default="pfb")
+    # the u32 step as a host int while it is known there (create, set_rate
+    # with a Python number, reset back to the nominal step); the Farrow
+    # path sizes its exact head and tail from it, and without it runs the
+    # PFB gather
+    step_cert: int | None = struct.static_field(default=None)
 
     # ------------------------------------------------------------------ ctors
     @classmethod
@@ -85,9 +100,9 @@ class Resamp:
     ) -> "Resamp":
         """Design the PFB prototype and initialize state (resamp.rs:24-71).
 
-        ``interp`` is stored (see the field comment): with ``"farrow"``,
-        :meth:`execute_block` raises :class:`ConfigError`, and
-        :meth:`execute_block_n` runs the PFB gather as yagi_tpu's does.
+        ``interp="farrow"`` selects the Farrow values for :meth:`execute_block`
+        (see the field comment); :meth:`execute_block_n` runs the PFB gather
+        for either mode, as yagi_tpu's does.
         """
         device = resolve_device(device)
         if interp not in ("pfb", "farrow"):
@@ -123,11 +138,20 @@ class Resamp:
                 batch_shape + (branches.shape[1],), dtype=dtype, device=device
             ),
             exact_sched=_pq_of_step(step),
+            fc=float(fc),
             interp=interp,
+            step_cert=step,
         )
         return obj._check_rate(rate)
 
+    @classmethod
+    def create_default(cls, rate: float, **kw) -> "Resamp":
+        """Default parameters (resamp.rs:73-84)."""
+        return cls.create(rate, m=7, fc=0.25, as_=60.0, npfb=256, **kw)
+
     def _check_rate(self, rate: float) -> "Resamp":
+        if rate <= 0.0:
+            raise ConfigError("resampling rate must be greater than zero")
         if rate < 0.004 or rate > 250.0:
             raise ConfigError("resampling rate must be in [0.004,250]")
         return self
@@ -140,6 +164,52 @@ class Resamp:
     @property
     def sub_len(self) -> int:
         return self.branches.shape[1]
+
+    def get_delay(self) -> int:
+        return self.m
+
+    def get_rate(self):
+        return self.rate
+
+    # ---------------------------------------------------------------- control
+    def reset(self) -> "Resamp":
+        """Phase and window to 0. With the phase 0 again, the static-schedule
+        certificate and the Farrow step come back when the step still
+        equals the create-time nominal step (reads the step back once)."""
+        sched, cert = self.exact_sched, self.step_cert
+        if sched is None:
+            nominal = int(np.round((1 << 24) / self.nominal_rate))
+            if int(self.step) == nominal:
+                sched, cert = _pq_of_step(nominal), nominal
+        return self.replace(phase=torch.zeros_like(self.phase),
+                            window=torch.zeros_like(self.window),
+                            exact_sched=sched, step_cert=cert)
+
+    def set_rate(self, rate) -> "Resamp":
+        """Update the rate; step = round(2^24 / r) (resamp.rs:95-106).
+
+        A Python number is range-checked and rounded in float64 as in
+        :meth:`create`, and certifies the step for the Farrow path; a tensor
+        (a rate computed on the device) is rounded in float32 and leaves the
+        step uncertified. Either clears ``exact_sched``: the carried phase
+        may be nonzero.
+        """
+        dev = self.rate.device
+        if isinstance(rate, (int, float)):
+            self._check_rate(float(rate))
+            cert = int(np.round((1 << 24) / float(rate)))
+            r = torch.tensor(rate, dtype=torch.float32, device=dev)
+            step = torch.tensor(cert & U32, dtype=torch.int64, device=dev)
+        else:
+            cert = None
+            r = torch.as_tensor(rate, dtype=torch.float32, device=dev)
+            step = torch.round((1 << 24) / r).to(torch.int64).clamp(0, U32)
+        return self.replace(rate=r, step=step, exact_sched=None, step_cert=cert)
+
+    def adjust_rate(self, gamma) -> "Resamp":
+        """Multiplicative rate adjustment (resamp.rs:112)."""
+        return self.set_rate(
+            self.rate * torch.as_tensor(gamma, dtype=torch.float32, device=self.rate.device))
 
     def get_num_output(self, num_input: int) -> int:
         """Exact output count for the next num_input samples (resamp.rs:128);
@@ -193,49 +263,57 @@ class Resamp:
             return s
         return None
 
-    def _u32_path(self, xa, n: int, out_capacity: int, consumed=None):
-        """General u32 schedule over a buffer of n input samples, of which
-        the first ``consumed`` (default n; may be a 0-d device tensor) are
-        consumed: (y unmasked, valid, num_output, new_phase)."""
-        dev = xa.device
-        L = self.sub_len
-        consumed = n if consumed is None else consumed
+    def _schedule(self, out_capacity: int, consumed):
+        """The u32 emission schedule of a block that consumes ``consumed``
+        inputs (an int or a 0-d device tensor): (n_m source indices, branch,
+        low 32 phase bits, valid, num_output, new_phase), each [cap] or 0-d."""
         # one extra index so lo[num_output] is always in range (phase carry)
-        m_idx = torch.arange(out_capacity + 1, dtype=torch.int64, device=dev)
+        m_idx = torch.arange(out_capacity + 1, dtype=torch.int64, device=self.phase.device)
         acc = self.phase + m_idx * self.step  # exact 64-bit phase0 + m·step
         lo_full = acc & U32
         n_m = (acc >> 24)[:out_capacity]  # source sample index
-        branch = (lo_full[:out_capacity] >> (24 - self.bits)) & (self.npfb - 1)
+        lo = lo_full[:out_capacity]
+        branch = (lo >> (24 - self.bits)) & (self.npfb - 1)
         valid = n_m < consumed
         num_output = valid.sum()
-
-        starts = n_m.clamp(0, n - 1)  # frame m = xa[s : s+L]
-        frame_idx = starts[:, None] + torch.arange(L, device=dev)[None, :]
-        frames = xa[..., frame_idx]  # [..., cap, L] oldest..newest
-        hb = self.branches[branch].flip(-1).to(frames.dtype)  # [cap, L]
-        y = torch.einsum("...cl,cl->...c", frames, hb)
         # phase' = (phase + num_output·step) - consumed·2^24 (mod 2^32),
         # resamp.rs:149-151; a gather, not lo_full[num_output], which would
         # read the count back to the host
         lo_out = lo_full.gather(0, num_output.reshape(1))[0]
         new_phase = (lo_out - ((consumed & 0xFF) << 24)) & U32
+        return n_m, branch, lo, valid, num_output, new_phase
+
+    def _u32_path(self, xa, n: int, out_capacity: int, consumed=None):
+        """General u32 schedule over a buffer of n input samples, of which
+        the first ``consumed`` (default n) are consumed: (y unmasked, valid,
+        num_output, new_phase)."""
+        consumed = n if consumed is None else consumed
+        n_m, branch, _, valid, num_output, new_phase = self._schedule(out_capacity, consumed)
+        y = branch_dots(xa, self.branches, n_m.clamp(0, n - 1), branch)  # frame m = xa[s : s+L]
         return y, valid, num_output, new_phase
+
+    def _empty(self, x, out_capacity: int):
+        """An empty block's result: out_capacity zeros and a count of 0."""
+        dt = torch.promote_types(x.dtype, self.branches.dtype)
+        return (torch.zeros(x.shape[:-1] + (out_capacity,), dtype=dt, device=x.device),
+                torch.zeros((), dtype=torch.int64, device=x.device))
 
     # ------------------------------------------------------------- streaming
     def execute_block(self, x, out_capacity: int | None = None):
         """Resample a block (resamp.rs:156-165).
 
         Returns (y, num_output, state): y has static length ``out_capacity``
-        with valid samples in y[..., :num_output] and zeros beyond.
+        with valid samples in y[..., :num_output] and zeros beyond. A block
+        of 0 samples returns zeros and a count of 0 and keeps the state.
         """
-        if self.interp == "farrow":
-            raise ConfigError("Farrow values not ported yet: interp='farrow' has no execute_block")
+        x = torch.as_tensor(x, device=self.window.device)
         n = x.shape[-1]
         if out_capacity is None:
             out_capacity = self.out_capacity(n)
-        L = self.sub_len
+        if n == 0:
+            return (*self._empty(x, out_capacity), self)
         xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        new_window = xa[..., xa.shape[-1] - L :]
+        new_window = carry(self.window, xa)
 
         fast = self._static_fast(xa, n, out_capacity)
         if fast is not None:
@@ -243,8 +321,13 @@ class Resamp:
             count = torch.full((), n_out, dtype=torch.int64, device=x.device)
             return y, count, self.replace(window=new_window)
 
-        y, valid, num_output, new_phase = self._u32_path(xa, n, out_capacity)
-        y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
+        n_m, branch, lo, valid, num_output, new_phase = self._schedule(out_capacity, n)
+        if self.interp == "farrow" and self.step_cert is not None:
+            y = farrow_resample_values(xa, self.branches, self.step_cert, n, n_m, branch, lo,
+                                       valid, band=round(min(0.42, 1.4 * self.fc), 3))
+        else:
+            y = branch_dots(xa, self.branches, n_m.clamp(0, n - 1), branch)
+            y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
         return y, num_output, self.replace(
             phase=new_phase,
             window=new_window,
@@ -252,6 +335,11 @@ class Resamp:
         )
 
     __call__ = execute_block
+
+    def execute(self, x_one):
+        """One input sample [...] (resamp.rs:141): (y [..., cap], count, state)."""
+        x_one = torch.as_tensor(x_one, device=self.window.device)
+        return self.execute_block(x_one[..., None])
 
     def execute_block_n(self, x, n_valid, out_capacity: int | None = None):
         """Valid-prefix variant of :meth:`execute_block`: only the first
@@ -292,9 +380,10 @@ class Resamp:
         n = x.shape[-1]
         if out_capacity is None:
             out_capacity = self.out_capacity(n)
-        L = self.sub_len
+        if n == 0:  # an empty block: zeros, a count of 0, both states stand
+            return (*self._empty(x, out_capacity), self, osc)
         xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        new_window = xa[..., xa.shape[-1] - L :]
+        new_window = carry(self.window, xa)
         zero = torch.zeros((), dtype=xa.dtype, device=xa.device)
 
         fast = self._static_fast(xa, n, out_capacity)

@@ -284,6 +284,11 @@ class Symsync:
         L = self.mf.shape[1]
         dev = self.tau.device
 
+        if n == 0:  # an empty block: no slots, the state stands
+            dt = torch.complex64 if self.window.is_complex() else torch.float32
+            return (torch.zeros(batch + (0, E), dtype=dt, device=dev),
+                    torch.zeros(batch + (0, E), dtype=torch.bool, device=dev), self,
+                    torch.zeros(batch, dtype=torch.int32, device=dev))
         xa = torch.cat([self.window.reshape(C, L), x.reshape(C, n).to(self.window.dtype)], -1)
         if n_valid is not None:
             n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)

@@ -15,6 +15,7 @@ import torch
 
 from .._src import struct
 from .._src.device import resolve_device
+from .._src.window import last
 from ..errors import ConfigError
 
 __all__ = ["Freqmod", "Freqdem"]
@@ -62,7 +63,7 @@ class Freqmod:
         inc = torch.round(ref * m).to(torch.int32).to(torch.int64)
         phase16 = (self.phase[..., None] + torch.cumsum(inc, dim=-1)) & 0xFFFF
         index = ((phase16 + 0x0020) >> 6) & 0x03FF
-        return self.table[index], self.replace(phase=phase16[..., -1])
+        return self.table[index], self.replace(phase=last(phase16, self.phase))
 
     modulate_block = modulate
     __call__ = modulate
@@ -99,7 +100,7 @@ class Freqdem:
         ref = float(np.float32(1.0 / (2.0 * np.pi * self.kf)))
         m = torch.angle(prev.conj() * r) * ref
         # a copy, so the state does not alias the caller's buffer
-        return m, self.replace(r_prime=r[..., -1].clone())
+        return m, self.replace(r_prime=last(r, self.r_prime).clone())
 
     demodulate_block = demodulate
     __call__ = demodulate

@@ -319,7 +319,7 @@ class Modem:
             return pts, self
         rot = torch.cumprod(pts, dim=-1)
         y = torch.polar(torch.ones_like(self.phi), self.phi)[..., None] * rot
-        return y, self.replace(phi=torch.angle(y[..., -1]))
+        return y, self.replace(phi=torch.angle(y[..., -1]) if y.shape[-1] else self.phi)
 
     # ------------------------------------------------------------ demodulate
     def _nearest(self, x: torch.Tensor) -> torch.Tensor:
@@ -334,6 +334,8 @@ class Modem:
             _not_ported("demodulate for differential schemes")
         x = torch.as_tensor(x, device=self.table.device).to(torch.complex64)
         sym = self._nearest(x)
+        if sym.shape[-1] == 0:  # an empty block: the state stands
+            return sym, self
         return sym, self.replace(r=x[..., -1], x_hat=self.table[sym[..., -1]])
 
     def get_demodulator_sample(self):

@@ -23,6 +23,7 @@ import torch
 from .._src import struct
 from .. import design
 from .._src.device import resolve_device
+from .._src.window import carry
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
 
@@ -182,9 +183,8 @@ class Firpfbch:
         y = _idft(u) * (M * self.scale)
 
         new = self.replace(
-            window=xb[..., xb.shape[-1] - (self.p - 1) :].contiguous() if self.p > 1
-            else self.window,
-            raw_tail=xa[..., xa.shape[-1] - (M - 1) :].contiguous(),
+            window=carry(self.window, xb).contiguous(),
+            raw_tail=carry(self.raw_tail, xa).contiguous(),
         )
         return y, new
 
@@ -199,8 +199,7 @@ class Firpfbch:
         v = _grouped_branch_conv(xb, self.branches)  # [..., M, n]
         x = v.transpose(-1, -2).reshape(ych.shape[:-2] + (n * M,)) * self.scale
         new = self.replace(
-            window=xb[..., xb.shape[-1] - (self.p - 1) :].contiguous() if self.p > 1
-            else self.window,
+            window=carry(self.window, xb).contiguous(),
         )
         return x, new
 
@@ -264,6 +263,8 @@ class Firpfbch2:
             raise ConfigError(f"input length must be a multiple of M/2={half}")
         T = total // half
         L = self.p * M
+        if T == 0:  # an empty block: no outputs, the state stands
+            return x.new_zeros(x.shape[:-1] + (M, 0)), self
 
         xa = torch.cat([self.hist, x], dim=-1)  # [..., L-1+T·half]
         c = _sliding_residue_conv(xa, self.branches, half)  # [..., T, M]
@@ -273,7 +274,7 @@ class Firpfbch2:
         y = (Y * _twiddle(M, e) * self.scale).transpose(-1, -2)  # [..., M, T]
 
         new = self.replace(
-            hist=xa[..., xa.shape[-1] - (L - 1) :].clone(),
+            hist=carry(self.hist, xa).clone(),
             step_parity=(self.step_parity + T) % 2,
         )
         return y, new

@@ -17,6 +17,7 @@ import torch
 
 from .._src import struct
 from .._src.device import resolve_device
+from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
 from ..filter.firpfb import pfb_decompose
@@ -96,6 +97,8 @@ class Firpfbchr:
             raise ConfigError(f"input length must be a multiple of P={P}")
         T = total // P
         L = self.p * M
+        if T == 0:  # an empty block: no outputs, the state stands
+            return x.new_zeros(x.shape[:-1] + (M, 0)), self
 
         xa = torch.cat([self.hist, x], dim=-1)  # [..., L-1+T·P]
         c = _sliding_residue_conv(xa, self.branches, P)  # [..., T, M]
@@ -105,7 +108,7 @@ class Firpfbchr:
         y = (Y * _twiddle(M, e) * self.scale).transpose(-1, -2)  # [..., M, T]
 
         new = self.replace(
-            hist=xa[..., xa.shape[-1] - (L - 1) :].clone(),
+            hist=carry(self.hist, xa).clone(),
             sample_count=(self.sample_count + T * P) % M,
         )
         return y, new

@@ -7,8 +7,9 @@ and masked after every update. Block mixing vectorizes the phase ramp
 (osc.rs:161-188).
 
 Only the ``"exact"`` synthesis mode (sin/cos of the phase, no table) is
-ported, without the PLL; the ``"nco"`` and ``"vco"`` lookup-table modes
-raise :class:`ConfigError` until they are.
+ported, with its controls and single-sample and block mixers, without the
+PLL; the ``"nco"`` and ``"vco"`` lookup-table modes raise
+:class:`ConfigError` until they are.
 """
 
 from __future__ import annotations
@@ -60,6 +61,12 @@ def _rotate_down(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return x * torch.complex(c, -s)
 
 
+def _rotate_up(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """x · e^{+jθ} for a u32 phase θ."""
+    s, c = _sin_cos(theta)
+    return x * torch.complex(c, s)
+
+
 @struct.state
 class Osc:
     """Oscillator state (osc.rs:27-33)."""
@@ -84,12 +91,50 @@ class Osc:
         )
 
     # ----------------------------------------------------------------- control
+    def reset(self) -> "Osc":
+        return self.replace(theta=torch.zeros_like(self.theta),
+                            d_theta=torch.zeros_like(self.d_theta))
+
     def set_frequency(self, dtheta) -> "Osc":
         """Frequency in radians/sample (osc.rs:66)."""
         return self.replace(d_theta=constrain_phase(dtheta, self.theta.device))
 
+    def adjust_frequency(self, df) -> "Osc":
+        return self.replace(d_theta=(self.d_theta + constrain_phase(df, self.theta.device)) & U32)
+
     def set_phase(self, phi) -> "Osc":
         return self.replace(theta=constrain_phase(phi, self.theta.device))
+
+    def adjust_phase(self, dphi) -> "Osc":
+        return self.replace(theta=(self.theta + constrain_phase(dphi, self.theta.device)) & U32)
+
+    def step(self) -> "Osc":
+        """Advance one sample (osc.rs:86)."""
+        return self._advance(1)
+
+    def get_phase(self) -> torch.Tensor:
+        """Phase in [0, 2π) (osc.rs:91)."""
+        return self.theta.to(torch.float32) * PHASE_TO_RAD
+
+    def get_frequency(self) -> torch.Tensor:
+        """Frequency in (-π, π] (osc.rs:96)."""
+        d = self.d_theta.to(torch.float32) * PHASE_TO_RAD
+        return torch.where(d > np.pi, d - _TWO_PI, d)
+
+    # ------------------------------------------------------------- synthesis
+    def sin(self) -> torch.Tensor:
+        return _sin_cos(self.theta)[0]
+
+    def cos(self) -> torch.Tensor:
+        return _sin_cos(self.theta)[1]
+
+    def sin_cos(self):
+        return _sin_cos(self.theta)
+
+    def cexp(self) -> torch.Tensor:
+        """exp(jθ) (osc.rs:130)."""
+        s, c = _sin_cos(self.theta)
+        return torch.complex(c, s)
 
     # ---------------------------------------------------------------- mixing
     def _phase_ramp(self, n: int) -> torch.Tensor:
@@ -98,6 +143,26 @@ class Osc:
 
     def _advance(self, n) -> "Osc":
         return self.replace(theta=(self.theta + n * self.d_theta) & U32)
+
+    def mix_up(self, x) -> torch.Tensor:
+        """Single-sample up-mix (osc.rs:155)."""
+        return torch.as_tensor(x, device=self.theta.device) * self.cexp()
+
+    def mix_down(self, x) -> torch.Tensor:
+        """Single-sample down-mix (osc.rs:173)."""
+        return _rotate_down(torch.as_tensor(x, device=self.theta.device), self.theta)
+
+    def mix_block_up(self, x) -> tuple[torch.Tensor, "Osc"]:
+        """Block up-mix (osc.rs:161); advances the phase by N samples."""
+        x = torch.as_tensor(x, device=self.theta.device)
+        n = x.shape[-1]
+        return _rotate_up(x, self._phase_ramp(n)), self._advance(n)
+
+    def mix_block_up_n(self, x, n_valid) -> tuple[torch.Tensor, "Osc"]:
+        """Up-mix a fixed-capacity buffer whose first ``n_valid`` samples are
+        real; the phase advances by n_valid (variable-rate stages)."""
+        x = torch.as_tensor(x, device=self.theta.device)
+        return _rotate_up(x, self._phase_ramp(x.shape[-1])), self._advance(n_valid)
 
     def mix_block_down(self, x) -> tuple[torch.Tensor, "Osc"]:
         """Block down-mix (osc.rs:179); advances the phase by N samples."""

@@ -1,6 +1,7 @@
 """The shapes and inputs of the config[0], config[4], config[1], config[3]
-and config[2] paths, in one place for ``chip_smoke.py`` and the tools that
-time those paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
+and config[2] paths, and the streaming filters of layer L4 at config[1]'s
+width, in one place for ``chip_smoke.py`` and the tools that time those
+paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,9 @@ import numpy as np
 import torch
 
 from ..chains import FmStereoRx, FusedRxChain, QamRx
-from ..filter import MsResamp, Symsync
+from ..design import fir_design_kaiser
+from ..filter import (Dds, Fdelay, FftFilt, FirDecimationFilter, FirInterpolationFilter,
+                      MsResamp, OrdFilt, Rresamp, Symsync)
 from ..multichannel import FusedChannelizer
 
 # config[0] (bench.py:44-82): 64-tap Kaiser FIR → 2× interpolator → mix-down
@@ -82,3 +85,49 @@ def fm_block(rng, shape, device) -> torch.Tensor:
     parts, then imaginary parts, from ``rng``, as complex64 × 0.1."""
     x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     return torch.from_numpy(x * FM_SCALE).to(device)
+
+
+def make_filters(c: int, n: int, device) -> list:
+    """Layer L4's streaming filters over c channels, for blocks of n complex
+    samples (FftFilt's block size): (name, state, step), ``step(state, x) →
+    (y, count, state)``, a resampler's fixed-capacity output and its count
+    on the device, or the block's output and None. OrdFilt takes the real
+    part of its block."""
+    batch = (c,)
+
+    def block(call):
+        def step(st, x):
+            y, st = call(st, x)
+            return y, None, st
+        return step
+
+    def interp_decim(st, x):
+        y, fi = st[0].execute_block(x)
+        y, fd = st[1].execute_block(y)
+        return y, (fi, fd)
+
+    cplx = dict(batch_shape=batch, dtype=torch.complex64, device=device)
+    return [
+        ("FirInterpolationFilter -> FirDecimationFilter (kaiser, 2x, m 7, 60 dB)",
+         (FirInterpolationFilter.create_kaiser(2, 7, 60.0, **cplx),
+          FirDecimationFilter.create_kaiser(2, 7, 60.0, **cplx)),
+         block(interp_decim)),
+        (f"FftFilt (64-tap Kaiser, n {n})",
+         FftFilt.create(fir_design_kaiser(64, 0.2, 60.0), n, **cplx),
+         block(lambda st, x: st.execute_blocks(x))),
+        ("Rresamp (P/Q 3/2)", Rresamp.create_kaiser(3, 2, batch_shape=batch, device=device),
+         block(lambda st, x: st.execute_block(x))),
+        ("Fdelay (nmax 16, delay 3.7)",
+         Fdelay.create(16, batch_shape=batch, device=device).set_delay(3.7),
+         block(lambda st, x: st.execute_block(x))),
+        ("OrdFilt (medfilt, m 3)", OrdFilt.create_medfilt(3, batch_shape=batch, device=device),
+         block(lambda st, x: st.execute_block(x.real))),
+        ("Dds decim (2 stages, fc 0.1)", Dds.create(2, 0.1, batch_shape=batch, device=device),
+         block(lambda st, x: st.decim_execute(x))),
+        ("Dds interp (2 stages, fc 0.1)", Dds.create(2, 0.1, batch_shape=batch, device=device),
+         block(lambda st, x: st.interp_execute(x))),
+        ("MsResamp interp farrow (rate 2.0663/2)",
+         MsResamp.create(2.0663 / 2, batch_shape=batch, arbitrary_interp="farrow",
+                         device=device),
+         lambda st, x: st.execute_block(x)),
+    ]

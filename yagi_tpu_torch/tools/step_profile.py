@@ -26,7 +26,13 @@ between CUDA events, the host's time to enqueue a step, then a
   ``4f``, the unsharded Firpfbch → Freqdem over the same 4 blocks a step,
   state carried.
 
-``--configs`` picks some of them (default all), for example ``4,1p``.
+* ``l4``: each of layer L4's streaming filters of ``chip_smoke.py``'s
+  ``[filters]`` phase (:func:`.paths.make_filters`) at config[1]'s width,
+  1024 channels × 4096 samples a block, state carried, one measurement
+  each.
+
+``--configs`` picks some of them (default all but ``l4``), for example
+``4,1p``.
 
 The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
@@ -180,6 +186,21 @@ def config2(device):
     return step
 
 
+def filter_steps(device) -> list:
+    """(name, step) of each L4 filter, over four config[1]-width blocks."""
+    xs = blocks(C1, T1, device)
+    out = []
+    for name, st, call in paths.make_filters(C1, T1, device):
+        state = [st, 0]
+
+        def step(state=state, call=call):
+            state[0] = call(state[0], xs[state[1] % 4])[2]
+            state[1] += 1
+
+        out.append((f"L4 {name}", step))
+    return out
+
+
 def measure(name: str, step, steps: int) -> None:
     for _ in range(3):
         step()
@@ -228,6 +249,10 @@ def main(argv=None) -> None:
                args.steps),
     }
     for key in args.configs.split(","):
+        if key == "l4":
+            for name, step in filter_steps(device):
+                measure(name, step, args.steps)
+            continue
         name, make, steps = runs[key]
         measure(name, make(), steps)
     if dist.is_initialized():
