@@ -41,9 +41,16 @@ Six paths of the port, yagi_tpu_torch, each at its real size:
 * the streaming filters of layer L4 at config[1]'s width (1024 channels,
   blocks of 4096 complex samples): the Kaiser interpolator and decimator,
   FftFilt, Rresamp, Fdelay, OrdFilt, Dds, and an interpolating farrow
-  MsResamp (plain torch: no kernel lies on this path).
+  MsResamp (plain torch: no kernel lies on this path);
+* a capture file onto the card: config[4]'s stream as a ci16 file read by
+  the native loader yagi_tpu_torch.native.IqStreamLoader (native/*.cpp,
+  built with g++ into build/) into pinned buffers, copied to the card and
+  fed to FusedChannelizer (K2) → Freqdem;
+* the tensor-valued parts of layer L0: the samplers of
+  yagi_tpu_torch.random on a CUDA generator, dotprod, Modem.random_symbols,
+  and OrdFilt on complex samples.
 
-Ten phases:
+Twelve phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
@@ -99,17 +106,29 @@ Ten phases:
    first 64 channels equal to the CPU run (1e-5 of max(1, |y|), OrdFilt
    exactly; the Farrow values 1e-4 against the CPU, 0.03 against one long
    block), and each object's device time a block;
-10. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+10. capture: 16 config[4] blocks of 2^21 samples as a 128 MiB ci16 file
+   (bench.py's seed 1, ×1/8) through IqStreamLoader → K2 → Freqdem, every
+   block, output and the carried state equal bit for bit to the same
+   samples fed from memory, total_read exact, K2's launches on the file
+   feed (printed on their own line; the kernels line keeps config[4]'s);
+   the loader's rate alone and the chain's from memory and from the file;
+   a 7,000-sample round trip in cf32, ci16 and cu8 (an EOF tail);
+11. l0: every sampler of random/ at 2^22 draws on a CUDA generator against
+   its cdf at the deciles (0.02), the same seed equal and another not,
+   cawgn's power (5%), dotprod against the CPU, Modem.random_symbols for
+   M = 16 (range, chi-square), OrdFilt on complex64 at 1024 × [4096, 0,
+   4096] against the CPU bit for bit; the phase's time;
+12. timing with CUDA events: each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
    one eager call at config[2]'s shape, and the config[0], config[4],
    config[1], config[3] and config[2] steps.
 
-Prints one line per check, a JSON line of per-kernel results (with each
-kernel's bound at its path's shape: bytes at 3.35 TB/s or fp32 operations
-at 67 TFLOP/s, whichever is longer), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+Prints one line per check, the seconds spent by stretch of phases, a JSON
+line of per-kernel results (with each kernel's bound at its path's shape:
+bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is longer),
+the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero; so does a machine without a CUDA device. Run it from
 anywhere: ``python3 chip_smoke.py``.
 """
@@ -122,6 +141,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -149,7 +169,14 @@ from yagi_tpu_torch.kernels.channelizer import (  # noqa: E402
     halo_rows,
 )
 from yagi_tpu_torch.fft import Spgram, fft_run, ifft_run  # noqa: E402
-from yagi_tpu_torch.filter import FirFilter, IirFilter, MsResamp, Resamp, Symsync  # noqa: E402
+from yagi_tpu_torch.filter import (  # noqa: E402
+    FirFilter,
+    IirFilter,
+    MsResamp,
+    OrdFilt,
+    Resamp,
+    Symsync,
+)
 from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     chunked_fits,
     chunked_instance,
@@ -174,6 +201,7 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     symsync_scan_launch,
     symsync_scan_reference,
 )
+from yagi_tpu_torch.math import dotprod  # noqa: E402
 from yagi_tpu_torch.modem import Freqdem, Freqmod, Modem  # noqa: E402
 from yagi_tpu_torch.multichannel import (  # noqa: E402
     Firpfbch,
@@ -181,6 +209,7 @@ from yagi_tpu_torch.multichannel import (  # noqa: E402
     Firpfbchr,
     FusedChannelizer,
 )
+from yagi_tpu_torch.native import IqStreamLoader  # noqa: E402
 from yagi_tpu_torch.nco import Osc  # noqa: E402
 from yagi_tpu_torch.parallel import (  # noqa: E402
     make_stream_mesh,
@@ -223,6 +252,7 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     make_qamrx,
     make_symsync,
 )
+from yagi_tpu_torch import random as yr  # noqa: E402
 from yagi_tpu_torch.tools.timing import cuda_ms, graph_ms  # noqa: E402
 from yagi_tpu_torch.utils import compact_valid  # noqa: E402
 
@@ -365,6 +395,28 @@ FILTER_TOL, FARROW_TOL, FARROW_SPLIT_TOL = 1e-5, 1e-4, 0.03
 # (2,), seed 3): blocks [0, EMPTY_N] equal the block of EMPTY_N alone
 EMPTY_N = 64
 N_FILTER_TIMED = 10  # eager calls timed per object
+# [capture]: config[4]'s stream (bench.py's seed 1, N_BLOCKS blocks of
+# M4·T4 = 2^21 samples) quantized to ci16 as tests/test_native_kernels.py
+# does, full scale at 8σ of the samples (×1/8, exact), written to a file under
+# build/ and streamed through IqStreamLoader into K2 → Freqdem; the same
+# dequantized samples also fed from memory. Each feed bit-identical to the
+# other. The loader's round trip in every format at CAPTURE_TAIL samples in
+# blocks of CAPTURE_TAIL_BLOCK (an EOF tail); rates over N_CAPTURE_TIMED runs.
+CAPTURE_SCALE = 1.0 / 8
+CAPTURE_TAIL, CAPTURE_TAIL_BLOCK = 7000, 2048
+N_CAPTURE_TIMED = 3
+# [l0]: the samplers of yagi_tpu_torch.random at L0_N draws on a CUDA
+# generator, held to their own cdf at the deciles within L0_DECILE_TOL
+# (tests/test_aux.py:80-87); cawgn's power within 5%; dotprod on the card
+# against the CPU at tests/test_aux.py:523-560's lengths within
+# L0_DOT_RTOL·Σ|a·b|; Modem.random_symbols for M = 16 at L0_N, a chi-square
+# of its 16 counts below the 0.001 point of 15 degrees of freedom; OrdFilt
+# on complex64 at config[1]'s width, card equal to CPU bit for bit.
+L0_N = 1 << 22
+L0_DECILE_TOL, L0_CAWGN_TOL, L0_DOT_RTOL = 0.02, 0.05, 1e-6
+L0_CHI2_15_999 = 37.697
+L0_DOT_LENGTHS = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 32, 35, 64, 79)
+L0_ORD_BLOCKS = (T1, 0, T1)
 
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
@@ -2017,6 +2069,221 @@ def phase_filters(device, card: str) -> None:
               f"checks {check_s:.1f} s")
 
 
+def capture_chain(blocks, fz: FusedChannelizer, dem: Freqdem) -> tuple:
+    """Planar (re, im) blocks through K2 → Freqdem with the state carried:
+    [(re, im, yr, yi, fm)] and the final states."""
+    outs = []
+    for re, im in blocks:
+        yr, yi, fz = fz.analyzer_execute_planar(re, im)
+        fm, dem = dem.demodulate(torch.complex(yr, yi).T)  # channel-major view
+        outs.append((re, im, yr, yi, fm))
+    return outs, fz, dem
+
+
+def write_capture(path: str, fmt: str, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (complex64 on the CPU) interleaved and quantized into ``path`` as
+    tests/test_native_kernels.py:113-140 does; returns the planes the file
+    holds, dequantized (the loader's arithmetic: q·2^-15, (q − 128)·2^-7)."""
+    inter = torch.view_as_real(x).reshape(-1).numpy()
+    if fmt == "cf32":
+        inter.tofile(path)
+        return x.real.contiguous(), x.imag.contiguous()
+    if fmt == "ci16":
+        q = np.clip(np.round(inter * 32768), -32768, 32767).astype(np.int16)
+        q.tofile(path)
+        deq = torch.from_numpy(q).float() * (1.0 / 32768)
+    else:
+        q = np.clip(np.round(inter * 128) + 128, 0, 255).astype(np.uint8)
+        q.tofile(path)
+        deq = (torch.from_numpy(q).float() - 128) * (1.0 / 128)
+    return deq[0::2].contiguous(), deq[1::2].contiguous()
+
+
+def phase_capture(device, card: str) -> None:
+    """A capture file onto the card: config[4]'s stream as ci16 through
+    IqStreamLoader (pinned buffers, copies on the stream) into
+    FusedChannelizer (K2) → Freqdem, against the same samples fed from
+    memory, every block, output and the carried state bit for bit; K2's
+    launches on the file feed; the loader's round trip in every format; the
+    loader's rate alone and the chain's from memory and from the file."""
+    n = T4 * M4
+    x = config4_blocks(N_BLOCKS, "cpu").reshape(-1) * CAPTURE_SCALE
+    fz0 = FusedChannelizer.create_kaiser(**CHZ, device=device)
+    dem0 = Freqdem.create(KF, batch_shape=(M4,), device=device)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".ci16", dir=_build.BUILD_DIR)
+    os.close(fd)
+    try:
+        re, im = write_capture(path, "ci16", x)
+        mem = [(re[k * n : (k + 1) * n].to(device), im[k * n : (k + 1) * n].to(device))
+               for k in range(N_BLOCKS)]
+        del x, re, im
+        want, fz_m, dem_m = capture_chain(mem, fz0, dem0)
+        torch.cuda.synchronize()
+        reset_counts()
+        with IqStreamLoader(path, "ci16", block_samples=n, device=device) as src:
+            got, fz_f, dem_f = capture_chain(src, fz0, dem0)
+            torch.cuda.synchronize()
+            launches = read_counts()["fused_channelizer_apply"]
+            total = src.total_read()
+        require(len(got) == N_BLOCKS, f"capture: {len(got)} blocks from the file")
+        for k, (g, w) in enumerate(zip(got, want)):
+            require(all(a.device == device and torch.equal(a, b) for a, b in zip(g, w)),
+                    f"capture block {k}: file feed vs memory feed (samples, K2, Freqdem)")
+        for a, b in zip(tensors_of(fz_f) + tensors_of(dem_f), tensors_of(fz_m) + tensors_of(dem_m)):
+            require(torch.equal(a, b), "capture: carried state, file feed vs memory feed")
+        require(total == N_BLOCKS * n, f"capture: total_read {total} != {N_BLOCKS * n}")
+        require(launches == N_BLOCKS, f"capture: K2 launches {launches} != {N_BLOCKS}")
+        print(f"[capture] {N_BLOCKS} blocks of {n} ci16 samples ({os.path.getsize(path)} bytes, "
+              f"config[4]'s stream ×{CAPTURE_SCALE}) file -> IqStreamLoader -> FusedChannelizer "
+              f"-> Freqdem equal bit for bit to the memory feed: every block, K2's and Freqdem's "
+              f"outputs, the carried state; total_read {total}")
+        print(f"[capture] K2 (channelizer_fp32) launches on the file feed: {launches}")
+
+        def drain(dev=device):
+            with IqStreamLoader(path, "ci16", block_samples=n, device=dev) as src:
+                for _ in src:
+                    pass
+
+        def from_file():
+            with IqStreamLoader(path, "ci16", block_samples=n, device=device) as src:
+                capture_chain(src, fz0, dem0)
+
+        samples = N_BLOCKS * n
+        rates = [samples / (cuda_ms(fn, N_CAPTURE_TIMED, warmup=1) * 1e-3) / 1e6
+                 for fn in (drain, lambda: capture_chain(mem, fz0, dem0), from_file,
+                            lambda: drain(torch.device("cpu")))]
+        print(f"[capture] {card}: loader alone (read, deinterleave, host-to-device) "
+              f"{rates[0]:.1f} Msps; K2 -> Freqdem fed from memory {rates[1]:.1f} Msps; fed from "
+              f"the file {rates[2]:.1f} Msps; the loader into host tensors only (device cpu) "
+              f"{rates[3]:.1f} Msps (complex Msamples/s over {N_BLOCKS} blocks of {n}, between "
+              f"CUDA events, mean of {N_CAPTURE_TIMED} runs after one; the file in the page "
+              f"cache)")
+    finally:
+        os.unlink(path)
+
+    rng = np.random.default_rng(3)
+    tail = complex_block(rng, (CAPTURE_TAIL,), "cpu") * 0.5
+    for fmt in ("cf32", "ci16", "cu8"):
+        fd, path = tempfile.mkstemp(suffix=f".{fmt}", dir=_build.BUILD_DIR)
+        os.close(fd)
+        try:
+            re, im = write_capture(path, fmt, tail)
+            with IqStreamLoader(path, fmt, block_samples=CAPTURE_TAIL_BLOCK, device=device) as src:
+                blocks = list(src)
+                end, total = src.next_block(), src.total_read()
+        finally:
+            os.unlink(path)
+        sizes = [b[0].numel() for b in blocks]
+        got_re = torch.cat([b[0] for b in blocks]).cpu()
+        got_im = torch.cat([b[1] for b in blocks]).cpu()
+        require(all(b[0].device == device for b in blocks) and end == (None, None)
+                and total == CAPTURE_TAIL and torch.equal(got_re, re) and torch.equal(got_im, im),
+                f"capture round trip {fmt}")
+        print(f"[capture] {fmt} round trip on {device}: {CAPTURE_TAIL} samples in blocks {sizes}, "
+              f"bit for bit, EOF (None, None)")
+
+
+def phase_l0(device, card: str) -> None:
+    """The tensor-valued parts of layer L0 on the card: every sampler of
+    random/ on a CUDA generator against its cdf at the deciles, seeded
+    reproducibility, cawgn's power, dotprod against the CPU,
+    Modem.random_symbols' range and uniformity, OrdFilt on complex64 against
+    the CPU; then the phase's time."""
+    t0 = time.perf_counter()
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(seed)
+
+    d = dict(device=device)
+    samplers = {
+        "randf": (lambda g, k: yr.randf(g, (k,), **d), yr.randf_cdf),
+        "randuf": (lambda g, k: yr.randuf(g, -0.5, 2.5, (k,), **d),
+                   lambda v: yr.randuf_cdf(v, -0.5, 2.5)),
+        "randnf": (lambda g, k: yr.randnf(g, (k,), **d), lambda v: yr.randnf_cdf(v, 0.0, 1.0)),
+        "crandnf re": (lambda g, k: yr.crandnf(g, (k,), **d).real,
+                       lambda v: yr.randnf_cdf(v, 0.0, 1.0)),
+        "crandnf im": (lambda g, k: yr.crandnf(g, (k,), **d).imag,
+                       lambda v: yr.randnf_cdf(v, 0.0, 1.0)),
+        "randexpf": (lambda g, k: yr.randexpf(g, 2.3, (k,), **d),
+                     lambda v: yr.randexpf_cdf(v, 2.3)),
+        "randgammaf": (lambda g, k: yr.randgammaf(g, 2.5, 1.2, (k,), **d),
+                       lambda v: yr.randgammaf_cdf(v, 2.5, 1.2)),
+        "randgammaf a<1": (lambda g, k: yr.randgammaf(g, 0.6, 0.8, (k,), **d),
+                           lambda v: yr.randgammaf_cdf(v, 0.6, 0.8)),
+        "randnakmf": (lambda g, k: yr.randnakmf(g, 1.5, 1.0, (k,), **d),
+                      lambda v: yr.randnakmf_cdf(v, 1.5, 1.0)),
+        "randricekf": (lambda g, k: yr.randricekf(g, 2.0, 1.0, (k,), **d),
+                       lambda v: yr.randricekf_cdf(v, 2.0, 1.0)),
+        "randweibf": (lambda g, k: yr.randweibf(g, 2.0, 1.5, 0.0, (k,), **d),
+                      lambda v: yr.randweibf_cdf(v, 2.0, 1.5, 0.0)),
+    }
+    qs = (0.1, 0.25, 0.5, 0.75, 0.9)
+    for name, (draw, cdf) in samplers.items():
+        v = draw(gen(7), L0_N)
+        require(v.shape == (L0_N,) and v.dtype == torch.float32 and v.device == device
+                and bool(torch.isfinite(v).all()), f"{name}: {v.shape} {v.dtype} {v.device}")
+        at = torch.sort(v).values[[int(q * L0_N) for q in qs]].double().cpu().numpy()
+        err = max(abs(float(cdf(np.array([a]))[0]) - q) for a, q in zip(at, qs))
+        a, b, c = draw(gen(11), 1 << 16), draw(gen(11), 1 << 16), draw(gen(12), 1 << 16)
+        same = torch.equal(a, b) and not torch.equal(a, c)
+        print(f"[l0] {name}: {L0_N} draws on {device}, max |cdf(decile) - q| {err:.4f} "
+              f"(<= {L0_DECILE_TOL}); same seed equal, another seed not: {same}")
+        require(err <= L0_DECILE_TOL and same, f"{name}: deciles {err}, seeded {same}")
+
+    y = yr.cawgn(gen(0), torch.zeros(L0_N, dtype=torch.complex64, device=device), 0.5)
+    power = y.abs().square().mean().item()
+    print(f"[l0] cawgn sigma 0.5 over {L0_N}: power {power:.5f} (0.25 within {L0_CAWGN_TOL:.0%})")
+    require(abs(power / 0.25 - 1) <= L0_CAWGN_TOL, f"cawgn power {power}")
+
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for kind in ("rrrf", "crcf", "cccf"):
+        for n in L0_DOT_LENGTHS:
+            h = rng.standard_normal(n).astype(np.float32)
+            v = rng.standard_normal(n).astype(np.float32)
+            if kind == "cccf":
+                h = (h + 1j * rng.standard_normal(n)).astype(np.complex64)
+            if kind != "rrrf":
+                v = (v + 1j * rng.standard_normal(n)).astype(np.complex64)
+            ht, vt = torch.from_numpy(h), torch.from_numpy(v)
+            got = dotprod(ht.to(device), vt.to(device))
+            want = dotprod(ht, vt)
+            require(got.device == device, "dotprod on the card")
+            scale = (ht.abs().double() * vt.abs().double()).sum().item()
+            worst = max(worst, (got.cpu() - want).abs().item() / scale)
+    print(f"[l0] dotprod rrrf/crcf/cccf at lengths {L0_DOT_LENGTHS[0]}..{L0_DOT_LENGTHS[-1]}: card "
+          f"vs CPU max |a - b| / sum|h x| {worst:.3e} (<= {L0_DOT_RTOL})")
+    require(worst <= L0_DOT_RTOL, f"dotprod card vs CPU {worst}")
+
+    m = Modem.create("qam16", device=device)
+    s = m.random_symbols(gen(5), L0_N)
+    counts = torch.bincount(s, minlength=16).double()
+    chi2 = ((counts - L0_N / 16) ** 2 / (L0_N / 16)).sum().item()
+    print(f"[l0] Modem.random_symbols qam16 x {L0_N}: range [{int(s.min())}, {int(s.max())}], "
+          f"chi-square {chi2:.2f} (< {L0_CHI2_15_999}, 15 dof, p = 0.001)")
+    require(s.dtype == torch.int64 and s.device == device and int(s.min()) >= 0
+            and int(s.max()) < 16 and chi2 < L0_CHI2_15_999, f"random_symbols chi2 {chi2}")
+    require(torch.equal(s[:4096], m.random_symbols(gen(5), L0_N)[:4096]), "random_symbols seeded")
+
+    def ord_step(o, b):
+        y, o = o.execute_block(b)
+        return y, None, o
+
+    x = complex_block(np.random.default_rng(2), (C1, sum(L0_ORD_BLOCKS)), device)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        f = OrdFilt.create_medfilt(3, batch_shape=(C1,), device=dev)
+        y, f = filter_stream(f, ord_step, x.to(dev), L0_ORD_BLOCKS)
+        outs.append((y.cpu(), f.buf.cpu()))
+    require(outs[0][0].dtype == torch.complex64 and torch.equal(outs[0][0], outs[1][0])
+            and torch.equal(outs[0][1], outs[1][1]), "OrdFilt complex64: card vs CPU")
+    print(f"[l0] OrdFilt medfilt(3) on complex64 {C1} x {L0_ORD_BLOCKS}: card = CPU bit for bit, "
+          f"outputs and buf")
+    torch.cuda.synchronize()
+    print(f"[l0] {card}: the phase took {time.perf_counter() - t0:.2f} s")
+
+
 def phase_timing_config2(device, card: str) -> dict:
     """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
     config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
@@ -2117,9 +2384,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    spent = {}  # seconds by stretch of phases, printed before the kernels line
+    t_mark = [time.perf_counter()]
+
+    def mark(what: str) -> None:
+        t = time.perf_counter()
+        spent[what] = t - t_mark[0]
+        t_mark[0] = t
 
     name, smi = phase_device()
     phase_build()
+    mark("build")
     phase_default_device()
     errs = {
         **phase_kernel_vs_plain(device),
@@ -2141,9 +2416,16 @@ def main() -> None:
     errs.update(phase_kernel_vs_plain_iir(device))
     launches.update(phase_main_path_config2(device))
     phase_signal_config2(device)
+    mark("kernel-vs-plain, main paths, signal")
     phase_parallel(device, smi)
+    mark("parallel")
     phase_fft(device)
     phase_filters(device, smi)
+    mark("fft, filters")
+    phase_capture(device, smi)
+    mark("capture")
+    phase_l0(device, smi)
+    mark("l0")
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),
@@ -2167,6 +2449,9 @@ def main() -> None:
         "iir_scan": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/iirfilt.py:317"),
         "iir_chunked": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/_linrec.py:49"),
     }
+    mark("timing")
+    print("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
+          + f"; total {sum(spent.values()):.1f} s")
     bounds = {k: bound(w) for k, w in kernel_work(device, emitted).items()}
     b3 = bounds.pop("symsync_fused config[3]")
     print(f"[bound] symsync_fused (K3) at config[3] (C={C3}, n={T3}, k_out=2): {b3[0]:.4f} ms "

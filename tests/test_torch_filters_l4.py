@@ -361,6 +361,33 @@ def test_ordfilt_bit_identical(n, k):
     np.testing.assert_array_equal(med_t.numpy(), np.asarray(med_j))
 
 
+@pytest.mark.parametrize("make", [
+    lambda mod, **kw: mod.OrdFilt.create_medfilt(3, **kw),
+    lambda mod, **kw: mod.OrdFilt.create(7, 1, **kw),
+], ids=["medfilt3", "n7k1"])
+def test_ordfilt_complex_bit_identical(make):
+    """Complex samples: yagi_tpu's jnp.sort orders them by real part, then
+    imaginary part; the port's order is the same, outputs and the carried
+    buf bit for bit, an empty block between two of 64."""
+    rng = np.random.default_rng(3)
+    blocks = (64, 0, 64)
+    x = _cplx(rng, (2, sum(blocks)))
+    x[:, 1::5] = x[:, ::5].real[:, : x[:, 1::5].shape[1]] + 1j * x[:, 1::5].imag  # real ties
+    j = make(jf, batch_shape=(2,))
+    t = make(tf, batch_shape=(2,), device=DEV)
+    pos = 0
+    for m in blocks:
+        yt, t = t.execute_block(torch.from_numpy(x[:, pos : pos + m]))
+        if m:  # yagi_tpu runs the non-empty blocks (its carry is the same)
+            yj, j = j.execute_block(jnp.asarray(x[:, pos : pos + m]))
+            assert yt.dtype == torch.complex64
+            np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+        else:
+            assert yt.shape == (2, 0)
+        np.testing.assert_array_equal(t.buf.numpy(), np.asarray(j.buf))
+        pos += m
+
+
 @pytest.mark.parametrize("p", [1, 4, 10])
 def test_lpc_and_levinson_equal(p):
     rng = np.random.default_rng(19)

@@ -85,6 +85,26 @@ _MODULES = (
     "yagi_tpu_torch.filter.resamp2",
     "yagi_tpu_torch.filter.msresamp2",
     "yagi_tpu_torch.nco.osc",
+    "yagi_tpu_torch.math.special",
+    "yagi_tpu_torch.math.modarith",
+    "yagi_tpu_torch.math.complexm",
+    "yagi_tpu_torch.math.dot",
+    "yagi_tpu_torch.utils.bits",
+    "yagi_tpu_torch.sequence",
+    "yagi_tpu_torch.sequence.msequence",
+    "yagi_tpu_torch.sequence.bsequence",
+    "yagi_tpu_torch.native",
+    "yagi_tpu_torch.random",
+    "yagi_tpu_torch.random.distributions",
+    "yagi_tpu_torch.random.scramble",
+    "yagi_tpu_torch.matrix",
+    "yagi_tpu_torch.matrix.dense",
+    "yagi_tpu_torch.matrix.sparse",
+    "yagi_tpu_torch.optim.qs1dsearch",
+    "yagi_tpu_torch.optim.gradsearch",
+    "yagi_tpu_torch.optim.gasearch",
+    "yagi_tpu_torch.buffer",
+    "yagi_tpu_torch.buffer.buffer",
 )
 
 
@@ -123,6 +143,37 @@ def test_l4_names_match_yagi_tpu():
     public = sorted(n for n in vars(jf) if not n.startswith("_") and not inspect.ismodule(
         getattr(jf, n)))
     assert [n for n in public if not hasattr(tf, n)] == []
+
+
+# layers L0 and L1 and the native loader: yagi_tpu's module → the port's
+_L0_L1 = ("math", "math.special", "math.modarith", "math.complexm", "math.dot", "sequence",
+          "random", "matrix", "optim", "buffer", "utils.bits", "native")
+
+
+def _public(mod) -> list[str]:
+    """A module's public names: its ``__all__`` and what it defines or
+    re-exports from its own package (not the modules and helpers it imports)."""
+    own = set(getattr(mod, "__all__", ()))
+    for n, v in vars(mod).items():
+        if not n.startswith("_") and not inspect.ismodule(v) and getattr(
+                v, "__module__", "").startswith("yagi_tpu."):
+            own.add(n)
+    return sorted(own)
+
+
+@pytest.mark.parametrize("name", _L0_L1)
+def test_l0_l1_names_match_yagi_tpu(name):
+    """Every public name of yagi_tpu's L0/L1 module has a counterpart of
+    the same kind under the same name."""
+    import importlib
+
+    j = importlib.import_module(f"yagi_tpu.{name}")
+    t = importlib.import_module(f"yagi_tpu_torch.{name}")
+    public = _public(j)
+    assert public, name
+    assert [n for n in public if not hasattr(t, n)] == []
+    assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
+            ] == []
 
 
 def _error_classes(mod):

@@ -143,8 +143,6 @@ def test_from_table_and_config_errors():
 @pytest.mark.parametrize("call", [
     lambda m: m.demodulate_soft(torch.zeros(4, dtype=torch.complex64)),
     lambda m: m.demodulate_with_stats(torch.zeros(4, dtype=torch.complex64)),
-    lambda m: m.random_symbol(None),
-    lambda m: m.random_symbols(None, (4,)),
 ])
 def test_unported_entry_points_raise(call):
     with pytest.raises(ConfigError, match="not ported"):

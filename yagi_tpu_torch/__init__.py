@@ -17,10 +17,21 @@ PLL, decisions), three kernels per block; the config[2] FM stereo receiver
 :mod:`parallel` (one process a card over ``torch.distributed``); the FFT
 layer :mod:`fft`; the oversampled and arbitrary-rate channelizers; the
 rest of the streaming filter layer L4 (interpolators, decimators, FftFilt,
-Rresamp, Fdelay, OrdFilt, the Farrow filters and resampler values, Dds).
+Rresamp, Fdelay, OrdFilt, the Farrow filters and resampler values, Dds);
+layers L0 and L1 (special functions, modular arithmetic, bits, sequences,
+seeded samplers on a ``torch.Generator``, matrices, optimizers, buffers) and
+the native capture-file loader, whose planar blocks go onto the card.
 
 Layer map (mirrors yagi_tpu):
-  math/     host-side design math (float64 NumPy): special functions, windows
+  math/     host-side design math (float64 NumPy): special functions, windows,
+            polynomials, modular arithmetic; complex helpers and dotprod on tensors
+  sequence/ m-sequences and packed bit sequences (host)
+  random/   seeded samplers on a torch.Generator, pdf/cdf (host), scramblers
+  matrix/   dense and sparse matrices (host NumPy)
+  optim/    1-D, gradient, quasi-Newton and genetic searches (host)
+  buffer/   window, delay line, circular buffer (host)
+  native/   ctypes loader of native/*.cpp (built with g++ into build/):
+            NativeBSequence, IqStreamLoader (capture file -> planar blocks)
   fft/      transforms with liquid's conventions, periodograms, DCT/DST
   design/   FIR design: Kaiser, (root-)raised-cosine, PM halfband
   filter/   streaming FIR and IIR filters, polyphase banks, resamplers,
@@ -34,7 +45,7 @@ Layer map (mirrors yagi_tpu):
   chains/   composed receive chains
   parallel/ sharded streaming over torch.distributed (halo exchange,
             all_to_all channel redistribution, multi-host wiring)
-  utils/    array helpers, PSD-mask validators
+  utils/    array helpers, bit utilities, PSD-mask validators
 """
 
 __version__ = "0.1.0"
@@ -47,6 +58,7 @@ def __getattr__(name):
     import importlib
 
     if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
-                "kernels", "chains", "fft", "parallel", "utils"):
+                "kernels", "chains", "fft", "parallel", "utils", "sequence", "random", "matrix",
+                "optim", "buffer", "native"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

@@ -147,7 +147,15 @@ class OrdFilt:
             return x.clone(), self
         xa = torch.cat([self.buf.to(x.dtype), x], dim=-1)
         frames = xa.unfold(-1, self.n, 1)  # [..., nt, n], a view
-        y = torch.sort(frames, dim=-1).values[..., self.k]
+        if frames.is_complex():
+            # jnp.sort's order: by real part, then by imaginary part. A stable
+            # sort on the imaginary part, then a stable one on the real part
+            order = torch.sort(frames.imag, dim=-1, stable=True).indices
+            frames = frames.gather(-1, order)
+            order = torch.sort(frames.real, dim=-1, stable=True).indices
+            y = frames.gather(-1, order[..., self.k : self.k + 1])[..., 0]
+        else:
+            y = torch.sort(frames, dim=-1).values[..., self.k]
         return y, self.replace(buf=carry(self.buf, xa))
 
     __call__ = execute_block

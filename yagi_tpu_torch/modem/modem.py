@@ -247,7 +247,7 @@ class Modem:
     r: torch.Tensor = struct.field()  # last received sample
     x_hat: torch.Tensor = struct.field()  # its decided point
     phi: torch.Tensor = struct.field()  # differential phase state
-    rand_state: torch.Tensor = struct.field()  # u32 as int64 (random_symbol, not ported)
+    rand_state: torch.Tensor = struct.field()  # u32 as int64 (yagi_tpu's field; unused)
 
     def __post_init__(self):
         # a scheme carried over from yagi_tpu (load_state) is its own enum
@@ -355,8 +355,15 @@ class Modem:
     def demodulate_soft(self, x, compat: bool = False):
         _not_ported("demodulate_soft")
 
-    def random_symbol(self, key):
-        _not_ported("random_symbol")
+    # -------------------------------------------------------------- sources
+    def random_symbol(self, generator):
+        """Uniform random symbol in [0, M), a u32 value held as int64, on the
+        modem's device, drawn from ``generator`` where yagi_tpu takes a
+        jax.random key (the reference uses its internal MSequence,
+        modem.rs:238)."""
+        return self.random_symbols(generator, ())
 
-    def random_symbols(self, key, shape):
-        _not_ported("random_symbols")
+    def random_symbols(self, generator, shape):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return torch.randint(0, self.constellation_size, shape, generator=generator,
+                             device=self.table.device, dtype=torch.int64)

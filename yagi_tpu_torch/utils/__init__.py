@@ -1,5 +1,6 @@
-"""Array utilities and the PSD-mask validators."""
+"""Array utilities, bit utilities and the PSD-mask validators."""
 
+from . import bits  # noqa: F401
 from .compact import compact_valid  # noqa: F401
 from .psd_validate import (  # noqa: F401
     PsdRegion,
