@@ -178,7 +178,8 @@ def test_firpfbch_scale_and_reset():
     [lambda: Firpfbch.create_kaiser(1, device=DEV), lambda: Firpfbch.create_kaiser(8, m=0, device=DEV),
      lambda: Firpfbch.create_kaiser(8, 3, device=DEV).analyzer_execute(
          torch.zeros(13, dtype=torch.complex64)),
-     lambda: Firpfbch.create_rnyquist(FirFilterShape.GMSKTX, 8, 3, 0.3, device=DEV)],
+     # gmsktx designs now (tests/test_torch_design_l3.py); its beta out of range does not
+     lambda: Firpfbch.create_rnyquist(FirFilterShape.GMSKTX, 8, 3, 1.5, device=DEV)],
 )
 def test_firpfbch_rejects_bad_config(make):
     with pytest.raises(ConfigError):

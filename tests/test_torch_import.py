@@ -105,6 +105,13 @@ _MODULES = (
     "yagi_tpu_torch.optim.gasearch",
     "yagi_tpu_torch.buffer",
     "yagi_tpu_torch.buffer.buffer",
+    "yagi_tpu_torch.quantization",
+    "yagi_tpu_torch.channel",
+    "yagi_tpu_torch.modem.fsk",
+    "yagi_tpu_torch.modem.cpm",
+    "yagi_tpu_torch.modem.ampmodem",
+    "yagi_tpu_torch.equalization.eqrls",
+    "yagi_tpu_torch.multichannel.ofdm",
 )
 
 
@@ -170,6 +177,31 @@ def test_l0_l1_names_match_yagi_tpu(name):
     j = importlib.import_module(f"yagi_tpu.{name}")
     t = importlib.import_module(f"yagi_tpu_torch.{name}")
     public = _public(j)
+    assert public, name
+    assert [n for n in public if not hasattr(t, n)] == []
+    assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
+            ] == []
+
+
+# layers L3, L5 and L6 and the channel models: yagi_tpu's module → the port's
+# (multichannel/ofdmflexframe.py waits for the framing layer L7)
+_L3_L5_L6 = ("design", "design.pm", "design.fir", "nco", "nco.osc", "quantization",
+             "equalization", "equalization.eqrls", "modem", "modem.modem", "modem.fsk",
+             "modem.cpm", "modem.ampmodem", "multichannel", "multichannel.ofdm", "channel")
+_LATER = {"OfdmFlexFrameGen", "OfdmFlexFrameSync"}
+
+
+@pytest.mark.parametrize("name", _L3_L5_L6)
+def test_l3_l5_l6_names_match_yagi_tpu(name):
+    """Every name in the ``__all__`` of yagi_tpu's L3/L5/L6 module (or, for
+    a package without one, every public name it defines or re-exports) has
+    a counterpart of the same kind in the port, but the OFDM flex frames."""
+    import importlib
+
+    j = importlib.import_module(f"yagi_tpu.{name}")
+    t = importlib.import_module(f"yagi_tpu_torch.{name}")
+    names = j.__all__ if hasattr(j, "__all__") else _public(j)
+    public = [n for n in names if n not in _LATER]
     assert public, name
     assert [n for n in public if not hasattr(t, n)] == []
     assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))

@@ -9,7 +9,10 @@
   (tests/test_modem.py holds a differential block split to 1e-4).
 * Hard ``demodulate`` picks the nearest table point: equal symbols on noisy
   points (no distance lies within rounding of a tie at these seeds), first
-  index on exact ties.
+  index on exact ties; the differential demodulator gives equal symbols.
+* ``demodulate_soft`` and ``demodulate_with_stats``: equal symbols, soft
+  bits and statistics within 1e-6 (tests/test_torch_modem_l6.py holds them
+  over every scheme).
 """
 
 import jax.numpy as jnp
@@ -71,8 +74,12 @@ def test_differential_tables_and_modulate(scheme):
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=DIFF_TOL)
         dphi = np.angle(np.exp(1j * (tm.phi.numpy() - np.asarray(jm.phi))))  # phi wraps at ±π
         np.testing.assert_allclose(dphi, 0.0, rtol=0, atol=DIFF_TOL)
-    with pytest.raises(ConfigError, match="demodulate"):
-        tm.demodulate(yt)
+    # the differential demodulator, once "not ported": yagi_tpu's symbols
+    # exactly, its carried phase within the same tolerance
+    st, tm = tm.demodulate(yt)
+    sj, jm = jm.demodulate(jnp.asarray(yt.numpy()))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj).astype(np.int64))
+    np.testing.assert_allclose(tm.phi.numpy(), np.asarray(jm.phi), rtol=0, atol=DIFF_TOL)
 
 
 @pytest.mark.parametrize("scheme", ["psk8", "qam16", "qam64", "apsk32", "sqam128", "V29",
@@ -141,12 +148,23 @@ def test_from_table_and_config_errors():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: m.demodulate_soft(torch.zeros(4, dtype=torch.complex64)),
-    lambda m: m.demodulate_with_stats(torch.zeros(4, dtype=torch.complex64)),
+    lambda m, x: m.demodulate_soft(x),
+    lambda m, x: m.demodulate_with_stats(x),
 ])
 def test_unported_entry_points_raise(call):
-    with pytest.raises(ConfigError, match="not ported"):
-        call(Modem.create("qam16", device=DEV))
+    """The entry points that once raised "not ported" give yagi_tpu's
+    symbols exactly and its soft bits and statistics within 1e-6."""
+    x = np.random.default_rng(5).standard_normal((2, 64)).astype(np.float32)
+    x = (x + 1j * x[::-1]).astype(np.complex64) * np.float32(0.7)
+    tm, jm = Modem.create("qam16", batch_shape=(2,), device=DEV), JModem.create("qam16",
+                                                                                 batch_shape=(2,))
+    got = call(tm, torch.from_numpy(x))
+    want = call(jm, jnp.asarray(x))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]).astype(np.int64))
+    for g, w in zip(got[1:-1], want[1:-1]):
+        np.testing.assert_allclose(g.numpy().astype(np.complex128),
+                                   np.asarray(w).astype(np.complex128), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[-1].x_hat.numpy(), np.asarray(want[-1].x_hat))
 
 
 def test_state_loads_from_yagi_tpu():

@@ -15,10 +15,11 @@ import torch
 
 from yagi_tpu.nco import Osc as JOsc
 from yagi_tpu.nco import constrain_phase as j_constrain
+from yagi_tpu.nco.osc import _sin_cos as j_sin_cos
 from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.errors import ConfigError
 from yagi_tpu_torch.nco import Osc, constrain_phase
-from yagi_tpu_torch.nco.osc import PHASE_TO_RAD
+from yagi_tpu_torch.nco.osc import PHASE_TO_RAD, _sin_cos
 
 torch.set_num_threads(1)
 
@@ -105,5 +106,19 @@ def test_load_state_keeps_u32_as_int64():
 
 @pytest.mark.parametrize("mode", ["nco", "vco", "sideways"])
 def test_unported_and_unknown_modes_raise(mode):
-    with pytest.raises(ConfigError):
-        Osc.create(mode, device=DEV)
+    """An unknown mode raises; the table modes, which once raised "not
+    ported", look up yagi_tpu's sin/cos bit for bit and mix within this
+    file's tolerance (the complex product rounds in XLA's order there)."""
+    if mode == "sideways":
+        with pytest.raises(ConfigError):
+            Osc.create(mode, device=DEV)
+        return
+    x = _cplx(np.random.default_rng(13), (2, 300))
+    j = JOsc.create(mode, batch_shape=(2,)).set_frequency(0.61).set_phase(-1.3)
+    t = Osc.create(mode, batch_shape=(2,), device=DEV).set_frequency(0.61).set_phase(-1.3)
+    for got, want in zip(_sin_cos(t._phase_ramp(300), mode), j_sin_cos(j._phase_ramp(300), mode)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    yj, j = j.mix_block_up(jnp.asarray(x))
+    yt, t = t.mix_block_up(torch.from_numpy(x))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(t.theta.numpy(), np.asarray(j.theta).astype(np.int64))

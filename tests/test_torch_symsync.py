@@ -373,7 +373,8 @@ def test_unbatched_and_real_input():
      lambda t: t.set_lf_bw(1.5), lambda t: t.set_output_rate(0),
      lambda t: Symsync.create_rnyquist("rrcos", 1, 7, 0.3, device=DEV),
      lambda t: Symsync.create_rnyquist("nyquist", 2, 7, 0.3, device=DEV),
-     lambda t: Symsync.create_rnyquist("gmsktx", 2, 7, 0.3, device=DEV)],
+     # gmsktx designs now (tests/test_torch_design_l3.py); its beta out of range does not
+     lambda t: Symsync.create_rnyquist("gmsktx", 2, 7, 1.5, device=DEV)],
 )
 def test_rejects_bad_config(make):
     _, t = _pair()

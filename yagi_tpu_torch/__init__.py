@@ -20,7 +20,12 @@ rest of the streaming filter layer L4 (interpolators, decimators, FftFilt,
 Rresamp, Fdelay, OrdFilt, the Farrow filters and resampler values, Dds);
 layers L0 and L1 (special functions, modular arithmetic, bits, sequences,
 seeded samplers on a ``torch.Generator``, matrices, optimizers, buffers) and
-the native capture-file loader, whose planar blocks go onto the card.
+the native capture-file loader, whose planar blocks go onto the card; and
+layers L3, L5 and L6 with the channel models: all of FIR design and
+Parks-McClellan, the oscillator's table modes and PLL, the RLS equalizer,
+quantization, the rest of the linear modem (soft and differential
+demodulation), FSK, GMSK/CPFSK, AM and OFDM framing, whose AM carrier
+tracker runs the ``iir_chunked`` kernel.
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy): special functions, windows,
@@ -33,14 +38,18 @@ Layer map (mirrors yagi_tpu):
   native/   ctypes loader of native/*.cpp (built with g++ into build/):
             NativeBSequence, IqStreamLoader (capture file -> planar blocks)
   fft/      transforms with liquid's conventions, periodograms, DCT/DST
-  design/   FIR design: Kaiser, (root-)raised-cosine, PM halfband
+  design/   FIR design: windowed-sinc, Parks-McClellan, the Nyquist and
+            root-Nyquist families, GMSK, notch; IIR design
   filter/   streaming FIR and IIR filters, polyphase banks, resamplers,
             interpolators and decimators, symbol synchronizer
-  nco/      oscillator, mode "exact"
+  nco/      oscillator (modes "nco", "vco", "exact"), PLL
   agc/      automatic gain control
-  equalization/  LMS equalizer
-  modem/    linear modem (constellation tables, hard decisions), analog FM
-  multichannel/  polyphase channelizers
+  equalization/  LMS and RLS equalizers
+  quantization/  mu-law companding, ADC/DAC quantizer
+  modem/    linear modem (hard, soft, differential), analog FM and AM, FSK,
+            GMSK and CPFSK
+  channel/  multipath, carrier offset and AWGN
+  multichannel/  polyphase channelizers, OFDM frame generator and synchronizer
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
   parallel/ sharded streaming over torch.distributed (halo exchange,
@@ -59,6 +68,6 @@ def __getattr__(name):
 
     if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
                 "kernels", "chains", "fft", "parallel", "utils", "sequence", "random", "matrix",
-                "optim", "buffer", "native"):
+                "optim", "buffer", "native", "quantization", "channel"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

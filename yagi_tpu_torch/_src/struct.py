@@ -13,6 +13,7 @@ Unsigned 32-bit state (resampler and oscillator phases) is held as int64 in
 from __future__ import annotations
 
 import dataclasses
+import types
 import typing
 from typing import Any, TypeVar
 
@@ -61,7 +62,12 @@ def _is_state(tp) -> bool:
 
 
 def _load_value(tp, v, device):
-    """One field value: a nested state object, a tuple of them, or a tensor."""
+    """One field value: a nested state object, a tuple of them, a tensor, or
+    None for an optional field (``X | None``) that holds none."""
+    if typing.get_origin(tp) in (typing.Union, types.UnionType):
+        if v is None:
+            return None
+        tp = next(a for a in typing.get_args(tp) if a is not type(None))
     if _is_state(tp):
         return load_state(tp, v, device)
     if typing.get_origin(tp) is tuple:
@@ -77,8 +83,8 @@ def load_state(cls: type[_T], arrays, device=None) -> _T:
     to numpy arrays (or anything ``np.asarray`` takes). uint32 becomes int64
     in [0, 2^32); other dtypes (float32, complex64, int32, bool) are kept.
     Static fields pass through unchanged. A field annotated with a state
-    class (or ``tuple[StateClass, ...]``) loads recursively from the nested
-    object(s), so a composite (``MsResamp`` with its ``Resamp``,
+    class (or ``tuple[StateClass, ...]``, or ``StateClass | None``) loads
+    recursively from the nested object(s), so a composite (``MsResamp`` with its ``Resamp``,
     ``MsResamp2`` and ``Resamp2`` stages) loads whole. Values that ``cls``
     has no field for (a Pallas ``interpret`` flag, a TPU-only matrix such as
     Symsync's ``bank_g``) are ignored; a missing field falls back to its

@@ -1,7 +1,17 @@
-"""Filter design (host-side float64 coefficient math): Kaiser, (root-)raised
-cosine, the PM halfband and lowpass, the notch, and the IIR family (analog
-prototypes, bilinear transform, TF and SOS realizations, :mod:`.iir`)."""
+"""Filter design (reference layer L3), host-side float64 coefficient math.
+
+FIR: windowed-sinc (Kaiser and generic), Parks-McClellan/Remez, the
+raised-cosine, flipped-Nyquist and root-Nyquist families, GMSK, hM3, the
+notch and DC blocker, doppler, and the filter statistics. IIR: analog
+prototypes, bilinear transform, TF and SOS realizations (:mod:`.iir`).
+"""
 
 from .fir import *  # noqa: F401,F403
 from .iir import *  # noqa: F401,F403
-from .pm import fir_design_pm_lowpass  # noqa: F401
+from .pm import (  # noqa: F401
+    FirPmBandType,
+    FirPmWeightType,
+    FirDesignPm,
+    fir_design_pm,
+    fir_design_pm_lowpass,
+)

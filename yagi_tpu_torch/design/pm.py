@@ -1,26 +1,36 @@
-"""Parks-McClellan (Remez exchange) FIR design, the bandpass type.
+"""Parks-McClellan (Remez exchange) FIR design.
 
 Copied from :mod:`yagi_tpu.design.pm` (pm.rs; [McClellan:1973],
-[Janovetz:1998]) for the PM halfband behind ``Resamp2``: float64 throughout,
-the reference's grid construction, barycentric Lagrange interpolation,
-extremal search with alternation enforcement and stopping criteria, so the
-taps equal yagi_tpu's bit for bit; and the PM lowpass behind
-``FirFilter.create_firdespm``. The differentiator and Hilbert types are
-not ported.
+[Janovetz:1998]): float64 throughout, the reference's grid construction,
+barycentric Lagrange interpolation, extremal search with alternation
+enforcement and stopping criteria, the bandpass, differentiator and Hilbert
+band types and the PM lowpass, so the taps equal yagi_tpu's bit for bit.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
 from ..errors import ConfigError
 
-__all__ = ["FirPmWeightType", "fir_design_pm", "fir_design_pm_lowpass"]
+__all__ = [
+    "FirPmBandType",
+    "FirPmWeightType",
+    "FirDesignPm",
+    "fir_design_pm",
+    "fir_design_pm_lowpass",
+]
 
 _IEXT_SEARCH_TOL = 1e-15  # pm.rs:33
+
+
+class FirPmBandType(enum.Enum):
+    BANDPASS = "bandpass"
+    DIFFERENTIATOR = "differentiator"
+    HILBERT = "hilbert"
 
 
 class FirPmWeightType(enum.Enum):
@@ -56,16 +66,18 @@ def _barycentric_eval(x: np.ndarray, y: np.ndarray, w: np.ndarray, x0: np.ndarra
     return out
 
 
-class _FirDesignPm:
-    """Remez exchange state (pm.rs:64-87), bandpass type."""
+class FirDesignPm:
+    """Remez exchange state (pm.rs:64-87)."""
 
     def __init__(
         self,
         h_len: int,
         bands: Sequence[float],
-        des: Sequence[float],
+        des: Sequence[float] | None,
         weights: Sequence[float] | None = None,
         wtype: Sequence[FirPmWeightType] | None = None,
+        btype: FirPmBandType = FirPmBandType.BANDPASS,
+        callback: Callable[[float], tuple[float, float]] | None = None,
         grid_density: int = 20,
     ):
         bands = np.asarray(bands, dtype=np.float64).ravel()
@@ -84,48 +96,66 @@ class _FirDesignPm:
         n = (h_len - self.s) // 2
         self.r = n + self.s  # number of approximating functions
         self.num_bands = num_bands
+        self.btype = btype
         self.grid_density = grid_density
         self.bands = bands
-        self.des = np.asarray(des, dtype=np.float64)
+        self.des = None if des is None else np.asarray(des, dtype=np.float64)
         self.weights = (
             np.ones(num_bands) if weights is None else np.asarray(weights, dtype=np.float64)
         )
         self.wtype = (
             [FirPmWeightType.FLAT] * num_bands if wtype is None else list(wtype)
         )
-        self._create_grid()
+        self._create_grid(callback)
 
     # ------------------------------------------------------------------ grid
-    def _create_grid(self) -> None:
+    def _create_grid(self, callback) -> None:
         """Dense frequency grid with desired response / weights (pm.rs:283)."""
         df = 0.5 / (self.grid_density * self.r)
         fs, ds, ws = [], [], []
         for i in range(self.num_bands):
             f0 = self.bands[2 * i]
+            if i == 0 and self.btype != FirPmBandType.BANDPASS:
+                f0 = max(f0, df)  # avoid f=0 for differentiator/Hilbert
             f1 = self.bands[2 * i + 1]
             num_points = max(1, int(np.floor((f1 - f0) / df + 0.5)))
             j = np.arange(num_points)
             f = f0 + j * df
             f[-1] = f1  # force endpoint to band edge
-            d = np.full(num_points, self.des[i])
-            if self.wtype[i] == FirPmWeightType.FLAT:
-                fw = np.ones(num_points)
-            elif self.wtype[i] == FirPmWeightType.EXP:
-                fw = np.exp(2.0 * j * df)
-            else:  # LIN
-                fw = 1.0 + 2.7 * j * df
+            if callback is not None:
+                d = np.empty(num_points)
+                w = np.empty(num_points)
+                for idx, fi in enumerate(f):
+                    d[idx], w[idx] = callback(fi)
+            else:
+                d = np.full(num_points, self.des[i])
+                if self.wtype[i] == FirPmWeightType.FLAT:
+                    fw = np.ones(num_points)
+                elif self.wtype[i] == FirPmWeightType.EXP:
+                    fw = np.exp(2.0 * j * df)
+                else:  # LIN
+                    fw = 1.0 + 2.7 * j * df
+                w = self.weights[i] * fw
             fs.append(f)
             ds.append(d)
-            ws.append(self.weights[i] * fw)
+            ws.append(w)
 
         self.f = np.concatenate(fs)
         self.d = np.concatenate(ds)
         self.w = np.concatenate(ws)
         self.grid_size = len(self.f)
 
-        # symmetry transform (pm.rs:333-357)
-        if self.s == 0:
-            c = np.cos(np.pi * self.f)
+        # symmetry transforms (pm.rs:333-357)
+        if self.btype == FirPmBandType.BANDPASS:
+            if self.s == 0:
+                c = np.cos(np.pi * self.f)
+                self.d = self.d / c
+                self.w = self.w * c
+        else:
+            if self.s == 0:
+                c = np.sin(np.pi * self.f)
+            else:
+                c = np.sin(2.0 * np.pi * self.f)
             self.d = self.d / c
             self.w = self.w * c
 
@@ -216,15 +246,36 @@ class _FirDesignPm:
         f = i / self.h_len
         xf = np.cos(2.0 * np.pi * f)
         cf = _barycentric_eval(self.x, self.c, self.alpha, xf)
-        g = cf * np.cos(np.pi * i / self.h_len) if self.s == 0 else cf
+        if self.btype == FirPmBandType.BANDPASS and self.s == 0:
+            g = cf * np.cos(np.pi * i / self.h_len)
+        elif self.btype != FirPmBandType.BANDPASS:
+            # re-apply the antisymmetric amplitude factor divided out of the
+            # grid (type IV: sin(pi f); type III: sin(2 pi f))
+            g = cf * (np.sin(np.pi * f) if self.s == 0 else np.sin(2.0 * np.pi * f))
+        else:
+            g = cf
 
         n = np.arange(self.h_len)
         fr = (n - (p - 1) + 0.5 * (1.0 - self.s)) / self.h_len
         j = np.arange(1, self.r)
-        v = g[0] + 2.0 * np.sum(
-            g[None, 1 : self.r] * np.cos(2.0 * np.pi * fr[:, None] * j[None, :]),
+        if self.btype == FirPmBandType.BANDPASS:
+            v = g[0] + 2.0 * np.sum(
+                g[None, 1 : self.r] * np.cos(2.0 * np.pi * fr[:, None] * j[None, :]),
+                axis=1,
+            )
+            return (v / self.h_len).astype(np.float32)
+
+        # antisymmetric (differentiator / Hilbert) inverse transform: with
+        # H(f) = j G(f) e^{-j2pi f alpha}, alpha=(N-1)/2, pairing k and N-k
+        # DFT bins gives h[n] = -(2/N) sum_k G_k sin(2pi k (n-alpha)/N)
+        # (type III, N odd) plus the k=N/2 boundary term
+        # -(1/N) G_{N/2} (-1)^{n+N/2} (type IV, N even); G_0 = 0 in both.
+        v = -2.0 * np.sum(
+            g[None, 1 : self.r] * np.sin(2.0 * np.pi * fr[:, None] * j[None, :]),
             axis=1,
         )
+        if self.s == 0:
+            v = v - g[self.r] * ((-1.0) ** (n + self.h_len // 2))
         return (v / self.h_len).astype(np.float32)
 
     def execute(self) -> np.ndarray:
@@ -240,9 +291,16 @@ class _FirDesignPm:
         return self._compute_taps()
 
 
-def fir_design_pm(h_len: int, bands, des, weights=None, wtype=None) -> np.ndarray:
-    """One-shot Parks-McClellan design (pm.rs:607), bandpass type."""
-    return _FirDesignPm(h_len, bands, des, weights, wtype).execute()
+def fir_design_pm(
+    h_len: int,
+    bands,
+    des,
+    weights=None,
+    wtype=None,
+    btype: FirPmBandType = FirPmBandType.BANDPASS,
+) -> np.ndarray:
+    """One-shot Parks-McClellan design (pm.rs:607)."""
+    return FirDesignPm(h_len, bands, des, weights, wtype, btype).execute()
 
 
 def fir_design_pm_lowpass(n: int, fc: float, as_: float, mu: float = 0.0) -> np.ndarray:
@@ -265,4 +323,5 @@ def fir_design_pm_lowpass(n: int, fc: float, as_: float, mu: float = 0.0) -> np.
         [1.0, 0.0],
         weights=[1.0, 1.0],
         wtype=[FirPmWeightType.FLAT, FirPmWeightType.EXP],
+        btype=FirPmBandType.BANDPASS,
     )

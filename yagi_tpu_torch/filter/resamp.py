@@ -390,12 +390,13 @@ class Resamp:
         if fast is not None:
             yf, n_out = fast
             m_valid = torch.arange(out_capacity, device=x.device) < n_out
-            yf = torch.where(m_valid, _rotate_down(yf, osc._phase_ramp(out_capacity)), zero)
+            yf = torch.where(m_valid, _rotate_down(yf, osc._phase_ramp(out_capacity), osc.mode),
+                             zero)
             count = torch.full((), n_out, dtype=torch.int64, device=x.device)
             return yf, count, self.replace(window=new_window), osc._advance(n_out)
 
         y, valid, num_output, new_phase = self._u32_path(xa, n, out_capacity)
-        y = torch.where(valid, _rotate_down(y, osc._phase_ramp(out_capacity)), zero)
+        y = torch.where(valid, _rotate_down(y, osc._phase_ramp(out_capacity), osc.mode), zero)
         return (
             y,
             num_output,

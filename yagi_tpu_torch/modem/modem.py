@@ -1,4 +1,4 @@
-"""Linear modulator / hard demodulator over a constellation table.
+"""Linear modulator / demodulator over a constellation table.
 
 Port of :mod:`yagi_tpu.modem.modem` (behavioral spec: modem.rs and its
 scheme submodules). Every memoryless scheme is a constellation table [M]
@@ -7,14 +7,13 @@ in numpy bit for bit as yagi_tpu builds it; modulation is a gather and hard
 demodulation the nearest table point, argmin |x − table|² with the first
 index on ties (as ``jnp.argmin``; ``torch.argmin`` documents the same).
 Differential schemes (DPSK, π/4-DQPSK) modulate with a cumulative product of
-per-symbol increments seeded by the carried phase.
+per-symbol increments seeded by the carried phase, and demodulate from
+consecutive-sample phase differences. Soft demodulation uses liquid's
+nearest-neighbor table approximation (modem.rs:317-364) with exact LLR
+forms for BPSK/QPSK (bpsk.rs:22, qpsk.rs:24), softbits 0/127/255.
 
 Symbols are u32 in yagi_tpu; here they are int64 tensors holding the same
 values (the port's convention for u32, :mod:`yagi_tpu_torch._src.struct`).
-
-Not ported yet (each raises :class:`ConfigError` naming itself): soft
-demodulation, ``demodulate_with_stats``, the differential demodulators and
-``random_symbol(s)``.
 
 The constellation data (APSK rings, V.29, the optimal-QAM, logo and sqam
 tables) is ``data/*.json``, a copy of yagi_tpu's.
@@ -232,8 +231,14 @@ def _increments(scheme: ModulationScheme) -> np.ndarray:
     return np.exp(2j * np.pi * gray_decode(np.arange(M)) / M).astype(np.complex64)
 
 
-def _not_ported(what: str):
-    raise ConfigError(f"Modem.{what} is not ported yet")
+_PI4_IDEAL = (np.array([0.25, 0.75, -0.25, -0.75]) * np.pi).astype(np.float32)
+
+
+def _mod(a: torch.Tensor, b: float) -> torch.Tensor:
+    """Floored modulo as ``jnp.mod`` computes it: the truncated remainder,
+    plus ``b`` where its sign differs from b's (b > 0 here)."""
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & (r < 0), r + b, r)
 
 
 @struct.state
@@ -329,14 +334,58 @@ class Modem:
 
     def demodulate(self, x) -> tuple[torch.Tensor, "Modem"]:
         """Hard-decision demodulation of a block (modem.rs:255): int64
-        symbols [..., N]; the state keeps the last sample and its point."""
-        if self.scheme in _DIFFERENTIAL:
-            _not_ported("demodulate for differential schemes")
+        symbols [..., N]; the state keeps the last sample and its point
+        (and, for a differential scheme, the last phase)."""
         x = torch.as_tensor(x, device=self.table.device).to(torch.complex64)
+        if self.scheme in _DIFFERENTIAL:
+            sym, _, new = self._demodulate_diff_full(x)
+            return sym, new
         sym = self._nearest(x)
         if sym.shape[-1] == 0:  # an empty block: the state stands
             return sym, self
         return sym, self.replace(r=x[..., -1], x_hat=self.table[sym[..., -1]])
+
+    def _demodulate_diff_full(self, x: torch.Tensor):
+        """Differential demodulation: (symbols, the per-sample ideal points
+        x̂, the new state), from the phase difference to the previous
+        sample (the carried phase before the first)."""
+        if x.shape[-1] == 0:
+            return torch.empty(x.shape, dtype=torch.int64, device=x.device), x, self
+        theta = torch.angle(x)
+        prev = torch.cat([self.phi[..., None], theta[..., :-1]], -1)
+        if self.scheme == ModulationScheme.PI4DQPSK:
+            d_theta = _mod(theta - prev + np.pi, 2 * np.pi) - np.pi
+            sym = torch.where(
+                d_theta > 0.5 * np.pi, 1,
+                torch.where(d_theta > 0.0, 0, torch.where(d_theta < -0.5 * np.pi, 3, 2)))
+            ideal = torch.from_numpy(_PI4_IDEAL).to(x.device)[sym]
+            x_hat = torch.exp(1j * (prev + ideal)).to(torch.complex64)
+        else:  # DPSK
+            M = self.constellation_size
+            alpha = np.pi / M
+            d_phi_off = np.pi * (1.0 - 1.0 / M)
+            d_theta = theta - prev - d_phi_off
+            d_theta = _mod(d_theta + np.pi, 2 * np.pi) - np.pi
+            s = torch.clamp(torch.round((d_theta + d_phi_off) / (2 * alpha)), 0, M - 1).to(
+                torch.int64)
+            sym = gray_encode(torch.arange(M, device=x.device))[s]
+            res = (d_theta + d_phi_off) - s.to(torch.float32) * 2 * alpha
+            x_hat = torch.exp(1j * (theta - res)).to(torch.complex64)
+        return sym, x_hat, self.replace(phi=theta[..., -1], r=x[..., -1], x_hat=x_hat[..., -1])
+
+    def demodulate_with_stats(self, x):
+        """(symbols, x̂, phase_error, evm, new modem), per sample
+        (modem.rs:277-283). Differential schemes use the reconstructed ideal
+        point at the decided differential angle."""
+        x = torch.as_tensor(x, device=self.table.device).to(torch.complex64)
+        if self.scheme in _DIFFERENTIAL:
+            sym, x_hat, new = self._demodulate_diff_full(x)
+        else:
+            sym, new = self.demodulate(x)
+            x_hat = self.table[sym]
+        phase_error = (x * x_hat.conj()).imag
+        evm = (x_hat - x).abs()
+        return sym, x_hat, phase_error, evm, new
 
     def get_demodulator_sample(self):
         return self.x_hat
@@ -349,11 +398,55 @@ class Modem:
         """|x̂ − r| (modem.rs:281)."""
         return (self.x_hat - self.r).abs()
 
-    def demodulate_with_stats(self, x):
-        _not_ported("demodulate_with_stats")
-
+    # ------------------------------------------------------------- soft demod
     def demodulate_soft(self, x, compat: bool = False):
-        _not_ported("demodulate_soft")
+        """(symbols, soft bits [..., N, bps] uint8 in 0..255, new modem)
+        (modem.rs:259-271).
+
+        BPSK/QPSK use exact LLRs (bpsk.rs:22, qpsk.rs:24); table schemes the
+        nearest-neighbor approximation (modem.rs:317-364); differential
+        schemes hard bits. ``compat=True`` keeps the reference's truncating
+        byte cast on the table path (modem.rs:358-360); the default rounds
+        to nearest, half to even, as yagi_tpu.
+        """
+        x = torch.as_tensor(x, device=self.table.device).to(torch.complex64)
+        bps = self.bits_per_symbol
+        sym, new = self.demodulate(x)
+
+        def byte(v):
+            return torch.clamp(v * 16.0 + 127.0, 0, 255)
+
+        if self.scheme == ModulationScheme.BPSK:
+            llr = -2.0 * x.real * 4.0
+            return sym, byte(llr).to(torch.uint8)[..., None], new
+        if self.scheme == ModulationScheme.QPSK:
+            llr0 = -2.0 * x.imag * 5.8
+            llr1 = -2.0 * x.real * 5.8
+            return sym, torch.stack([byte(llr0), byte(llr1)], -1).to(torch.uint8), new
+
+        k = torch.arange(bps - 1, -1, -1, device=x.device)
+        if self.scheme in _DIFFERENTIAL:
+            bits = (sym[..., None] >> k) & 1
+            return sym, (bits * 255).to(torch.uint8), new
+
+        x_hat = self.table[sym]
+        gamma = 1.2 * self.constellation_size
+        d0 = (x - x_hat).abs().square()
+        bits_self = (sym[..., None] >> k) & 1  # [..., bps]
+        big = torch.tensor(8.0, dtype=torch.float32, device=x.device)
+        dmin1 = torch.where(bits_self == 1, d0[..., None], big)
+        dmin0 = torch.where(bits_self == 0, d0[..., None], big)
+
+        neigh = self.soft_neighbors[sym].to(torch.int64)  # [..., p]
+        d_n = (x[..., None] - self.table[neigh]).abs().square()  # [..., p]
+        bits_n = (neigh[..., None] >> k) & 1  # [..., p, bps]
+        dn1 = torch.where(bits_n == 1, d_n[..., None], big).amin(-2)
+        dn0 = torch.where(bits_n == 0, d_n[..., None], big).amin(-2)
+        dmin1 = torch.minimum(dmin1, dn1)
+        dmin0 = torch.minimum(dmin0, dn0)
+        scaled = torch.clamp((dmin0 - dmin1) * gamma * 16.0 + 127.0, 0, 255)
+        soft = (scaled if compat else torch.round(scaled)).to(torch.uint8)
+        return sym, soft, new
 
     # -------------------------------------------------------------- sources
     def random_symbol(self, generator):

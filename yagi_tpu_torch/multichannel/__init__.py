@@ -1,7 +1,9 @@
-"""Multichannel channelizers (liquid firpfbch family): the critically
-sampled analysis bank and its fused M = 64 kernel path, the 2× oversampled
-bank and the arbitrary-rate bank."""
+"""Multichannel (liquid firpfbch family; yagi stub filled in): the
+critically sampled analysis bank and its fused M = 64 kernel path, the 2×
+oversampled bank, the arbitrary-rate bank, and the OFDM frame generator and
+synchronizer."""
 
 from .firpfbch import Firpfbch, Firpfbch2  # noqa: F401
 from .firpfbchr import Firpfbchr  # noqa: F401
+from .ofdm import OfdmFrameGen, OfdmFrameSync, default_sctype  # noqa: F401
 from .fused import FusedChannelizer  # noqa: F401

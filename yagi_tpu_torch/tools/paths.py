@@ -1,6 +1,6 @@
 """The shapes and inputs of the config[0], config[4], config[1], config[3]
-and config[2] paths, and the streaming filters of layer L4 at config[1]'s
-width, in one place for ``chip_smoke.py`` and the tools that time those
+and config[2] paths, the streaming filters of layer L4 at config[1]'s
+width, and the widths of the modems, in one place for ``chip_smoke.py`` and the tools that time those
 paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
 from __future__ import annotations
@@ -46,6 +46,15 @@ QAM_SEED = 4
 C2, T2 = 512, 1 << 14
 FM_SEED = 3
 FM_SCALE = 0.1
+
+# the modems, channel and equalizer (chip_smoke.py's [modems]) over 1024
+# channels: 16-QAM
+# (and DPSK, QPSK) blocks of 4096 symbols; GMSK, CPFSK and FSK blocks of
+# 2048 symbols; AmpModem blocks of 2048 audio samples; Osc blocks of 2^14;
+# the RLS equalizer (p 7) over 256 channels, 1024 samples in four blocks
+MOD_C = 1024
+QAM_SYMS, GMSK_BITS, CPFSK_SYMS, FSK_SYMS, AM_N, OSC_N = 4096, 2048, 2048, 2048, 2048, 1 << 14
+EQRLS_C, EQRLS_N, EQRLS_P = 256, 1024, 7
 
 
 def complex_block(rng, shape, device) -> torch.Tensor:

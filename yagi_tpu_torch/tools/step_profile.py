@@ -31,8 +31,16 @@ between CUDA events, the host's time to enqueue a step, then a
   1024 channels × 4096 samples a block, state carried, one measurement
   each.
 
-``--configs`` picks some of them (default all but ``l4``), for example
-``4,1p``.
+* ``mod``: the heaviest objects of ``chip_smoke.py``'s ``[modems]``
+  phase at its widths (:mod:`.paths`): the 16-QAM receiver (an ``"nco"``
+  ``Osc`` down-mix, ``demodulate``, ``demodulate_soft``,
+  ``demodulate_with_stats``) at 1024 × 4096 symbols, GMSK and FSK
+  modulate → demodulate at 1024 × 2048 symbols, ``AmpModem`` (USB with a
+  carrier) modulate → demodulate at 1024 × 2048, and ``Eqrls.train_block``
+  (p 7) at 256 × 256, each one measurement.
+
+``--configs`` picks some of them (default all but ``l4`` and ``mod``), for
+example ``4,1p``.
 
 The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
@@ -201,6 +209,68 @@ def filter_steps(device) -> list:
     return out
 
 
+def modem_steps(device) -> list:
+    """(name, step, steps) of the ``[modems]`` phase's heaviest objects, state carried over
+    four blocks each."""
+    from yagi_tpu_torch.equalization import Eqrls
+    from yagi_tpu_torch.modem import AmpModem, Fskdem, Fskmod, GmskDem, GmskMod, Modem
+    from yagi_tpu_torch.nco import Osc
+
+    rng = np.random.default_rng(13)
+    c, b = paths.MOD_C, (paths.MOD_C,)
+
+    def ints(hi: int, n: int) -> list[torch.Tensor]:
+        return [torch.from_numpy(rng.integers(0, hi, (c, n))).to(device) for _ in range(4)]
+
+    def chain(objs: list, call, xs: list):
+        state = [objs, 0]
+
+        def step():
+            state[0] = call(state[0], xs[state[1] % 4])
+            state[1] += 1
+
+        return step
+
+    qam = Modem.create("qam16", batch_shape=b, device=device)
+    ys = [qam.modulate(s)[0] + 0.03 * complex_block(rng, s.shape, device)
+          for s in ints(16, paths.QAM_SYMS)]
+
+    def rx(st, y):
+        osc, m = st
+        y, osc = osc.mix_block_down(y)
+        m = m.demodulate(y)[1]
+        m = m.demodulate_soft(y)[2]
+        return osc, m.demodulate_with_stats(y)[4]
+
+    def mod_dem(st, x):
+        tx, rx_ = st
+        y, tx = tx.modulate(x)
+        return tx, rx_.demodulate(y)[1]
+
+    audio = [0.5 * torch.rand(c, paths.AM_N, device=device) for _ in range(4)]
+    n_eq = paths.EQRLS_N // 4
+    eq_x = [complex_block(rng, (paths.EQRLS_C, n_eq), device) for _ in range(4)]
+    eq = Eqrls.create(p=paths.EQRLS_P, batch_shape=(paths.EQRLS_C,), device=device)
+    return [
+        ("[modems] 16-QAM receiver", chain(
+            (Osc.create("nco", batch_shape=b, device=device),
+             Modem.create("qam16", batch_shape=b, device=device)), rx, ys), 20),
+        ("[modems] GMSK modulate -> demodulate", chain(
+            (GmskMod.create(2, 3, 0.3, b, device=device),
+             GmskDem.create(2, 3, 0.3, b, device=device)), mod_dem,
+            ints(2, paths.GMSK_BITS)), 20),
+        ("[modems] FSK modulate -> demodulate", chain(
+            (Fskmod.create(2, 8, 0.2, b, device=device),
+             Fskdem.create(2, 8, 0.2, b, device=device)), mod_dem,
+            ints(4, paths.FSK_SYMS)), 20),
+        ("[modems] AmpModem usb modulate -> demodulate", chain(
+            AmpModem.create(0.5, "usb", batch_shape=b, device=device),
+            lambda m, x: m.demodulate(m.modulate(x)[0])[1], audio), 20),
+        ("[modems] Eqrls.train_block", chain(
+            eq, lambda e, x: e.train_block(x, x)[1], eq_x), 2),
+    ]
+
+
 def measure(name: str, step, steps: int) -> None:
     for _ in range(3):
         step()
@@ -252,6 +322,10 @@ def main(argv=None) -> None:
         if key == "l4":
             for name, step in filter_steps(device):
                 measure(name, step, args.steps)
+            continue
+        if key == "mod":
+            for name, step, steps in modem_steps(device):
+                measure(name, step, steps)
             continue
         name, make, steps = runs[key]
         measure(name, make(), steps)
