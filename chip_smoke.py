@@ -168,6 +168,8 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -225,6 +227,17 @@ from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
 from yagi_tpu_torch.math import dotprod  # noqa: E402
 from yagi_tpu_torch.channel import Channel  # noqa: E402
 from yagi_tpu_torch.equalization import Eqrls  # noqa: E402
+from yagi_tpu_torch import fec as tfec  # noqa: E402
+from yagi_tpu_torch.fec import Fec, FecScheme, fec_get_enc_msg_length  # noqa: E402
+from yagi_tpu_torch.framing import (  # noqa: E402
+    FrameGen64,
+    FrameSync64,
+    QDSync,
+    QPilotGen,
+    QPilotSync,
+    SymStreamR,
+    frame64_len,
+)
 from yagi_tpu_torch.modem import (  # noqa: E402
     AmpModem,
     CpfskDem,
@@ -275,6 +288,14 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     EQRLS_C,
     EQRLS_N,
     EQRLS_P,
+    FEC_LEN,
+    FEC_SEED,
+    FRAME_BUF,
+    FRAME_DPHI_MAX,
+    FRAME_GAIN,
+    FRAME_N,
+    FRAME_SEED,
+    FRAME_SNR_DB,
     FSK_SYMS,
     GMSK_BITS,
     KF,
@@ -285,13 +306,22 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     OSC_N,
     QAM_SEED,
     QAM_SYMS,
+    QD_BURSTS,
+    QD_PAYLOAD,
+    QD_PRE,
+    QD_SPACING,
+    STREAM_BW,
+    STREAM_N,
     T0 as T,
     T1,
     T2,
     T3,
     T4,
     complex_block,
+    draw_impairments,
     fm_block,
+    frame_bursts,
+    impair,
     make_fmstereo,
     make_filters,
     make_fused,
@@ -496,6 +526,30 @@ EQRLS_TOL, EQRLS_RMS_MAX = 1e-4, 0.1  # tests/test_torch_eqrls_quant.py's 1e-4
 OFDM_M, OFDM_CP, OFDM_SYMS, OFDM_LEAD, OFDM_CFO = 64, 16, 256, 137, 0.004
 OFDM_TOL, OFDM_EVM_MAX = 1e-6, -20.0  # complex128 inside, complex64 out
 N_MOD_TIMED = 5  # eager calls timed per object
+# [framing]: fec/ and framing/'s packet layer (no kernel). Sizes, seeds and
+# the impaired bursts come from tools/paths.py. FEC: a flipped bit every
+# FEC_CONV_GAP coded bits of a convolutional code (its free distance 10 at
+# rate 1/2 and 3 at rate 7/8 correct one such error per window), soft levels
+# at FEC_SOFT_DB Es/N0 per coded bit; card equal to CPU exactly (the
+# Viterbi's float32 arithmetic is the same on both). frame64: FRAME_CUT
+# frames against the CPU, bytes and flags exactly; the stats within
+# FRAME_STAT_TOL: the correlation surfaces are complex64 FFTs from two
+# libraries (cuFFT, pocketfft), which round apart by ~log2(nfft)·2^-24 ≈
+# 8e-7 of the peak, and the quadratic interpolation divides that by the
+# peak's curvature (~0.1 of the peak and more for these pulses): tau within
+# 1e-4 samples, dphi 1e-6 rad/sample (the hypothesis spacing 3.3e-3 times
+# that error), phi 1e-5 rad, gamma and rxy 1e-5 relative, evm_db 1e-3 dB
+# (tests/test_torch_framing.py's, measured against yagi_tpu at ~1e-7).
+# SymStreamR against the CPU within STREAM_TOL (float32 filters in two
+# summation orders, the CPU tests' 1e-5), its block split within
+# STREAM_SPLIT_TOL.
+FEC_CONV_GAP, FEC_SOFT_DB = 96, 6.0
+FRAME_CUT, FRAME_NOISE, N_FRAME_TIMED = 8, 8, 4
+FRAME_DPHI_TOL = 1e-3  # tests/test_framing2.py's bound
+FRAME_STAT_TOL = {"tau": 1e-4, "dphi": 1e-6, "phi": 1e-5, "gamma": 1e-5, "rxy": 1e-5,
+                  "evm_db": 1e-3}
+STREAM_CUT, STREAM_SPLIT = 1 << 14, 1 << 16
+STREAM_TOL, STREAM_SPLIT_TOL = 1e-5, 1e-6
 
 # The AGC and eq/carrier loops feed their decisions back, so kernel and plain
 # version are held to bit identity (kernels/agc.py, kernels/qam.py): every
@@ -2777,6 +2831,274 @@ def phase_modems(device, card: str) -> None:
     print(f"[modems] {card}: the phase took {time.perf_counter() - t_phase:.2f} s")
 
 
+def device_ops(fn) -> int | None:
+    """Device operations (kernels, copies, fills) one call of ``fn`` puts on
+    the card, counted in torch.profiler's trace; None where the trace holds
+    no device event."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) or None
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall time per call of ``fn`` in ms, the card synchronized before
+    and after (for calls that end in a host read anyway)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def fec_corrupt(scheme: FecScheme, enc: np.ndarray, rng) -> np.ndarray:
+    """``enc`` with errors within the scheme's correcting power: t bits of
+    every codeword of a block code (rep3 1, rep5 2, Golay 3, Hamming and
+    SECDED 1), one bit in every FEC_CONV_GAP coded bits of a convolutional
+    code, 16 symbols of each RS block; none for "none"."""
+    bits = np.unpackbits(enc)
+    if scheme in (FecScheme.NONE,):
+        return enc.copy()
+    if scheme == FecScheme.RS8:
+        out = enc.copy()
+        pos = rng.choice(out.size, size=16, replace=False)  # one block at FEC_LEN bytes
+        out[pos] ^= rng.integers(1, 256, 16).astype(np.uint8)
+        return out
+    if scheme.value.startswith("conv"):
+        bits[rng.integers(0, FEC_CONV_GAP) + np.arange(0, bits.size - FEC_CONV_GAP,
+                                                        FEC_CONV_GAP)] ^= 1
+        return np.packbits(bits)
+    code = getattr(tfec, scheme.value)()
+    t = {"rep3": 1, "rep5": 2, "golay2412": 3}.get(scheme.value, 1)
+    for j in range(-(-8 * FEC_LEN // code.k)):
+        bits[j * code.n + rng.choice(code.n, size=t, replace=False)] ^= 1
+    return np.packbits(bits)
+
+
+def fec_soft(enc: np.ndarray, rng) -> np.ndarray:
+    """Soft levels of the encoded bits at Es/N0 = FEC_SOFT_DB per coded bit:
+    (r + 1)/2 clipped to [0, 1], r = ±1 plus Gaussian noise."""
+    s = 2.0 * np.unpackbits(enc) - 1.0
+    r = s + np.sqrt(0.5 / 10 ** (FEC_SOFT_DB / 10)) * rng.standard_normal(s.size)
+    return np.clip(0.5 * (r + 1.0), 0.0, 1.0).astype(np.float32)
+
+
+def framing_fec(device, card: str) -> None:
+    """Every FecScheme on a FEC_LEN-byte message: the card's encoded bytes
+    equal the CPU's; decoding hard bytes with errors within the code's
+    power (and soft levels at FEC_SOFT_DB for the convolutional schemes) on
+    the card gives the message and the CPU's bytes; conv615's Viterbi, Fec
+    conv27 and rs8 encode and decode timed."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(FEC_SEED)
+    msg = rng.integers(0, 256, FEC_LEN).astype(np.uint8)
+    failed, cases = [], 0
+    for scheme in FecScheme:
+        fc, fh = Fec(scheme, device), Fec(scheme, cpu)
+        enc = fc.encode(msg)
+        require(np.array_equal(enc, fh.encode(msg)), f"[fec] {scheme.value}: card != CPU encode")
+        inputs = [("hard", fec_corrupt(scheme, enc, rng))]
+        if scheme.value.startswith("conv"):
+            inputs.append((f"soft {FEC_SOFT_DB:g} dB", fec_soft(enc, rng)))
+        for what, x in inputs:
+            if what == "hard":
+                got, want = fc.decode(x, FEC_LEN), fh.decode(x, FEC_LEN)
+            else:
+                got = fc.decode_soft(torch.from_numpy(x).to(device), FEC_LEN)
+                want = fh.decode_soft(x, FEC_LEN)
+            cases += 1
+            if not (np.array_equal(got, msg) and np.array_equal(got, want)):
+                failed.append(f"{scheme.value} {what}")
+                print(f"[fec] FAILED {scheme.value} {what}: {int((got != msg).sum())} bytes off "
+                      f"the message, {int((got != want).sum())} off the CPU's")
+    print(f"[fec] {len(FecScheme)} schemes on a {FEC_LEN}-byte message (seed {FEC_SEED}): card "
+          f"encode = CPU; {cases - len(failed)} of {cases} decodes (hard with errors within each "
+          f"code's power, soft at {FEC_SOFT_DB:g} dB for the {cases - len(FecScheme)} conv "
+          f"schemes) give the message and equal the CPU's")
+    require(not failed, f"[fec] failed: {failed}")
+    f615 = Fec("conv615", device)
+    enc = f615.encode(msg)
+    lv = torch.from_numpy(fec_soft(enc, rng)).to(device)
+    ms615 = host_ms(lambda: f615.decode_soft(lv, FEC_LEN), 1)
+    ops615 = device_ops(lambda: f615.decode_soft(lv, FEC_LEN))
+    print(f"[fec] conv615 (16,384 states) Viterbi over {8 * FEC_LEN + 14} steps: {ms615:.1f} ms, "
+          f"{ops615} device ops ({card})")
+    for name in ("conv27", "rs8"):
+        f = Fec(name, device)
+        enc = f.encode(msg)
+        e_ms = host_ms(lambda: f.encode(msg), 10)
+        d_ms = host_ms(lambda: f.decode(enc, FEC_LEN), 5)
+        print(f"[fec] Fec {name} on {FEC_LEN} bytes: encode {e_ms:.3f} ms (host), decode "
+              f"{d_ms:.3f} ms ({card})")
+
+
+def frame_ok(r, hdr, pld, dphi) -> bool:
+    return (r is not None and r["header_valid"] and r["payload_valid"]
+            and np.array_equal(r["header"], hdr) and np.array_equal(r["payload"], pld)
+            and abs(r["stats"]["dphi"] - dphi) < FRAME_DPHI_TOL)
+
+
+def framing_frame64(device, card: str) -> None:
+    """FRAME_N impaired frame64 bursts (tools/paths.py's frame_bursts) through
+    FrameSync64 on the card: every header and payload CRC-valid and as sent,
+    |dphi error| < FRAME_DPHI_TOL; FRAME_NOISE noise-only buffers not
+    detected; the first FRAME_CUT against the CPU (bytes and flags equal,
+    stats within FRAME_STAT_TOL); the times of a frame."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    bufs, hdrs, plds, draws = frame_bursts(FRAME_N, FRAME_SEED, device)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    sync, sync_cpu = FrameSync64(device=device), FrameSync64(device=cpu)
+    t0 = time.perf_counter()
+    results = [sync.execute(b) for b in bufs]
+    run_s = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(results) if not frame_ok(r, hdrs[i], plds[i], draws[i]["dphi"])]
+    for i in bad:
+        r = results[i]
+        print(f"[framing] frame {i} FAILED: draws {draws[i]}; "
+              + ("not detected" if r is None else
+                 f"header {r['header_valid']}, payload {r['payload_valid']}, stats {r['stats']}"))
+    worst = max(abs(r["stats"]["dphi"] - d["dphi"]) for r, d in zip(results, draws) if r)
+    evm = [r["stats"]["evm_db"] for r in results if r]
+    print(f"[framing] frame64: {FRAME_N} bursts of {frame64_len()} samples, each in a "
+          f"{FRAME_BUF}-sample buffer (seed {FRAME_SEED}, made in {make_s:.1f} s: lead, fractional "
+          f"delay, CFO ±{FRAME_DPHI_MAX}, phase, gain {FRAME_GAIN}, AWGN {FRAME_SNR_DB:g} dB through "
+          f"Channel): {FRAME_N - len(bad)} decoded with header and payload CRC-valid and as sent, "
+          f"worst |dphi error| {worst:.2e} (< {FRAME_DPHI_TOL}); EVM {min(evm):.1f} to "
+          f"{max(evm):.1f} dB; {run_s:.2f} s on the card")
+    require(not bad, f"frame64: frames {bad} failed")
+    gen = torch.Generator(device=device).manual_seed(FRAME_SEED)
+    noise = torch.complex(torch.randn(FRAME_NOISE, FRAME_BUF, generator=gen, device=device),
+                          torch.randn(FRAME_NOISE, FRAME_BUF, generator=gen, device=device))
+    found = sum(sync.execute(x) is not None for x in noise)
+    print(f"[framing] frame64 on {FRAME_NOISE} noise-only buffers: {found} detections (0)")
+    require(found == 0, f"frame64: {found} detections on noise")
+    errs = {k: 0.0 for k in FRAME_STAT_TOL}
+    for i in range(FRAME_CUT):
+        r, rc = results[i], sync_cpu.execute(bufs[i].cpu())
+        require(rc is not None, f"frame64: frame {i} not detected on the CPU")
+        same = all(np.array_equal(r[k], rc[k]) for k in ("header", "payload")) and all(
+            r[k] is rc[k] for k in ("header_valid", "payload_valid"))
+        require(same, f"frame64: frame {i}'s bytes or flags differ between card and CPU")
+        for k, tol in FRAME_STAT_TOL.items():
+            d = r["stats"][k] - rc["stats"][k]
+            d = abs(np.angle(np.exp(1j * d))) if k == "phi" else abs(d) / (
+                abs(rc["stats"][k]) if k in ("gamma", "rxy") else 1.0)
+            errs[k] = max(errs[k], d)
+    print(f"[framing] frame64 card vs CPU on {FRAME_CUT} frames: bytes and flags equal; stats "
+          + ", ".join(f"{k} {errs[k]:.2e} (<= {FRAME_STAT_TOL[k]:g})" for k in FRAME_STAT_TOL))
+    require(all(errs[k] <= FRAME_STAT_TOL[k] for k in errs), f"frame64 stats: {errs}")
+    # times of one frame, eager, between CUDA events / the host clock
+    x = bufs[0]
+    gen64 = FrameGen64(device=device)
+    gen_ms = cuda_ms(lambda: gen64.execute(hdrs[0], plds[0]), N_FRAME_TIMED, warmup=1)
+    total_ms = host_ms(lambda: sync.execute(x), N_FRAME_TIMED)
+    # its three stages, each alone: detection (ends in its host read), sync
+    # (timing and carrier recovery), decode (ends in the decoded bytes)
+    det = sync.detector.detect(x)
+    syms, b = sync._align(x, det)
+    det_ms = host_ms(lambda: sync.detector.detect(x), N_FRAME_TIMED)
+    sync_ms = host_ms(lambda: sync._align(x, det), N_FRAME_TIMED)
+    dec_ms = host_ms(lambda: sync._decode(syms, b, det), N_FRAME_TIMED)
+    # the payload's Viterbi alone: conv27p23 over the hamming128 code of
+    # payload + CRC-32 key (64 + 4 bytes → 102)
+    len1 = fec_get_enc_msg_length("hamming128", 64 + 4)
+    levels = torch.rand(8 * fec_get_enc_msg_length("conv27p23", len1), device=device)
+    vit = Fec("conv27p23", device)
+    vit_ms = host_ms(lambda: vit.decode_soft(levels, len1), N_FRAME_TIMED)
+    ops = {name: device_ops(fn) for name, fn in (("execute", lambda: sync.execute(x)),
+                                                  ("viterbi", lambda: vit.decode_soft(
+                                                      levels, len1)))}
+    print(f"[framing] {card}: FrameSync64.execute {total_ms:.2f} ms a frame (detection "
+          f"{det_ms:.2f}, sync {sync_ms:.2f}, decode {dec_ms:.2f}: the payload's "
+          f"conv27p23 Viterbi over {8 * len1 + 6} steps {vit_ms:.2f} ms), "
+          f"{ops['execute']} device ops a frame, {ops['viterbi']} in the Viterbi; "
+          f"FrameGen64.execute {gen_ms:.3f} ms a frame between CUDA events")
+
+
+def framing_qdsync(device) -> None:
+    """QD_BURSTS bursts (a QD_PRE-symbol BPSK preamble, then QD_PAYLOAD QPSK
+    symbols with a pilot every QD_SPACING, shaped as QDSync expects) through
+    the frame64 impairments into QDSync → QPilotSync on the card: zero
+    symbol errors."""
+    rng = np.random.default_rng(FRAME_SEED + 1)
+    gen = torch.Generator(device=device).manual_seed(FRAME_SEED + 1)
+    pre = (1.0 - 2.0 * rng.integers(0, 2, QD_PRE)).astype(np.complex64)
+    qd = QDSync(pre, k=2, m=7, beta=0.3, device=device)
+    pg = QPilotGen(QD_PAYLOAD, QD_SPACING, device=device)
+    ps = QPilotSync(QD_PAYLOAD, QD_SPACING, device=device)
+    qpsk = Modem.create("qpsk", device=device)
+    n_sym = QD_PRE + pg.get_frame_len()
+    errors, bad = 0, []
+    for b in range(QD_BURSTS):
+        sent = torch.from_numpy(rng.integers(0, 4, QD_PAYLOAD)).to(device)
+        frame = pg.execute(qpsk.modulate(sent)[0]).cpu().numpy()
+        allsyms = np.concatenate([pre, frame, np.zeros(16, np.complex64)])
+        up = np.zeros(2 * allsyms.size, np.complex64)
+        up[::2] = allsyms
+        tx = torch.from_numpy(np.convolve(up, qd._h).astype(np.complex64)).to(device)
+        draw = draw_impairments(rng, tx.shape[0], FRAME_BUF)
+        r = qd.execute(impair(tx, draw, FRAME_BUF, gen), n_symbols=n_sym)
+        if r is None:
+            bad.append(b)
+            print(f"[framing] QDSync burst {b} not detected: draws {draw}")
+            continue
+        payload, info = ps.execute(r[0][QD_PRE:])
+        e = int((qpsk.demodulate(payload)[0] != sent).sum())
+        errors += e
+        if e:
+            bad.append(b)
+            print(f"[framing] QDSync -> QPilotSync burst {b}: {e} symbol errors; draws {draw}, "
+                  f"QDSync {r[1]}, QPilotSync {info}")
+    print(f"[framing] QDSync -> QPilotSync: {QD_BURSTS} bursts of {QD_PRE} BPSK + {QD_PAYLOAD} "
+          f"QPSK symbols, a pilot every {QD_SPACING}, under the frame64 impairments: {errors} "
+          f"symbol errors (0)")
+    require(not bad, f"QDSync -> QPilotSync: bursts {bad} failed")
+
+
+def framing_symstream(device, card: str) -> None:
+    """SymStreamR at bandwidth STREAM_BW: STREAM_N samples on the card, the
+    first STREAM_CUT held against the CPU; write_samples(n) twice equal to
+    write_samples(2n) on the card; its rate."""
+    cpu = torch.device("cpu")
+    s = SymStreamR(bw=STREAM_BW, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = s.write_samples(STREAM_N)
+    torch.cuda.synchronize()
+    msps = STREAM_N / (time.perf_counter() - t0) / 1e6
+    y_cpu = SymStreamR(bw=STREAM_BW, device=cpu).write_samples(STREAM_CUT)
+    e_cpu = (y[:STREAM_CUT].cpu() - y_cpu).abs().max().item()
+    a, b = SymStreamR(bw=STREAM_BW, device=device), SymStreamR(bw=STREAM_BW, device=device)
+    two = torch.cat([a.write_samples(STREAM_SPLIT), a.write_samples(STREAM_SPLIT)])
+    e_split = (two - b.write_samples(2 * STREAM_SPLIT)).abs().max().item()
+    print(f"[framing] SymStreamR bw {STREAM_BW}: {STREAM_N} samples on the card at {msps:.2f} "
+          f"Msps ({card}); the first {STREAM_CUT} = the CPU's within {e_cpu:.2e} (<= "
+          f"{STREAM_TOL}); write_samples({STREAM_SPLIT}) twice = write_samples({2 * STREAM_SPLIT})"
+          f" within {e_split:.2e} (<= {STREAM_SPLIT_TOL})")
+    require(y.shape[0] == STREAM_N and y.device == device and e_cpu <= STREAM_TOL
+            and e_split <= STREAM_SPLIT_TOL, f"SymStreamR: {e_cpu}, {e_split}")
+
+
+def phase_framing(device, card: str) -> None:
+    """fec/ and framing/'s packet layer on the card (no kernel lies on this
+    path: yagi_tpu's fec/ and framing/ reach no pallas_call)."""
+    t_phase = time.perf_counter()
+    spent = {}
+    for name, part in (("fec", framing_fec), ("frame64", framing_frame64),
+                       ("qdsync", lambda d, c: framing_qdsync(d)),
+                       ("symstream", framing_symstream)):
+        t0 = time.perf_counter()
+        part(device, card)
+        torch.cuda.synchronize()
+        spent[name] = time.perf_counter() - t0
+    print(f"[framing] {card}: the phase took {time.perf_counter() - t_phase:.2f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + ")")
+
+
 def phase_timing_config2(device, card: str) -> dict:
     """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
     config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
@@ -2921,6 +3243,8 @@ def main() -> None:
     mark("l0")
     phase_modems(device, smi)
     mark("modems")
+    phase_framing(device, smi)
+    mark("framing")
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),

@@ -112,6 +112,25 @@ _MODULES = (
     "yagi_tpu_torch.modem.ampmodem",
     "yagi_tpu_torch.equalization.eqrls",
     "yagi_tpu_torch.multichannel.ofdm",
+    "yagi_tpu_torch.fec",
+    "yagi_tpu_torch.fec._bits",
+    "yagi_tpu_torch.fec.crc",
+    "yagi_tpu_torch.fec.block",
+    "yagi_tpu_torch.fec.golay",
+    "yagi_tpu_torch.fec.interleave",
+    "yagi_tpu_torch.fec.rs",
+    "yagi_tpu_torch.fec.conv",
+    "yagi_tpu_torch.fec.api",
+    "yagi_tpu_torch.fec.packetizer",
+    "yagi_tpu_torch.framing",
+    "yagi_tpu_torch.framing._sync",
+    "yagi_tpu_torch.framing._carrier",
+    "yagi_tpu_torch.framing.symstream",
+    "yagi_tpu_torch.framing.qpacketmodem",
+    "yagi_tpu_torch.framing.qdetector",
+    "yagi_tpu_torch.framing.qdsync",
+    "yagi_tpu_torch.framing.qpilot",
+    "yagi_tpu_torch.framing.frame64",
 )
 
 
@@ -206,6 +225,49 @@ def test_l3_l5_l6_names_match_yagi_tpu(name):
     assert [n for n in public if not hasattr(t, n)] == []
     assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
             ] == []
+
+
+# slice 9: fec/ and framing/'s packet layer; the frame formats built on it
+# (slice 10) are not ported yet
+_SLICE9 = ("fec", "fec._bits", "fec.crc", "fec.block", "fec.golay", "fec.interleave", "fec.rs",
+           "fec.conv", "fec.api", "fec.packetizer", "framing", "framing._carrier",
+           "framing.symstream", "framing.qpacketmodem", "framing.qdetector", "framing.qdsync",
+           "framing.qpilot", "framing.frame64")
+_SLICE10 = {"FlexFrameGen", "FlexFrameSync", "GmskFrameGen", "GmskFrameSync", "DsssFrameGen64",
+            "DsssFrameSync64", "FskFrameGen", "FskFrameSync", "MSource", "BSync", "Detector",
+            "BPacketGen", "BPacketSync"}
+
+
+@pytest.mark.parametrize("name", _SLICE9)
+def test_slice9_names_match_yagi_tpu(name):
+    """The ``__all__`` of each slice-9 module equals yagi_tpu's (for
+    ``framing``, which has none, every public name it defines or
+    re-exports, but slice 10's frame formats), each name of the same kind;
+    the slice-10 names are absent, not stubbed."""
+    import importlib
+
+    j = importlib.import_module(f"yagi_tpu.{name}")
+    t = importlib.import_module(f"yagi_tpu_torch.{name}")
+    if hasattr(j, "__all__"):
+        assert list(t.__all__) == list(j.__all__)
+        public = list(j.__all__)
+    else:
+        public = [n for n in _public(j) if n not in _SLICE10]
+        assert sorted(set(_public(j)) - set(public)) == sorted(_SLICE10)
+        assert [n for n in _SLICE10 if hasattr(t, n)] == []
+    assert public, name
+    assert [n for n in public if not hasattr(t, n)] == []
+    assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
+            ] == []
+
+
+def test_slice9_names_import_alone():
+    """fec and framing resolve from the package root (lazy subpackages);
+    FRAME64_LEN is evaluated lazily, on the host."""
+    import yagi_tpu_torch
+
+    assert yagi_tpu_torch.fec.Packetizer and yagi_tpu_torch.framing.FrameSync64
+    assert yagi_tpu_torch.framing.FRAME64_LEN == 1588
 
 
 def _error_classes(mod):

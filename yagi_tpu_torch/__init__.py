@@ -25,7 +25,10 @@ layers L3, L5 and L6 with the channel models: all of FIR design and
 Parks-McClellan, the oscillator's table modes and PLL, the RLS equalizer,
 quantization, the rest of the linear modem (soft and differential
 demodulation), FSK, GMSK/CPFSK, AM and OFDM framing, whose AM carrier
-tracker runs the ``iir_chunked`` kernel.
+tracker runs the ``iir_chunked`` kernel; forward error correction and the
+packet layer of framing (symbol streams, the packet modem, the burst
+detector and synchronizers, frame64), whose Viterbi decoder and
+synchronizers run in torch on the card.
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy): special functions, windows,
@@ -50,6 +53,11 @@ Layer map (mirrors yagi_tpu):
             GMSK and CPFSK
   channel/  multipath, carrier offset and AWGN
   multichannel/  polyphase channelizers, OFDM frame generator and synchronizer
+  fec/      CRC, block codes, Golay, Reed-Solomon, interleaver (host numpy),
+            convolutional codes with the Viterbi decoder on the device,
+            the packetizer
+  framing/  symbol streams, packet modem, burst detector and synchronizers
+            (QDetector, QDSync, QPilotGen/QPilotSync), frame64
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
   parallel/ sharded streaming over torch.distributed (halo exchange,
@@ -68,6 +76,6 @@ def __getattr__(name):
 
     if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
                 "kernels", "chains", "fft", "parallel", "utils", "sequence", "random", "matrix",
-                "optim", "buffer", "native", "quantization", "channel"):
+                "optim", "buffer", "native", "quantization", "channel", "fec", "framing"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

@@ -13,6 +13,7 @@ Unsigned 32-bit state (resampler and oscillator phases) is held as int64 in
 from __future__ import annotations
 
 import dataclasses
+import enum
 import types
 import typing
 from typing import Any, TypeVar
@@ -103,3 +104,30 @@ def load_state(cls: type[_T], arrays, device=None) -> _T:
         v = arrays[f.name]
         kw[f.name] = v if f.metadata.get("static", False) else _load_value(hints[f.name], v, device)
     return cls(**kw)
+
+
+def load_into(obj, source, device=None):
+    """Carry another implementation's stream state into ``obj``, a plain
+    (mutable) object of the same class built with the same configuration
+    (a symbol stream, whose fields are not a frozen state class).
+
+    Each attribute of ``obj`` loads from ``source``'s attribute of the same
+    name: a state object by :func:`load_state`, a tensor from the array
+    (keeping ``obj``'s dtype), a Python number (a gain, an LFSR register)
+    by value, and a plain object of its own attributes recursively. Enums
+    and devices are ``obj``'s own. Returns ``obj``.
+    """
+    device = resolve_device(device)
+    for name, v in list(vars(obj).items()):
+        src = getattr(source, name, None)
+        if src is None or isinstance(v, (enum.Enum, torch.device)):
+            continue
+        if _is_state(type(v)):
+            setattr(obj, name, load_state(type(v), src, device))
+        elif isinstance(v, torch.Tensor):
+            setattr(obj, name, _as_tensor(src, device).to(v.dtype))
+        elif isinstance(v, (bool, int, float)):
+            setattr(obj, name, type(v)(src))
+        elif hasattr(v, "__dict__"):
+            load_into(v, src, device)
+    return obj

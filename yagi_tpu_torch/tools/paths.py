@@ -1,17 +1,23 @@
 """The shapes and inputs of the config[0], config[4], config[1], config[3]
 and config[2] paths, the streaming filters of layer L4 at config[1]'s
-width, and the widths of the modems, in one place for ``chip_smoke.py`` and the tools that time those
-paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
+width, the widths of the modems, and the sizes and impaired bursts of the
+FEC and packet-framing layer, in one place for ``chip_smoke.py`` and the
+tools that time those paths on the card (:mod:`.kernel_ab`,
+:mod:`.step_profile`)."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..chains import FmStereoRx, FusedRxChain, QamRx
+from ..channel import Channel
 from ..design import fir_design_kaiser
 from ..filter import (Dds, Fdelay, FftFilt, FirDecimationFilter, FirInterpolationFilter,
                       MsResamp, OrdFilt, Rresamp, Symsync)
+from ..framing import FrameGen64, frame64_len
 from ..multichannel import FusedChannelizer
 
 # config[0] (bench.py:44-82): 64-tap Kaiser FIR → 2× interpolator → mix-down
@@ -55,6 +61,19 @@ FM_SCALE = 0.1
 MOD_C = 1024
 QAM_SYMS, GMSK_BITS, CPFSK_SYMS, FSK_SYMS, AM_N, OSC_N = 4096, 2048, 2048, 2048, 2048, 1 << 14
 EQRLS_C, EQRLS_N, EQRLS_P = 256, 1024, 7
+
+# the FEC and packet-framing layer (chip_smoke.py's [framing]): every
+# FecScheme on a FEC_LEN-byte message from numpy seed FEC_SEED; FRAME_N
+# frame64 bursts (8-byte header, 64-byte payload), each alone in a
+# FRAME_BUF-sample buffer, through tests/test_framing2.py:112-160's
+# impairments at FRAME_SNR_DB (frame_bursts); QD_BURSTS bursts of a
+# QD_PRE-symbol BPSK preamble and QD_PAYLOAD QPSK symbols with a pilot every
+# QD_SPACING; SymStreamR at bandwidth STREAM_BW for STREAM_N samples
+FEC_LEN, FEC_SEED = 64, 14
+FRAME_N, FRAME_BUF, FRAME_SNR_DB, FRAME_SEED = 64, 4096, 20.0, 14
+FRAME_DPHI_MAX, FRAME_GAIN = 0.012, (0.5, 1.3)  # rad/sample; linear
+QD_BURSTS, QD_PRE, QD_PAYLOAD, QD_SPACING = 16, 64, 1024, 16
+STREAM_BW, STREAM_N = 0.3, 1 << 20
 
 
 def complex_block(rng, shape, device) -> torch.Tensor:
@@ -140,3 +159,44 @@ def make_filters(c: int, n: int, device) -> list:
                          device=device),
          lambda st, x: st.execute_block(x)),
     ]
+
+
+def impair(x: torch.Tensor, draw: dict, buf_len: int, gen: torch.Generator) -> torch.Tensor:
+    """A burst ``x`` (complex, on the card) in a ``buf_len``-sample buffer as
+    tests/test_framing2.py:112-135 impairs it: delayed by ``draw``'s
+    fractional ``tau`` (an FFT phase ramp), at ``lead``, times ``gain``, then
+    through :class:`Channel` with the carrier offset ``dphi``, phase ``phi``
+    and AWGN at FRAME_SNR_DB below the burst's power (noise from ``gen``)."""
+    n = x.shape[0]
+    f = torch.fft.fftfreq(n, dtype=torch.float64, device=x.device)
+    xd = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))
+                        * torch.polar(torch.ones_like(f), -2 * math.pi * f * draw["tau"]))
+    buf = torch.zeros(buf_len, dtype=torch.complex64, device=x.device)
+    buf[draw["lead"]: draw["lead"] + n] = (draw["gain"] * xd).to(torch.complex64)
+    power = draw["gain"] ** 2 * float(x.abs().square().mean())
+    ch = Channel.create(snr_db=FRAME_SNR_DB - 10 * math.log10(power), dphi=draw["dphi"],
+                        phi=draw["phi"], device=x.device)
+    return ch.execute(gen, buf)[0]
+
+
+def draw_impairments(rng, n: int, buf_len: int) -> dict:
+    """One burst's draws: lead in [64, buf_len − n − 64], tau in [0, 1),
+    dphi in ±FRAME_DPHI_MAX, phi uniform, gain in FRAME_GAIN."""
+    return {"lead": int(rng.integers(64, buf_len - n - 64 + 1)), "tau": float(rng.uniform(0, 1)),
+            "dphi": float(rng.uniform(-FRAME_DPHI_MAX, FRAME_DPHI_MAX)),
+            "phi": float(rng.uniform(-math.pi, math.pi)), "gain": float(rng.uniform(*FRAME_GAIN))}
+
+
+def frame_bursts(count: int, seed: int, device) -> tuple:
+    """``count`` impaired frame64 bursts from numpy seed ``seed``: (buffers
+    [count, FRAME_BUF] complex64 on ``device``, headers [count, 8] and
+    payloads [count, 64] uint8, the draws)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fg = FrameGen64(device=device)
+    hdrs = rng.integers(0, 256, (count, 8)).astype(np.uint8)
+    plds = rng.integers(0, 256, (count, 64)).astype(np.uint8)
+    draws = [draw_impairments(rng, frame64_len(), FRAME_BUF) for _ in range(count)]
+    bufs = torch.stack([impair(fg.execute(h, p), d, FRAME_BUF, gen)
+                        for h, p, d in zip(hdrs, plds, draws)])
+    return bufs, hdrs, plds, draws

@@ -39,8 +39,18 @@ between CUDA events, the host's time to enqueue a step, then a
   carrier) modulate → demodulate at 1024 × 2048, and ``Eqrls.train_block``
   (p 7) at 256 × 256, each one measurement.
 
-``--configs`` picks some of them (default all but ``l4`` and ``mod``), for
-example ``4,1p``.
+* ``frame``: ``FrameSync64.execute`` on one impaired frame64 burst (a
+  4096-sample buffer of :func:`.paths.frame_bursts`, four cycled): the
+  detection's FFT surface, the timing and carrier recovery in complex128,
+  the header's and payload's decode (the payload's conv27p23 Viterbi over
+  822 trellis steps, a torch loop).
+
+Each measurement also prints the device operations a step (kernels,
+copies, fills in the profiler's trace) and the device's idle share: one
+minus the summed device time over the profiled window's wall time.
+
+``--configs`` picks some of them (default all but ``l4``, ``mod`` and
+``frame``), for example ``4,1p``.
 
 The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
@@ -62,6 +72,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from yagi_tpu_torch.tools import paths
@@ -271,6 +282,20 @@ def modem_steps(device) -> list:
     ]
 
 
+def frame_step(device):
+    """FrameSync64.execute on four impaired frame64 bursts in turn."""
+    from yagi_tpu_torch.framing import FrameSync64
+
+    bufs = paths.frame_bursts(4, paths.FRAME_SEED, device)[0]
+    state = [FrameSync64(device=device), 0]
+
+    def step():
+        state[0].execute(bufs[state[1] % 4])
+        state[1] += 1
+
+    return step
+
+
 def measure(name: str, step, steps: int) -> None:
     for _ in range(3):
         step()
@@ -286,11 +311,18 @@ def measure(name: str, step, steps: int) -> None:
     print(f"[step] {name}: {start.elapsed_time(end) / steps:.4f} ms per step between CUDA "
           f"events, {host:.4f} ms per step to enqueue ({steps} eager steps)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(5):
             step()
         torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=14,
                                     max_name_column_width=50))
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    print(f"[step] {name}: {len(dev) / 5:.0f} device ops per step, device busy "
+          f"{busy_us / 5e3:.4f} ms of {wall_us / 5e3:.4f} ms a step (idle "
+          f"{100 * (1 - busy_us / wall_us):.1f}%)")
 
 
 def main(argv=None) -> None:
@@ -317,6 +349,8 @@ def main(argv=None) -> None:
                lambda: config4_stream(device, True), args.steps),
         "4f": ("Firpfbch -> Freqdem, the same 4 blocks", lambda: config4_stream(device, False),
                args.steps),
+        "frame": ("FrameSync64.execute, one impaired frame64 burst", lambda: frame_step(device),
+                  args.steps),
     }
     for key in args.configs.split(","):
         if key == "l4":
