@@ -131,6 +131,19 @@ _MODULES = (
     "yagi_tpu_torch.framing.qdsync",
     "yagi_tpu_torch.framing.qpilot",
     "yagi_tpu_torch.framing.frame64",
+    "yagi_tpu_torch.framing.flexframe",
+    "yagi_tpu_torch.framing.gmskframe",
+    "yagi_tpu_torch.framing.fskframe",
+    "yagi_tpu_torch.framing.dsssframe",
+    "yagi_tpu_torch.framing.bpacket",
+    "yagi_tpu_torch.framing.bsync",
+    "yagi_tpu_torch.framing.detector",
+    "yagi_tpu_torch.framing.msource",
+    "yagi_tpu_torch.multichannel.ofdmflexframe",
+    "yagi_tpu_torch.audio",
+    "yagi_tpu_torch.audio.cvsd",
+    "yagi_tpu_torch.utils.byteops",
+    "yagi_tpu_torch.utils.checkpoint",
 )
 
 
@@ -203,24 +216,22 @@ def test_l0_l1_names_match_yagi_tpu(name):
 
 
 # layers L3, L5 and L6 and the channel models: yagi_tpu's module → the port's
-# (multichannel/ofdmflexframe.py waits for the framing layer L7)
 _L3_L5_L6 = ("design", "design.pm", "design.fir", "nco", "nco.osc", "quantization",
              "equalization", "equalization.eqrls", "modem", "modem.modem", "modem.fsk",
              "modem.cpm", "modem.ampmodem", "multichannel", "multichannel.ofdm", "channel")
-_LATER = {"OfdmFlexFrameGen", "OfdmFlexFrameSync"}
 
 
 @pytest.mark.parametrize("name", _L3_L5_L6)
 def test_l3_l5_l6_names_match_yagi_tpu(name):
     """Every name in the ``__all__`` of yagi_tpu's L3/L5/L6 module (or, for
     a package without one, every public name it defines or re-exports) has
-    a counterpart of the same kind in the port, but the OFDM flex frames."""
+    a counterpart of the same kind in the port (the OFDM flex frames, which
+    waited for the framing layer, too: slice 10)."""
     import importlib
 
     j = importlib.import_module(f"yagi_tpu.{name}")
     t = importlib.import_module(f"yagi_tpu_torch.{name}")
-    names = j.__all__ if hasattr(j, "__all__") else _public(j)
-    public = [n for n in names if n not in _LATER]
+    public = list(j.__all__ if hasattr(j, "__all__") else _public(j))
     assert public, name
     assert [n for n in public if not hasattr(t, n)] == []
     assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
@@ -228,7 +239,7 @@ def test_l3_l5_l6_names_match_yagi_tpu(name):
 
 
 # slice 9: fec/ and framing/'s packet layer; the frame formats built on it
-# (slice 10) are not ported yet
+# came in slice 10
 _SLICE9 = ("fec", "fec._bits", "fec.crc", "fec.block", "fec.golay", "fec.interleave", "fec.rs",
            "fec.conv", "fec.api", "fec.packetizer", "framing", "framing._carrier",
            "framing.symstream", "framing.qpacketmodem", "framing.qdetector", "framing.qdsync",
@@ -242,8 +253,8 @@ _SLICE10 = {"FlexFrameGen", "FlexFrameSync", "GmskFrameGen", "GmskFrameSync", "D
 def test_slice9_names_match_yagi_tpu(name):
     """The ``__all__`` of each slice-9 module equals yagi_tpu's (for
     ``framing``, which has none, every public name it defines or
-    re-exports, but slice 10's frame formats), each name of the same kind;
-    the slice-10 names are absent, not stubbed."""
+    re-exports, slice 10's frame formats among them), each name of the
+    same kind."""
     import importlib
 
     j = importlib.import_module(f"yagi_tpu.{name}")
@@ -252,13 +263,64 @@ def test_slice9_names_match_yagi_tpu(name):
         assert list(t.__all__) == list(j.__all__)
         public = list(j.__all__)
     else:
-        public = [n for n in _public(j) if n not in _SLICE10]
-        assert sorted(set(_public(j)) - set(public)) == sorted(_SLICE10)
-        assert [n for n in _SLICE10 if hasattr(t, n)] == []
+        public = _public(j)
+        assert _SLICE10 <= set(public)
     assert public, name
     assert [n for n in public if not hasattr(t, n)] == []
     assert [n for n in public if inspect.isclass(getattr(j, n)) != inspect.isclass(getattr(t, n))
             ] == []
+
+
+# slice 10: the rest of framing/, ofdmflexframe, audio/ and utils' byteops
+# and checkpoint
+_SLICE10_MODULES = ("framing.flexframe", "framing.gmskframe", "framing.fskframe",
+                    "framing.dsssframe", "framing.bpacket", "framing.bsync", "framing.detector",
+                    "framing.msource", "multichannel.ofdmflexframe", "audio", "audio.cvsd",
+                    "utils.byteops", "utils.checkpoint")
+
+
+@pytest.mark.parametrize("name", _SLICE10_MODULES)
+def test_slice10_names_match_yagi_tpu(name):
+    """The ``__all__`` of each slice-10 module equals yagi_tpu's, each name
+    of the same kind (a class, or a function)."""
+    import importlib
+
+    j = importlib.import_module(f"yagi_tpu.{name}")
+    t = importlib.import_module(f"yagi_tpu_torch.{name}")
+    assert list(t.__all__) == list(j.__all__) and j.__all__, name
+    for n in j.__all__:
+        assert inspect.isclass(getattr(j, n)) == inspect.isclass(getattr(t, n)), n
+        assert callable(getattr(t, n)), n
+
+
+def test_slice10_names_import_alone():
+    """audio resolves from the package root (a lazy subpackage); utils
+    exports byteops and the checkpoint functions, as yagi_tpu's does."""
+    import yagi_tpu_torch
+
+    assert yagi_tpu_torch.audio.Cvsd and yagi_tpu_torch.framing.MSource
+    assert yagi_tpu_torch.multichannel.OfdmFlexFrameSync
+    u = yagi_tpu_torch.utils
+    assert u.byteops.pack_bytes and u.save_state and u.load_state and u.state_leaves
+
+
+# yagi_tpu's files with no counterpart in the port, on purpose: ROADMAP's
+# "Not to port" list (TPU-only code)
+_NOT_TO_PORT = {"utils/planar.py", "utils/smallbatch.py"}
+
+
+def test_every_yagi_tpu_file_has_a_port():
+    """Every .py file under yagi_tpu/ has a file at the same path under
+    yagi_tpu_torch/, or is on the not-to-port list (and that one has
+    none)."""
+    src, dst = os.path.join(_ROOT, "yagi_tpu"), os.path.join(_ROOT, "yagi_tpu_torch")
+    files = sorted(os.path.relpath(os.path.join(d, f), src) for d, _, fs in os.walk(src)
+                   for f in fs if f.endswith(".py") and "__pycache__" not in d)
+    assert len(files) > 100
+    missing = [f for f in files if f not in _NOT_TO_PORT
+               and not os.path.exists(os.path.join(dst, f))]
+    assert missing == []
+    assert [f for f in _NOT_TO_PORT if os.path.exists(os.path.join(dst, f))] == []
 
 
 def test_slice9_names_import_alone():

@@ -11,6 +11,12 @@ complex128; both round to complex64 at the end. Tolerances:
 * synchronized data symbols: within 1e-9, the timing offset tau exactly,
   the CFO, RSSI, pilot EVM and the S1 correlation within 1e-9 relative;
 * a frame not found is None in both.
+
+One case departs from yagi_tpu on purpose: the port fits each symbol's
+pilot phase line about the pilots' circular mean
+(test_pilot_fit_at_pi_repaired), where yagi_tpu fits their raw angles and
+loses a symbol whose common phase sits at ±π; elsewhere the symbols agree
+within 1e-9.
 """
 
 import numpy as np
@@ -98,3 +104,34 @@ def test_rejects():
         tofdm.OfdmFrameSync(64, 16, threshold=1.5, device=DEV)
     with pytest.raises(ConfigError):
         tofdm.OfdmFrameGen(64, 16, device=DEV).write_symbols(np.zeros((2, 3)))
+
+
+def test_pilot_fit_at_pi_repaired():
+    """Shared fault, repaired in the port (ROADMAP queue 3): M 64, cp 16,
+    256 QPSK symbols at lead 137 through taps (1, 0.1j, −0.05), CFO 0.004
+    and 30 dB, np.random.default_rng(0). The residual CFO's drift carries
+    some symbols' common phase to ±π: yagi_tpu's fit over the raw pilot
+    angles loses 7 of them (EVM above −20 dB); the port's fit about the
+    circular mean loses none, and every symbol yagi_tpu keeps is equal
+    within TOL."""
+    rng = np.random.default_rng(0)
+    gen = jofdm.OfdmFrameGen(64, 16)
+    data = _qpsk(rng, (256, gen.n_data))
+    buf = np.concatenate([np.zeros(137), gen.assemble(data), np.zeros(300)])
+    buf = np.convolve(buf, [1.0, 0.1j, -0.05])[: buf.size] * np.exp(
+        1j * (0.004 * np.arange(buf.size) + 0.3))
+    nstd = 10 ** (-30 / 20) / np.sqrt(2)
+    buf = (buf + nstd * (rng.standard_normal(buf.size) + 1j * rng.standard_normal(buf.size))
+           ).astype(np.complex64)
+    want = jofdm.OfdmFrameSync(64, 16).execute(buf, 256)
+    got = tofdm.OfdmFrameSync(64, 16, device=DEV).execute(torch.from_numpy(buf), 256)
+
+    def evm(s):
+        return 10 * np.log10(np.mean(np.abs(np.asarray(s) - data) ** 2, 1))
+
+    lost_j, lost_t = evm(want["symbols"]) > -20, evm(got["symbols"].numpy()) > -20
+    assert lost_j.sum() == 7 and lost_t.sum() == 0
+    np.testing.assert_allclose(got["symbols"].numpy()[~lost_j], want["symbols"][~lost_j],
+                               rtol=0, atol=TOL)
+    assert got["stats"]["tau"] == want["stats"]["tau"] == 137
+    assert got["stats"]["cfo"] == pytest.approx(want["stats"]["cfo"], rel=TOL)

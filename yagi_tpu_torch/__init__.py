@@ -28,7 +28,12 @@ demodulation), FSK, GMSK/CPFSK, AM and OFDM framing, whose AM carrier
 tracker runs the ``iir_chunked`` kernel; forward error correction and the
 packet layer of framing (symbol streams, the packet modem, the burst
 detector and synchronizers, frame64), whose Viterbi decoder and
-synchronizers run in torch on the card.
+synchronizers run in torch on the card; and the rest of framing (flexframe,
+the GMSK, FSK and DSSS frames, the bit-level packet codec, the binary
+correlator, the streaming detector, the multi-signal source), the OFDM
+flexible frame, the CVSD codec, byte utilities and checkpoint / restore of
+every state object. With these the port covers all of yagi_tpu but the
+TPU-only code of ROADMAP's "Not to port" list.
 
 Layer map (mirrors yagi_tpu):
   math/     host-side design math (float64 NumPy): special functions, windows,
@@ -52,17 +57,21 @@ Layer map (mirrors yagi_tpu):
   modem/    linear modem (hard, soft, differential), analog FM and AM, FSK,
             GMSK and CPFSK
   channel/  multipath, carrier offset and AWGN
-  multichannel/  polyphase channelizers, OFDM frame generator and synchronizer
+  multichannel/  polyphase channelizers, OFDM frame generator and synchronizer,
+            the OFDM flexible frame
   fec/      CRC, block codes, Golay, Reed-Solomon, interleaver (host numpy),
             convolutional codes with the Viterbi decoder on the device,
             the packetizer
   framing/  symbol streams, packet modem, burst detector and synchronizers
-            (QDetector, QDSync, QPilotGen/QPilotSync), frame64
+            (QDetector, QDSync, QPilotGen/QPilotSync), frame64, flexframe,
+            GMSK/FSK/DSSS frames, BPacket, BSync, Detector, MSource
+  audio/    CVSD codec
   kernels/  Hopper kernels beside their plain torch versions
   chains/   composed receive chains
   parallel/ sharded streaming over torch.distributed (halo exchange,
             all_to_all channel redistribution, multi-host wiring)
-  utils/    array helpers, bit utilities, PSD-mask validators
+  utils/    array helpers, bit and byte utilities, PSD-mask validators,
+            checkpoint / restore
 """
 
 __version__ = "0.1.0"
@@ -76,6 +85,7 @@ def __getattr__(name):
 
     if name in ("design", "filter", "nco", "agc", "equalization", "modem", "multichannel",
                 "kernels", "chains", "fft", "parallel", "utils", "sequence", "random", "matrix",
-                "optim", "buffer", "native", "quantization", "channel", "fec", "framing"):
+                "optim", "buffer", "native", "quantization", "channel", "fec", "framing",
+                "audio"):
         return importlib.import_module(f"yagi_tpu_torch.{name}")
     raise AttributeError(f"module 'yagi_tpu_torch' has no attribute {name!r}")

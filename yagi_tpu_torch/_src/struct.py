@@ -63,12 +63,15 @@ def _is_state(tp) -> bool:
 
 
 def _load_value(tp, v, device):
-    """One field value: a nested state object, a tuple of them, a tensor, or
-    None for an optional field (``X | None``) that holds none."""
+    """One field value: a nested state object, a tuple of them, a tensor, a
+    host number (a counter held as an ``int`` field), or None for an
+    optional field (``X | None``) that holds none."""
     if typing.get_origin(tp) in (typing.Union, types.UnionType):
         if v is None:
             return None
         tp = next(a for a in typing.get_args(tp) if a is not type(None))
+    if tp in (int, float, bool):
+        return tp(np.asarray(v))
     if _is_state(tp):
         return load_state(tp, v, device)
     if typing.get_origin(tp) is tuple:
@@ -114,8 +117,10 @@ def load_into(obj, source, device=None):
     Each attribute of ``obj`` loads from ``source``'s attribute of the same
     name: a state object by :func:`load_state`, a tensor from the array
     (keeping ``obj``'s dtype), a Python number (a gain, an LFSR register)
-    by value, and a plain object of its own attributes recursively. Enums
-    and devices are ``obj``'s own. Returns ``obj``.
+    by value, a numpy ``Generator`` by its bit generator's state, a plain
+    object of its own attributes recursively, and a dict of plain objects
+    (a source list) key by key. Enums and devices are ``obj``'s own.
+    Returns ``obj``.
     """
     device = resolve_device(device)
     for name, v in list(vars(obj).items()):
@@ -128,6 +133,12 @@ def load_into(obj, source, device=None):
             setattr(obj, name, _as_tensor(src, device).to(v.dtype))
         elif isinstance(v, (bool, int, float)):
             setattr(obj, name, type(v)(src))
+        elif isinstance(v, np.random.Generator):
+            v.bit_generator.state = src.bit_generator.state
+        elif isinstance(v, dict):
+            for key, item in v.items():
+                if key in src and hasattr(item, "__dict__"):
+                    load_into(item, src[key], device)
         elif hasattr(v, "__dict__"):
             load_into(v, src, device)
     return obj

@@ -64,7 +64,8 @@ class Spgram:
     """Streaming spectral periodogram state (spgram.rs:14-41).
 
     ``buffer`` carries the last ``window_len`` input samples (oldest ..
-    newest) and ``psd`` the accumulated |F|²; the counters are host ints.
+    newest) and ``psd`` the accumulated |F|²; the counters are stream state
+    held as host ints (non-static fields, so a checkpoint carries them).
     """
 
     nfft: int = struct.static_field()
@@ -79,11 +80,11 @@ class Spgram:
     buffer: torch.Tensor = struct.field()  # [window_len] sample history
     psd: torch.Tensor = struct.field()  # [nfft] accumulated |F|², float32
 
-    sample_timer: int = struct.static_field()
-    num_samples: int = struct.static_field()
-    num_samples_total: int = struct.static_field()
-    num_transforms: int = struct.static_field()
-    num_transforms_total: int = struct.static_field()
+    sample_timer: int = struct.field()
+    num_samples: int = struct.field()
+    num_samples_total: int = struct.field()
+    num_transforms: int = struct.field()
+    num_transforms_total: int = struct.field()
 
     # ------------------------------------------------------------------ ctor
     @classmethod

@@ -28,8 +28,8 @@ class Spwaterfall:
     transforms_per_row: int = struct.static_field()
     spgram: Spgram = struct.field()
     psd_rows: torch.Tensor = struct.field()  # [time_rows, nfft] float32
-    num_rows: int = struct.static_field()  # rows filled
-    row_scale: int = struct.static_field()  # time decimation factor
+    num_rows: int = struct.field()  # rows filled (a host int)
+    row_scale: int = struct.field()  # time decimation factor (a host int)
 
     @classmethod
     def create(

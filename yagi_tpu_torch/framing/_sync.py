@@ -6,7 +6,9 @@ complex128 on the synchronizer's device, from the detection's host values:
 derotate and scale the buffer, advance it by the fractional delay with an
 FFT phase ramp, take the full matched-filter convolution at the symbol
 instants only (the rest of it is never read), and fit a weighted linear
-phase to the known preamble.
+phase to the known preamble: over the raw angles (frame64, QDSync, DSSS),
+or over the unwrapped angles of the preamble and any other known symbols
+(flexframe's ``_symbols``, ``flexframe.py:158-198``).
 """
 
 from __future__ import annotations
@@ -59,14 +61,34 @@ def matched_symbols(y: torch.Tensor, h: torch.Tensor, i0: int, k: int, nsym: int
     return (windows @ h.flip(0).to(torch.complex128)).to(torch.complex64)
 
 
-def phase_fit(syms: torch.Tensor, ref: torch.Tensor):
-    """Weighted least-squares line ang ≈ a + b·i over the known symbols:
-    (a, b, amp) as float64 device tensors, amp the implied channel
-    amplitude (W / Σ|ref|²)."""
-    e = syms[: ref.shape[0]] * ref.conj()
+def unwrap(theta: torch.Tensor) -> torch.Tensor:
+    """numpy's ``unwrap`` along the last axis (period 2π, discont π): each
+    step d = diff is replaced by dm = mod(d + π, 2π) − π (π where dm is −π
+    and d > 0) where |d| ≥ π, and the corrections accumulate."""
+    if theta.shape[-1] < 2:
+        return theta.clone()
+    d = theta.diff(dim=-1)
+    dm = torch.remainder(d + math.pi, 2 * math.pi) - math.pi
+    dm = torch.where((dm == -math.pi) & (d > 0), torch.full_like(dm, math.pi), dm)
+    fix = torch.where(d.abs() < math.pi, torch.zeros_like(d), dm - d)
+    return torch.cat([theta[..., :1], theta[..., 1:] + fix.cumsum(-1)], -1)
+
+
+def phase_fit(syms: torch.Tensor, ref: torch.Tensor, idx: torch.Tensor | None = None,
+              unwrapped: bool = False):
+    """Weighted least-squares line ang ≈ a + b·i over the known symbols
+    ``ref`` at positions ``idx`` (int64 on the device; the first
+    len(ref) by default), ang the angles of syms[idx]·conj(ref), unwrapped
+    in ``idx``'s order where asked: (a, b, amp) as float64 device tensors,
+    amp the implied channel amplitude (W / Σ|ref|²)."""
+    if idx is None:
+        idx = torch.arange(ref.shape[0], device=syms.device)
+    e = syms[idx] * ref.conj()
     w = e.abs().to(torch.float64)
     ang = torch.angle(e).to(torch.float64)
-    i = torch.arange(ref.shape[0], dtype=torch.float64, device=syms.device)
+    if unwrapped:
+        ang = unwrap(ang)
+    i = idx.to(torch.float64)
     W = w.sum()
     Swi, Swa = (w * i).sum(), (w * ang).sum()
     b = ((w * i * ang).sum() * W - Swi * Swa) / ((w * i * i).sum() * W - Swi ** 2).clamp(min=1e-12)

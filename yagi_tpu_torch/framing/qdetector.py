@@ -33,6 +33,14 @@ from ._sync import as_samples
 __all__ = ["QDetector"]
 
 
+def _xcorr_surface(x: torch.Tensor, bank: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Cross-correlation R [H, nfft] (complex64) of the buffer x [N] with
+    each row of the hypothesis bank [H, L]: one frequency-domain product
+    and inverse FFT (yagi_tpu's ``qdetector.py:33``)."""
+    X = torch.fft.fft(x, nfft)
+    return torch.fft.ifft(X[None, :] * torch.fft.fft(bank, nfft, dim=-1).conj(), dim=-1)
+
+
 def _quad_peak(ym1, y0, yp1):
     """Offset in [-0.5, 0.5] of the vertex of the parabola through 3 pts
     (float32 operands)."""
@@ -84,50 +92,57 @@ class QDetector:
         if N < self.L:
             raise ConfigError(f"buffer ({N}) shorter than sequence ({self.L})")
         nfft = 1 << int(np.ceil(np.log2(N + self.L)))
-        H = len(self.dphis)
-        # cross-correlation R [H, nfft] (complex64) with the bank
-        X = torch.fft.fft(x, nfft)
-        R = torch.fft.ifft(X[None, :] * torch.fft.fft(self._bank, nfft, dim=-1).conj(), dim=-1)
+        R = _xcorr_surface(x, self._bank, nfft)
         mag = R.abs()
         n_lags = N - self.L + 1
         # the first maximum over (hypothesis, lag), on the device
         flat = torch.argmax(mag[:, :n_lags].reshape(-1))
-        h, lag = flat // n_lags, flat % n_lags
-        at = h * nfft + lag
-        # the neighbours (lag - 1, lag + 1, h - 1, h + 1) at a clamped index;
-        # an edge takes the peak itself below (qdetector.py's rule)
-        near = torch.stack([at - 1, at + 1, at - nfft, at + nfft]).clamp(0, H * nfft - 1)
-        idx = lag + torch.arange(self.L, device=self.device)
-        e_x = x[idx].abs().square().sum()
-        r = R.reshape(-1)[at.reshape(1)]
-        vals = torch.cat([torch.stack([h, lag]).to(torch.float64),
-                          mag.reshape(-1)[torch.cat([at.reshape(1), near])].to(torch.float64),
-                          torch.cat([r.real, r.imag, e_x.reshape(1)]).to(torch.float64)])
-        h, lag, peak, ym1, yp1, hm1, hp1, r_re, r_im, e_x = vals.tolist()  # one host read
-        h, lag = int(h), int(lag)
-        peak, ym1, yp1, hm1, hp1 = (np.float32(v) for v in (peak, ym1, yp1, hm1, hp1))
+        lag = flat % n_lags
+        e_x = x[lag + torch.arange(self.L, device=self.device)].abs().square().sum()
+        h, lag, e_x, peak, *near = self._peak_values(R, mag, flat, n_lags, e_x)
         # normalized correlation vs local energy
         rxy = peak / np.sqrt(self._e_s * (float(np.float32(e_x)) + 1e-20))
         if rxy < self.threshold:
             return None
-        # sub-sample timing from the lag axis
+        return {**self._estimates(h, lag, peak, *near), "rxy": float(rxy)}
+
+    def _peak_values(self, R: torch.Tensor, mag: torch.Tensor, flat: torch.Tensor, n_lags: int,
+                     *extra: torch.Tensor) -> list:
+        """One host read at the surface point ``flat`` = h·n_lags + lag: h and
+        lag (ints), the 0-dim ``extra`` values, the magnitude there (float32)
+        and at lag − 1, lag + 1, h − 1, h + 1 (a clamped index: an edge takes
+        the peak itself in :meth:`_estimates`), and R there (re, im)."""
+        H, nfft = mag.shape
+        h, lag = flat // n_lags, flat % n_lags
+        at = h * nfft + lag
+        near = torch.stack([at, at - 1, at + 1, at - nfft, at + nfft]).clamp(0, H * nfft - 1)
+        r = R.reshape(-1)[at.reshape(1)]
+        vals = torch.cat([torch.stack([h, lag]).to(torch.float64),
+                          *(e.reshape(1).to(torch.float64) for e in extra),
+                          mag.reshape(-1)[near].to(torch.float64),
+                          torch.cat([r.real, r.imag]).to(torch.float64)]).tolist()
+        n = 2 + len(extra)
+        return ([int(vals[0]), int(vals[1])] + vals[2:n]
+                + [np.float32(v) for v in vals[n: n + 5]] + vals[n + 5:])
+
+    def _estimates(self, h: int, lag: int, peak, ym1, yp1, hm1, hp1, r_re: float,
+                   r_im: float) -> dict:
+        """tau (from the lag, sub-sample), dphi (from the hypothesis, sub-bin),
+        phi and gamma of a peak: quadratic interpolation in float32 around
+        it, as yagi_tpu."""
+        H = len(self.dphis)
         ym1 = ym1 if lag > 0 else peak
         dtau = float(_quad_peak(ym1, peak, yp1))
-        # sub-bin carrier offset from the hypothesis axis
         if H > 1:
             hm1 = hm1 if h > 0 else peak
             hp1 = hp1 if h + 1 < H else peak
             dh = float(_quad_peak(hm1, peak, hp1))
-            step = self.dphis[1] - self.dphis[0]
-            dphi = float(self.dphis[h] + dh * step)
+            dphi = float(self.dphis[h] + dh * (self.dphis[1] - self.dphis[0]))
         else:
             dphi = 0.0
-        phi = float(np.angle(np.complex64(complex(r_re, r_im))))
-        gamma = float(peak / self._e_s)
         return {
             "tau": float(lag) + dtau,
             "dphi": dphi,
-            "phi": phi,
-            "gamma": gamma,
-            "rxy": float(rxy),
+            "phi": float(np.angle(np.complex64(complex(r_re, r_im)))),
+            "gamma": float(peak / self._e_s),
         }

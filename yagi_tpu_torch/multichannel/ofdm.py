@@ -11,7 +11,10 @@ equalization.
 yagi_tpu runs this on the host in numpy complex128; the port runs it in
 torch complex128 on the object's device (the H100 has fp64): the whole
 frame as a [num_symbols, M] batch, one batched FFT, one equalizer multiply
-and a closed-form weighted least-squares pilot phase fit per symbol. The
+and a closed-form weighted least-squares pilot phase fit per symbol (over
+the pilots' angles about their weighted circular mean: yagi_tpu fits their
+raw angles, ``multichannel/ofdm.py:213``, and loses a symbol whose common
+phase sits at ±π; elsewhere the two agree to float rounding). The
 geometry (subcarrier map, the ±1 sequences of the sync symbols and pilots,
 drawn with numpy's ``default_rng`` as in yagi_tpu) is built on the host once.
 Detection has data-dependent control flow: the timing metric, the fine
@@ -206,11 +209,15 @@ class OfdmFrameSync(OfdmFrame):
             num_symbols, self.sym_len)[:, cp:]  # [ns, M]
         Zd = torch.fft.fft(blocks, dim=-1) / np.sqrt(M) / (G + 1e-12)
         # --- pilot phase tracking: weighted LSQ line across the pilot
-        # subcarriers per symbol (residual timing slope + common phase) ---
+        # subcarriers per symbol (residual timing slope + common phase),
+        # fitted to each pilot's angle about the symbol's weighted circular
+        # mean c, so that a common phase near ±π does not wrap the pilots
+        # apart (yagi_tpu fits the raw angles and loses such a symbol) ---
         prx = Zd[:, self._i_pilot] * self.pilots
         k_p = _centered(self._i_pilot, M)
-        ang = torch.angle(prx)  # [ns, n_pilot]
         w = prx.abs()
+        c = torch.angle((w * prx).sum(1, keepdim=True))
+        ang = c + torch.angle(prx * torch.polar(torch.ones_like(c), -c))  # [ns, n_pilot]
         W = w.sum(1)
         Sk = (w * k_p).sum(1)
         Skk = (w * k_p * k_p).sum(1)

@@ -1,9 +1,9 @@
 """The shapes and inputs of the config[0], config[4], config[1], config[3]
 and config[2] paths, the streaming filters of layer L4 at config[1]'s
-width, the widths of the modems, and the sizes and impaired bursts of the
-FEC and packet-framing layer, in one place for ``chip_smoke.py`` and the
-tools that time those paths on the card (:mod:`.kernel_ab`,
-:mod:`.step_profile`)."""
+width, the widths of the modems, the sizes and impaired bursts of the FEC
+and packet-framing layer, and those of the frame formats, codec and
+checkpoints, in one place for ``chip_smoke.py`` and the tools that time
+those paths on the card (:mod:`.kernel_ab`, :mod:`.step_profile`)."""
 
 from __future__ import annotations
 
@@ -74,6 +74,38 @@ FRAME_N, FRAME_BUF, FRAME_SNR_DB, FRAME_SEED = 64, 4096, 20.0, 14
 FRAME_DPHI_MAX, FRAME_GAIN = 0.012, (0.5, 1.3)  # rad/sample; linear
 QD_BURSTS, QD_PRE, QD_PAYLOAD, QD_SPACING = 16, 64, 1024, 16
 STREAM_BW, STREAM_N = 0.3, 1 << 20
+
+# the frame formats, codec and checkpoints (chip_smoke.py's [frames]), from
+# numpy seed FRAMES_SEED: FLEX_PER flexframe bursts of each FLEX_CASES
+# (mod, crc, fec0, fec1, payload bytes, SNR dB; liquid's flexframe
+# properties over its usual payload sizes), each in a FLEX_BUF-sample
+# buffer; GF_BURSTS GMSK (k 2, m 3, bt 0.5) and GF_BURSTS FSK frames (k 8,
+# bandwidth 0.25, m 1 and 2) of GF_PAYLOAD bytes under hamming128 at
+# GF_SNR_DB; DSSS_PER frames at each DSSS_CASES (sf, SNR dB, threshold);
+# OFDM_FLEX_FRAMES OFDM flexible frames (M 64, cp 16, qpsk and qam16,
+# OFDM_FLEX_PAYLOAD bytes) and OFDM_FLEX_LONG[0] qpsk frames of
+# OFDM_FLEX_LONG[1] bytes (~270 OFDM symbols, long enough for the residual
+# carrier offset to carry a symbol's common phase past ±π); a DET_N-sample capture with DET_BURSTS frame64
+# bursts, one every DET_SPACING ± 2·DET_JITTER samples, fed to Detector in
+# DET_BLOCK-sample blocks; BSync over BSYNC_SHAPE; MSource → K2 over MSRC_N
+# samples; Cvsd over CVSD_C channels of CVSD_N samples (one second at 8 kHz)
+FRAMES_SEED = 16
+FLEX_CASES = (("qpsk", "crc32", "none", "none", 1024, 20.0),
+              ("qam16", "crc32", "hamming128", "none", 512, 25.0),
+              ("psk8", "crc32", "hamming74", "conv27p23", 128, 20.0),
+              ("qpsk", "crc16", "golay2412", "none", 256, 20.0),
+              ("bpsk", "crc24", "none", "rep3", 64, 15.0),
+              ("qam64", "crc32", "rs8", "none", 1024, 30.0),
+              ("pi4dqpsk", "crc32", "hamming128", "none", 256, 25.0),
+              ("sqam32", "crc32", "none", "none", 256, 28.0))
+FLEX_PER, FLEX_BUF = 4, 1 << 14
+GF_BURSTS, GF_PAYLOAD, GF_SNR_DB = 16, (64, 256), 25.0
+DSSS_CASES, DSSS_PER = ((8, 20.0, 0.35), (16, 2.0, 0.25)), 16
+OFDM_FLEX_FRAMES, OFDM_FLEX_PAYLOAD, OFDM_FLEX_LONG = 16, (512, 1024), (4, 3072)
+DET_N, DET_BURSTS, DET_SPACING, DET_JITTER, DET_BLOCK = 1 << 20, 64, 1 << 14, 2048, 1 << 15
+BSYNC_SHAPE = (1024, 1 << 16)
+MSRC_N = 1 << 21
+CVSD_C, CVSD_N = 1024, 8000
 
 
 def complex_block(rng, shape, device) -> torch.Tensor:
@@ -161,12 +193,13 @@ def make_filters(c: int, n: int, device) -> list:
     ]
 
 
-def impair(x: torch.Tensor, draw: dict, buf_len: int, gen: torch.Generator) -> torch.Tensor:
+def impair(x: torch.Tensor, draw: dict, buf_len: int, gen: torch.Generator,
+           snr_db: float = FRAME_SNR_DB) -> torch.Tensor:
     """A burst ``x`` (complex, on the card) in a ``buf_len``-sample buffer as
     tests/test_framing2.py:112-135 impairs it: delayed by ``draw``'s
     fractional ``tau`` (an FFT phase ramp), at ``lead``, times ``gain``, then
     through :class:`Channel` with the carrier offset ``dphi``, phase ``phi``
-    and AWGN at FRAME_SNR_DB below the burst's power (noise from ``gen``)."""
+    and AWGN ``snr_db`` below the burst's power (noise from ``gen``)."""
     n = x.shape[0]
     f = torch.fft.fftfreq(n, dtype=torch.float64, device=x.device)
     xd = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))
@@ -174,9 +207,20 @@ def impair(x: torch.Tensor, draw: dict, buf_len: int, gen: torch.Generator) -> t
     buf = torch.zeros(buf_len, dtype=torch.complex64, device=x.device)
     buf[draw["lead"]: draw["lead"] + n] = (draw["gain"] * xd).to(torch.complex64)
     power = draw["gain"] ** 2 * float(x.abs().square().mean())
-    ch = Channel.create(snr_db=FRAME_SNR_DB - 10 * math.log10(power), dphi=draw["dphi"],
+    ch = Channel.create(snr_db=snr_db - 10 * math.log10(power), dphi=draw["dphi"],
                         phi=draw["phi"], device=x.device)
     return ch.execute(gen, buf)[0]
+
+
+def impaired_burst(x: torch.Tensor, rng, gen: torch.Generator, buf_len: int, snr_db: float,
+                   lead: int | None = None) -> tuple[torch.Tensor, dict]:
+    """A burst ``x`` through :func:`impair` with draws from ``rng`` (the lead
+    ``lead`` where given) in a ``buf_len``-sample buffer at ``snr_db``:
+    (the buffer, the draws)."""
+    draw = draw_impairments(rng, x.shape[0], buf_len)
+    if lead is not None:
+        draw["lead"] = lead
+    return impair(x, draw, buf_len, gen, snr_db), draw
 
 
 def draw_impairments(rng, n: int, buf_len: int) -> dict:
