@@ -256,6 +256,7 @@ from yagi_tpu_torch.math import dotprod  # noqa: E402
 from yagi_tpu_torch.channel import Channel  # noqa: E402
 from yagi_tpu_torch.equalization import Eqlms, Eqrls  # noqa: E402
 from yagi_tpu_torch import fec as tfec  # noqa: E402
+from yagi_tpu_torch import trace  # noqa: E402
 from yagi_tpu_torch.fec import Fec, FecScheme, fec_get_enc_msg_length  # noqa: E402
 from yagi_tpu_torch.framing import (  # noqa: E402
     BSync,
@@ -629,18 +630,17 @@ STREAM_TOL, STREAM_SPLIT_TOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-KERNELS = (fused_chain_apply, fused_chain_apply_c64, fused_channelizer_apply, mix_down_apply,
-           symsync_fused_apply, symsync_scan_apply, agc_scan_apply, qam_eq_scan_apply,
-           iir_scan_apply, iir_chunked_apply)
+_COUNTS_FROM: dict = {}  # each kernel wrapper's launches at the last reset_counts()
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    _COUNTS_FROM.update(trace.launches())
 
 
 def read_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Each kernel wrapper's launches since :func:`reset_counts`, from the
+    program's registry of kernel wrappers."""
+    return {k: n - _COUNTS_FROM.get(k, 0) for k, n in trace.launches().items()}
 
 
 def require(cond: bool, what: str) -> None:

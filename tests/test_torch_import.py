@@ -144,6 +144,7 @@ _MODULES = (
     "yagi_tpu_torch.audio.cvsd",
     "yagi_tpu_torch.utils.byteops",
     "yagi_tpu_torch.utils.checkpoint",
+    "yagi_tpu_torch.trace",
 )
 
 

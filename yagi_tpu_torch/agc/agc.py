@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from .. import trace
 from .._src import struct
 from .._src.device import resolve_device
 from ..errors import ConfigError
@@ -193,6 +194,7 @@ class Agc:
             raise ConfigError("samples_per_step must divide the block length")
         return self._run(x, plain=False)
 
+    @trace.spanned("yagi.agc.run")
     def _run(self, x, plain: bool):
         """The block through ``agc_scan``: the kernel wrapper, or with
         ``plain`` its plain version on any device (the chain's oracle)."""

@@ -19,7 +19,7 @@ import torch
 from .._src import struct
 from .._src.device import resolve_device
 from .._src.struct import U32
-from .. import design
+from .. import design, trace
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
 from ..kernels.chain import (chain_matrices, compact_taps, fused_chain_apply,
@@ -56,10 +56,12 @@ class FusedRxChain:
 
     def __post_init__(self):
         if self.taps is None:
-            object.__setattr__(
-                self, "taps", torch.from_numpy(compact_taps(self.g, self.p)).to(self.g.device))
+            with trace.span("yagi.rxchain.taps", always=True):
+                taps = torch.from_numpy(compact_taps(self.g, self.p)).to(self.g.device)
+            object.__setattr__(self, "taps", taps)
 
     @classmethod
+    @trace.spanned("yagi.rxchain.create", always=True)
     def create(
         cls,
         n_taps: int = 64,
@@ -111,6 +113,7 @@ class FusedRxChain:
         return h_fir, pfb_decompose(h_pfb[: n - 1], npfb)
 
     # ------------------------------------------------------------- streaming
+    @trace.spanned("yagi.rxchain.step")
     def step_planar(self, xr, xi):
         """Planar block step: returns (yr, yi, num_valid, new_chain).
 
@@ -122,6 +125,7 @@ class FusedRxChain:
         )
         return yr, yi, xr.shape[-1] * self.p, self._advance(xr, xi)
 
+    @trace.spanned("yagi.rxchain.advance")
     def _advance(self, xr, xi) -> "FusedRxChain":
         """The state after a block with planes (or plane views) xr, xi."""
         return self.replace(
@@ -130,6 +134,7 @@ class FusedRxChain:
             theta=(self.theta + (xr.shape[-1] * self.p) * self.d_theta) & U32,
         )
 
+    @trace.spanned("yagi.rxchain.step")
     def step(self, x):
         """Complex step: x complex64 [C, T] → (y complex64 [C, T·P], T·P,
         state), the kernel reading and writing interleaved samples, with the

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from .. import trace
 from .._src import struct
 from .._src.device import resolve_device
 from ..agc import Agc
@@ -64,6 +65,7 @@ class QamRx:
     slots: int = struct.static_field(default=2)
 
     @classmethod
+    @trace.spanned("yagi.qamrx.create", always=True)
     def create(cls, ftype: str = "rrcos", k: int = 2, m: int = 7, beta: float = 0.3,
                scheme: str = "qam16", eq_len: int = 7, eq_bw: float = 0.02,
                pll_bw: float = 0.02, batch_shape: tuple = (), slots: int = 2,
@@ -175,6 +177,7 @@ class QamRx:
                      evm_count=vec(self.evm_count))
         return self.table, vec(self.eq.mu), vec(self.alpha), vec(self.beta), state
 
+    @trace.spanned("yagi.qamrx.step")
     def _step_masked(self, x, plain: bool):
         """:meth:`step_masked` through the kernels, or with ``plain`` through
         every stage's plain version on any device: ``agc_scan_reference``,
@@ -193,20 +196,24 @@ class QamRx:
         y0, agc = self.agc._run(x, plain)
         y, valid, ss, deferred = self.symsync._run_slots(y0, max_emit=E,
                                                          backend="xla" if plain else "auto")
-        scan = qam_eq_scan_reference if plain else qam_eq_scan_apply
-        syms, soft, mask, st = scan(y.reshape(C, n * E), valid.reshape(C, n * E),
-                                    *self.eq_scan_args(), k_eq=self.k_eq)
-        out = batch + (n * E,)
-        eq = self.eq.replace(w=st["w"].reshape(self.eq.w.shape),
-                             buffer=st["buffer"].reshape(self.eq.buffer.shape),
-                             x2=st["x2"].reshape(self.eq.x2.shape),
-                             x2_sum=st["x2_sum"].reshape(batch), count=st["count"].reshape(batch))
-        new = self.replace(
-            agc=agc, symsync=ss, eq=eq, theta=st["theta"].reshape(batch),
-            dtheta=st["dtheta"].reshape(batch), sym_phase=st["sym_phase"].reshape(batch),
-            evm_accum=st["evm_accum"].reshape(batch), evm_count=st["evm_count"].reshape(batch),
-            overflow_count=self.overflow_count + deferred,
-        )
+        with trace.span("yagi.qamrx.eq"):
+            scan = qam_eq_scan_reference if plain else qam_eq_scan_apply
+            syms, soft, mask, st = scan(y.reshape(C, n * E), valid.reshape(C, n * E),
+                                        *self.eq_scan_args(), k_eq=self.k_eq)
+        with trace.span("yagi.qamrx.state"):
+            out = batch + (n * E,)
+            eq = self.eq.replace(w=st["w"].reshape(self.eq.w.shape),
+                                 buffer=st["buffer"].reshape(self.eq.buffer.shape),
+                                 x2=st["x2"].reshape(self.eq.x2.shape),
+                                 x2_sum=st["x2_sum"].reshape(batch),
+                                 count=st["count"].reshape(batch))
+            new = self.replace(
+                agc=agc, symsync=ss, eq=eq, theta=st["theta"].reshape(batch),
+                dtheta=st["dtheta"].reshape(batch), sym_phase=st["sym_phase"].reshape(batch),
+                evm_accum=st["evm_accum"].reshape(batch),
+                evm_count=st["evm_count"].reshape(batch),
+                overflow_count=self.overflow_count + deferred,
+            )
         return syms.reshape(out), soft.reshape(out), mask.reshape(out), new
 
     def step(self, x):

@@ -22,7 +22,7 @@ import torch
 from .._src import struct
 from .._src.device import resolve_device
 from ..errors import ConfigError
-from .. import design
+from .. import design, trace
 from ..kernels.symscan import (FUSED_SMEM_LIMIT, branch_outputs, fused_fits, fused_smem_bytes,
                                symsync_fused_apply, symsync_scan_apply, symsync_scan_xla)
 from ..utils.compact import compact_valid
@@ -266,6 +266,7 @@ class Symsync:
         """
         return self._run_slots(x, samples_per_step, max_emit, n_valid, backend)[:3]
 
+    @trace.spanned("yagi.symsync.run")
     def _run_slots(self, x, samples_per_step=None, max_emit=None, n_valid=None,
                    backend: str = "auto"):
         """:meth:`execute_slots` plus the deferral count: returns ``(y_slots,

@@ -7,7 +7,7 @@ process, all started together, and the objects link into one library. It goes
 to ``build/yagi_tpu_torch/`` beside the package, named by a hash of the
 sources, the headers and the flags, and is built at first use. Pointers and
 the stream are passed as ``c_void_p`` (a bare Python int would be cut to 32
-bits).
+bits). :func:`launch` makes every wrapper's call into the library.
 """
 
 from __future__ import annotations
@@ -18,6 +18,10 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+import torch
+
+from .. import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -95,6 +99,7 @@ def build(csrc: Path = _CSRC) -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace.count("library.builds")
     pid = os.getpid()
     nvcc = _nvcc()
     sources = sorted(csrc.glob("*.cu"))
@@ -140,4 +145,19 @@ def bind(path: Path, signatures: dict = _SIGNATURES) -> ctypes.CDLL:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed, with its C signatures."""
-    return bind(build()[0])
+    with trace.span("yagi.library", always=True):
+        return bind(build()[0])
+
+
+def launch(kernel, device, entry: str, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` and the
+    current stream of ``device``, inside the span of ``kernel``'s launch
+    (``kernel`` is the registered wrapper it is for, which counts it); raise
+    on a CUDA error."""
+    lib = library()
+    with trace.span(kernel.launch_span):
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")

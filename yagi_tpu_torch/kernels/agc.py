@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ._check import check_tensors, route
 
 __all__ = ["agc_scan_apply", "agc_scan_reference"]
@@ -84,6 +85,7 @@ def agc_scan_reference(x, g, y2_prime, alpha, scale, squelch_threshold, locked, 
     return y, g, y2p, mode, timer
 
 
+@trace.kernel
 def agc_scan_apply(x, g, y2_prime, alpha, scale, squelch_threshold, locked, squelch_mode,
                    squelch_timer, *, timeout: int):
     """``agc_scan``: the AGC loop over a block, arguments and result as the
@@ -106,23 +108,15 @@ def agc_scan_apply(x, g, y2_prime, alpha, scale, squelch_threshold, locked, sque
         return agc_scan_reference(x, g, y2_prime, alpha, scale, squelch_threshold, locked,
                                   squelch_mode, squelch_timer, timeout=timeout)
 
-    from ._build import library
+    from ._build import launch
 
     y = torch.empty_like(x)
     g_out, y2p_out = torch.empty_like(g), torch.empty_like(y2_prime)
     mode_out, timer_out = torch.empty_like(squelch_mode), torch.empty_like(squelch_timer)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = library().yagi_agc_scan(
-            x.data_ptr(), g.data_ptr(), y2_prime.data_ptr(), alpha.data_ptr(), scale.data_ptr(),
-            squelch_threshold.data_ptr(), locked.data_ptr(), squelch_mode.data_ptr(),
-            squelch_timer.data_ptr(), y.data_ptr(), g_out.data_ptr(), y2p_out.data_ptr(),
-            mode_out.data_ptr(), timer_out.data_ptr(), C, n, int(timeout), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"agc scan kernel launch failed with CUDA error {rc}")
+    launch(agc_scan_apply, x.device, "yagi_agc_scan",
+           x.data_ptr(), g.data_ptr(), y2_prime.data_ptr(), alpha.data_ptr(), scale.data_ptr(),
+           squelch_threshold.data_ptr(), locked.data_ptr(), squelch_mode.data_ptr(),
+           squelch_timer.data_ptr(), y.data_ptr(), g_out.data_ptr(), y2p_out.data_ptr(),
+           mode_out.data_ptr(), timer_out.data_ptr(), C, n, int(timeout))
     agc_scan_apply.launches += 1
     return y, g_out, y2p_out, mode_out, timer_out
-
-
-agc_scan_apply.launches = 0

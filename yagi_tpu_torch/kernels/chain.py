@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._src.struct import U32
 from ..nco.osc import PHASE_TO_RAD
 from ._check import check_tensors, route
@@ -153,6 +154,7 @@ def _kernel_taps(fn: str, taps, g, p: int, C: int, T: int) -> torch.Tensor:
     return taps
 
 
+@trace.kernel
 def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int, taps=None):
     """Run the fused chain over one planar block.
 
@@ -175,28 +177,21 @@ def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *, p: int, taps
     if route(xr.device, "fused_chain_apply") == "reference":
         return fused_chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta, p=p)
 
-    from ._build import library
+    from ._build import launch
 
     C, T = xr.shape
     taps = _kernel_taps("fused_chain_apply", taps, g, p, C, T)
     yr = torch.empty((C, T * p), dtype=f32, device=xr.device)
     yi = torch.empty_like(yr)
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = library().yagi_chain_planar(
-            xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hist_r.data_ptr(),
-            hist_i.data_ptr(), theta0.data_ptr(), dtheta.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), C, T, p, taps.shape[1], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"chain kernel launch failed with CUDA error {rc}")
+    launch(fused_chain_apply, xr.device, "yagi_chain_planar",
+           xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hist_r.data_ptr(), hist_i.data_ptr(),
+           theta0.data_ptr(), dtheta.data_ptr(), yr.data_ptr(), yi.data_ptr(), C, T, p,
+           taps.shape[1])
     fused_chain_apply.launches += 1
     return yr, yi
 
 
-fused_chain_apply.launches = 0
-
-
+@trace.kernel
 def fused_chain_apply_c64(x, g, hist_r, hist_i, theta0, dtheta, *, p: int, taps=None):
     """The fused chain over one interleaved block: x complex64 [C, T] → y
     complex64 [C, T·P]; the other arguments as :func:`fused_chain_apply`
@@ -213,21 +208,13 @@ def fused_chain_apply_c64(x, g, hist_r, hist_i, theta0, dtheta, *, p: int, taps=
         return torch.complex(*fused_chain_reference(x.real, x.imag, g, hist_r, hist_i, theta0,
                                                     dtheta, p=p))
 
-    from ._build import library
+    from ._build import launch
 
     C, T = x.shape
     taps = _kernel_taps("fused_chain_apply_c64", taps, g, p, C, T)
     y = torch.empty((C, T * p), dtype=torch.complex64, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = library().yagi_chain_c64(
-            x.data_ptr(), taps.data_ptr(), hist_r.data_ptr(), hist_i.data_ptr(),
-            theta0.data_ptr(), dtheta.data_ptr(), y.data_ptr(), C, T, p, taps.shape[1], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"chain kernel launch failed with CUDA error {rc}")
+    launch(fused_chain_apply_c64, x.device, "yagi_chain_c64",
+           x.data_ptr(), taps.data_ptr(), hist_r.data_ptr(), hist_i.data_ptr(),
+           theta0.data_ptr(), dtheta.data_ptr(), y.data_ptr(), C, T, p, taps.shape[1])
     fused_chain_apply_c64.launches += 1
     return y
-
-
-fused_chain_apply_c64.launches = 0

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ._check import aligned16, check_tensors, route
 
 __all__ = ["branch_outputs", "channelizer_tables", "fused_channelizer_apply",
@@ -143,6 +144,7 @@ def _check(xr, xi, taps, hr, hi, hist_r, hist_i, p: int, r2: int) -> None:
     })
 
 
+@trace.kernel
 def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2: int = 128):
     """Channelize planar stream planes xr/xi [N] (N = T·64, T steps).
 
@@ -161,7 +163,7 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
     if route(xr.device, "fused_channelizer_apply") == "reference":
         return fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, p=p)
 
-    from ._build import library
+    from ._build import launch
 
     # the kernel copies 16-byte chunks: a plane that starts elsewhere is copied
     xr, xi, hist_r, hist_i = (aligned16(t) for t in (xr, xi, hist_r, hist_i))
@@ -171,17 +173,9 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
     t = n // _M
     yr = torch.empty((t, _M), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = library().yagi_channelizer_fp32(
-            xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            hist_r.data_ptr(), hist_i.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            t, p, hist_r.shape[0], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"channelizer kernel launch failed with CUDA error {rc}")
+    launch(fused_channelizer_apply, xr.device, "yagi_channelizer_fp32",
+           xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+           hist_r.data_ptr(), hist_i.data_ptr(), yr.data_ptr(), yi.data_ptr(), t, p,
+           hist_r.shape[0])
     fused_channelizer_apply.launches += 1
     return yr, yi
-
-
-fused_channelizer_apply.launches = 0

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ._check import check_tensors, route
 
 __all__ = [
@@ -274,22 +275,19 @@ def iir_chunked_reference(x, b, a, scale, v, *, sos: bool):
 
 
 # ------------------------------------------------------------------ kernels
-def _launch(fn: str, x, b, a, scale, v, y, v_new, *extra) -> None:
-    from ._build import library
+def _launch(fn: str, kernel, x, b, a, scale, v, y, v_new, *extra) -> None:
+    """Launch C entry point ``fn`` for the registered wrapper ``kernel``."""
+    from ._build import launch
 
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(library(), fn)(
-            x.data_ptr(), b.data_ptr(), a.data_ptr(), scale.data_ptr(), v.data_ptr(),
-            y.data_ptr(), v_new.data_ptr(), *extra, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
+    launch(kernel, x.device, fn, x.data_ptr(), b.data_ptr(), a.data_ptr(), scale.data_ptr(),
+           v.data_ptr(), y.data_ptr(), v_new.data_ptr(), *extra)
 
 
 def _state_len(m: int, sos: bool) -> int:
     return 2 * m if sos else m
 
 
+@trace.kernel
 def iir_scan_apply(x, b, a, scale, v, *, sos: bool):
     """``iir_scan``: the sequential recurrence over a block, arguments and
     result as the module docstring says.
@@ -307,17 +305,16 @@ def iir_scan_apply(x, b, a, scale, v, *, sos: bool):
         # the ring of the "global" instance: [state values, C] of the signal type
         scratch = (torch.empty((_state_len(m, sos), C), dtype=x.dtype, device=x.device)
                    if inst == "global" else y)
-        _launch("yagi_iir_scan", x, b, a, scale, v, y, v_new, scratch.data_ptr(), C, T, m,
-                int(sos), int(x.is_complex()), int(b.is_complex()), SCAN_INSTANCES[inst])
+        _launch("yagi_iir_scan", iir_scan_apply, x, b, a, scale, v, y, v_new, scratch.data_ptr(),
+                C, T, m, int(sos), int(x.is_complex()), int(b.is_complex()),
+                SCAN_INSTANCES[inst])
         iir_scan_apply.launches += 1
     else:
         v_new.copy_(v)
     return y, v_new
 
 
-iir_scan_apply.launches = 0
-
-
+@trace.kernel
 def iir_chunked_apply(x, b, a, scale, v, *, sos: bool):
     """``iir_chunked``: the chunked recurrence over a block, arguments and
     result as the module docstring says.
@@ -336,12 +333,10 @@ def iir_chunked_apply(x, b, a, scale, v, *, sos: bool):
     y = torch.empty_like(x)
     v_new = torch.empty_like(v)
     if C and T:
-        _launch("yagi_iir_chunked", x, b, a, scale, v, y, v_new, C, T, order, nst,
-                int(x.is_complex()), int(b.is_complex()), CHUNK_INSTANCES[chunked_instance(order)])
+        _launch("yagi_iir_chunked", iir_chunked_apply, x, b, a, scale, v, y, v_new, C, T, order,
+                nst, int(x.is_complex()), int(b.is_complex()),
+                CHUNK_INSTANCES[chunked_instance(order)])
         iir_chunked_apply.launches += 1
     else:
         v_new.copy_(v)
     return y, v_new
-
-
-iir_chunked_apply.launches = 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from .._src.struct import U32
 from ..nco.osc import _rotate_down
 from ._check import check_tensors, route
@@ -45,6 +46,7 @@ def _check(x, theta0, dtheta) -> None:
     })
 
 
+@trace.kernel
 def mix_down_apply(x, theta0, dtheta):
     """Mix x [N] (complex64, N a multiple of 32768) down by the u32 NCO.
 
@@ -61,7 +63,7 @@ def mix_down_apply(x, theta0, dtheta):
     if route(x.device, "mix_down_apply") == "reference":
         return mix_down_reference(x, theta0, dtheta)
 
-    from ._build import library
+    from ._build import launch
 
     n = x.shape[0]
     if n >= 1 << 31:
@@ -69,15 +71,7 @@ def mix_down_apply(x, theta0, dtheta):
     if x.data_ptr() % 16:
         raise ValueError("mix_down_apply: x must be 16-byte aligned")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = library().yagi_mix_down(
-            x.data_ptr(), theta0.data_ptr(), dtheta.data_ptr(), y.data_ptr(), n, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mix-down kernel launch failed with CUDA error {rc}")
+    launch(mix_down_apply, x.device, "yagi_mix_down",
+           x.data_ptr(), theta0.data_ptr(), dtheta.data_ptr(), y.data_ptr(), n)
     mix_down_apply.launches += 1
     return y
-
-
-mix_down_apply.launches = 0

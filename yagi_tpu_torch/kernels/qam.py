@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ._check import check_tensors, route
 
 __all__ = ["STATE_FIELDS", "qam_eq_scan_apply", "qam_eq_scan_reference"]
@@ -140,6 +141,7 @@ def qam_eq_scan_reference(y, valid, table, mu, alpha, beta, state, *, k_eq: int 
     return torch.stack(syms, 1), soft, torch.stack(mask, 1), new
 
 
+@trace.kernel
 def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2):
     """``qam_eq_scan``: the equalizer / carrier loop over a block's slots,
     arguments and result as the module docstring says; on the card any
@@ -179,24 +181,16 @@ def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2)
                          f"table needs {smem_bytes(table.shape[0], h_len)} bytes of shared "
                          f"memory a block, past the card's {_SMEM_LIMIT}")
 
-    from ._build import library
+    from ._build import launch
 
     syms = torch.empty((C, S), dtype=torch.int64, device=y.device)
     soft = torch.empty_like(y)
     mask = torch.empty_like(valid)
     new = {k: torch.empty_like(state[k]) for k in STATE_FIELDS}
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = library().yagi_qam_eq_scan(
-            y.data_ptr(), valid.data_ptr(), table.data_ptr(), mu.data_ptr(), alpha.data_ptr(),
-            beta.data_ptr(), *(state[k].data_ptr() for k in STATE_FIELDS), syms.data_ptr(),
-            soft.data_ptr(), mask.data_ptr(), *(new[k].data_ptr() for k in STATE_FIELDS),
-            C, S, table.shape[0], h_len, k_eq, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"qam eq scan kernel launch failed with CUDA error {rc}")
+    launch(qam_eq_scan_apply, y.device, "yagi_qam_eq_scan",
+           y.data_ptr(), valid.data_ptr(), table.data_ptr(), mu.data_ptr(), alpha.data_ptr(),
+           beta.data_ptr(), *(state[k].data_ptr() for k in STATE_FIELDS), syms.data_ptr(),
+           soft.data_ptr(), mask.data_ptr(), *(new[k].data_ptr() for k in STATE_FIELDS),
+           C, S, table.shape[0], h_len, k_eq)
     qam_eq_scan_apply.launches += 1
     return syms, soft, mask, new
-
-
-qam_eq_scan_apply.launches = 0

@@ -65,6 +65,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import trace
 from ._check import aligned16, check_tensors, route
 
 __all__ = [
@@ -285,6 +286,7 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+@trace.kernel
 def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E: int,
                        k_out: int, k: int):
     """K4: the symsync timing loop over a precomputed all-branch stream.
@@ -317,35 +319,29 @@ def symsync_scan_apply(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: in
     return out
 
 
-symsync_scan_apply.launches = 0
-
-
 def symsync_scan_launch(xs4, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E: int,
                         k_out: int, k: int, layout):
     """One launch of K4 on CUDA tensors already checked, not counted: the
     staged instance in ``layout`` (:func:`scan_layout`'s ``(chans, w, _)``),
     or the direct instance for None. :func:`symsync_scan_apply` passes its
     layout; the A/B and timing tools pass None to run the direct one."""
-    from ._build import library
+    from ._build import launch
 
     C, n, _ = xs4.shape
     xs4 = aligned16(xs4)  # the staged instance copies 16-byte chunks
     y, valid, st, deferred = _outputs(C, n, E, xs4.device)
-    with torch.cuda.device(xs4.device):
-        stream = torch.cuda.current_stream(xs4.device).cuda_stream
-        args = (xs4.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
-                radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(),
-                valid.data_ptr(), st.data_ptr(), deferred.data_ptr(), C, n, P, E, k_out,
-                ctypes.c_float(np.float32(1.0 / k)))
-        if layout is None:  # a row too long to stage: the direct instance
-            rc = library().yagi_symsync_scan(*args, stream)
-        else:
-            rc = library().yagi_symsync_scan_staged(*args, *layout[:2], stream)
-    if rc != 0:
-        raise RuntimeError(f"symsync scan kernel launch failed with CUDA error {rc}")
+    args = (xs4.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
+            radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(),
+            valid.data_ptr(), st.data_ptr(), deferred.data_ptr(), C, n, P, E, k_out,
+            ctypes.c_float(np.float32(1.0 / k)))
+    if layout is None:  # a row too long to stage: the direct instance
+        launch(symsync_scan_apply, xs4.device, "yagi_symsync_scan", *args)
+    else:
+        launch(symsync_scan_apply, xs4.device, "yagi_symsync_scan_staged", *args, *layout[:2])
     return y, valid, st, deferred
 
 
+@trace.kernel
 def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P: int, E: int,
                         k_out: int, k: int):
     """K3: the symsync timing loop computing the selected branch's dots from
@@ -381,21 +377,13 @@ def symsync_fused_apply(xa, g, n_valid, state, locked, radj, pll_a, pll_b, *, P:
                          f"{fused_smem_bytes(L, P)} bytes of shared memory a block, past the "
                          f"card's {FUSED_SMEM_LIMIT}")
 
-    from ._build import library
+    from ._build import launch
 
     y, valid, st, deferred = _outputs(C, n, E, xa.device)
-    with torch.cuda.device(xa.device):
-        stream = torch.cuda.current_stream(xa.device).cuda_stream
-        rc = library().yagi_symsync_fused(
-            xa.data_ptr(), g.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
-            radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(), valid.data_ptr(),
-            st.data_ptr(), deferred.data_ptr(), C, n, L, P, E, k_out,
-            ctypes.c_float(np.float32(1.0 / k)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"symsync fused kernel launch failed with CUDA error {rc}")
+    launch(symsync_fused_apply, xa.device, "yagi_symsync_fused",
+           xa.data_ptr(), g.data_ptr(), _ptr(n_valid), state.data_ptr(), locked.data_ptr(),
+           radj.data_ptr(), pll_a.data_ptr(), pll_b.data_ptr(), y.data_ptr(), valid.data_ptr(),
+           st.data_ptr(), deferred.data_ptr(), C, n, L, P, E, k_out,
+           ctypes.c_float(np.float32(1.0 / k)))
     symsync_fused_apply.launches += 1
     return y, valid, st, deferred
-
-
-symsync_fused_apply.launches = 0

@@ -5,7 +5,10 @@ device time goes.
 For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
 between CUDA events, the host's time to enqueue a step, then a
-``torch.profiler`` table of device time by kernel over 5 more steps.
+``torch.profiler`` table of device time by kernel over 5 more steps, then
+the program's own span totals a step (:mod:`yagi_tpu_torch.trace`: count,
+host ms and self ms of each span) over ``--steps`` more steps with its
+tracing on and no profiler.
 
 * ``0``, config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
 * ``4``, config[4]: ``FusedChannelizer.analyzer_execute_planar`` (M = 64,
@@ -47,7 +50,8 @@ between CUDA events, the host's time to enqueue a step, then a
 
 Each measurement also prints the device operations a step (kernels,
 copies, fills in the profiler's trace) and the device's idle share: one
-minus the summed device time over the profiled window's wall time.
+minus the union of the device operations' intervals (operations that
+overlap count once) over the profiled window's wall time.
 
 ``--configs`` picks some of them (default all but ``l4``, ``mod`` and
 ``frame``), for example ``4,1p``.
@@ -75,6 +79,7 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from yagi_tpu_torch import trace
 from yagi_tpu_torch.tools import paths
 from yagi_tpu_torch.tools.paths import (
     C1,
@@ -296,6 +301,34 @@ def frame_step(device):
     return step
 
 
+def busy_us(events) -> float:
+    """The length in µs of the union of the events' intervals: operations
+    that overlap in time count once."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def program_spans(step, steps: int) -> None:
+    """Print the program's span totals a step over ``steps`` steps with its
+    tracing on."""
+    trace.reset()
+    trace.enable()
+    try:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        trace.enable(False)
+    totals = trace.snapshot()["spans"]
+    for name, t in sorted(totals.items(), key=lambda kv: -kv[1]["ns"]):
+        print(f"[span] {name}: {t['count'] / steps:.2f} a step, {t['ns'] / steps / 1e6:.4f} ms "
+              f"a step, self {t['self_ns'] / steps / 1e6:.4f} ms")
+
+
 def measure(name: str, step, steps: int) -> None:
     for _ in range(3):
         step()
@@ -319,10 +352,11 @@ def measure(name: str, step, steps: int) -> None:
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=14,
                                     max_name_column_width=50))
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    busy = busy_us(dev)
     print(f"[step] {name}: {len(dev) / 5:.0f} device ops per step, device busy "
-          f"{busy_us / 5e3:.4f} ms of {wall_us / 5e3:.4f} ms a step (idle "
-          f"{100 * (1 - busy_us / wall_us):.1f}%)")
+          f"{busy / 5e3:.4f} ms of {wall_us / 5e3:.4f} ms a step (idle "
+          f"{100 * (1 - busy / wall_us):.1f}%)")
+    program_spans(step, steps)
 
 
 def main(argv=None) -> None:
