@@ -77,7 +77,11 @@ Fifteen phases:
    and NaNs with 4-, 16- and 64-point tables), and at the shapes that take
    a kernel's second instance: K1 at rates 16, 32 and 256 and at 65,600
    channels, K2 at 66 taps a branch, at 1 tap and at 20,002 steps (its
-   persistent blocks split unevenly), qam_eq_scan at 17 and 31 taps,
+   persistent blocks split unevenly), qam_eq_scan at 17 and 31 taps and
+   in rounds (k_eq 1, 2, 3; h_len 1, 7, 16; 4-, 16- and 64-point tables;
+   zero, NaN, quiet and sparse slots; C not a multiple of its 16 channels a
+   block, S of its 64-slot tile, S = 1; its round counter against the plain
+   loop's state-changing slots),
    agc_scan at tile edges, K4 at P = 256, 1024, 7262 (smaller staged
    layouts) and 7263 (the direct instance), and a Symsync bank past K3's
    shared memory, which "auto" hands to K4; iir_scan bit for bit at TF
@@ -238,7 +242,8 @@ from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     scan_instance,
 )
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
-from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference  # noqa: E402
+from yagi_tpu_torch.kernels.qam import (  # noqa: E402
+    ROUND_SLOTS, ROUND_TILE, qam_eq_scan_apply, qam_eq_scan_reference)
 from yagi_tpu_torch.errors import ConfigError  # noqa: E402
 from yagi_tpu_torch.kernels.symscan import (  # noqa: E402
     FUSED_SMEM_LIMIT,
@@ -1392,6 +1397,62 @@ def agc_inputs(rng, c: int, n: int, device) -> tuple:
             torch.from_numpy(ch % 7 == 0).to(device), i32(mode), i32(np.full(c, 100)))
 
 
+def eq_case(rng, c: int, n: int, k_eq: int, h_len: int, m: int, traffic: str, device) -> tuple:
+    """qam_eq_scan's arguments: random slots (valid about ½, 0.2 for
+    ``sparse``) and state (a count on either side of h_len, one channel's
+    sym_phase out of range); ``zeros`` puts a run of zero slots in, ``nan``
+    NaN slots in half the channels, ``quiet`` keeps Σ|x|² under ½·h_len."""
+    def cplx(*shape):
+        return torch.from_numpy(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                                 / np.sqrt(2)).astype(np.complex64)).to(device)
+
+    y = cplx(c, n)
+    valid = torch.from_numpy(rng.random((c, n)) < (0.2 if traffic == "sparse" else 0.5)).to(device)
+    if traffic == "zeros":
+        y[:, n // 5: n // 2] = 0
+    elif traffic == "nan":
+        y[::2, n // 3] = complex("nan+nanj")
+    elif traffic == "quiet":
+        y = y * 0.05
+    table = Modem.create({4: "qpsk", 16: "qam16", 64: "qam64"}[m], device=device).table
+    x2 = torch.from_numpy(rng.random((c, h_len)).astype(np.float32)
+                          * (0.1 if traffic == "quiet" else 2)).to(device)
+    w = cplx(c, h_len) * 0.1
+    w[:, h_len // 2] += 1
+    state = dict(w=w, buffer=cplx(c, h_len), x2=x2, x2_sum=x2.sum(1),
+                 count=torch.from_numpy(rng.integers(0, 2 * h_len + 2, c).astype(np.int32)).to(device),
+                 theta=torch.from_numpy(rng.uniform(-3, 3, c).astype(np.float32)).to(device),
+                 dtheta=torch.from_numpy(rng.uniform(-1e-3, 1e-3, c).astype(np.float32)).to(device),
+                 sym_phase=torch.from_numpy(rng.integers(0, k_eq, c).astype(np.int32)).to(device),
+                 evm_accum=torch.zeros(c, device=device), evm_count=torch.zeros(c, device=device))
+    state["sym_phase"][0] = -7
+    vec = torch.full((c,), 0.02, dtype=torch.float32, device=device)
+    return y, valid, table, vec, vec, vec * 0.01, state
+
+
+def eq_rounds(y, valid, table, mu, alpha, beta, state, *, k_eq: int) -> int:
+    """The rounds qam_eq_scan's register instance runs, from its plain
+    version alone: run one slot at a time, the loop's state (w, θ, dθ, the
+    EVM sums) moves after some slots; cut each channel's slots there, at
+    every ROUND_TILE slots and every ROUND_SLOTS slots."""
+    C, S = y.shape
+    moved = torch.zeros(C, S, dtype=torch.bool, device=y.device)
+    for s in range(S):
+        *_, new = qam_eq_scan_reference(y[:, s:s + 1], valid[:, s:s + 1], table, mu, alpha, beta,
+                                        state, k_eq=k_eq)
+        for f in ("w", "theta", "dtheta", "evm_accum", "evm_count"):
+            moved[:, s] |= ~((new[f] == state[f]) | (new[f].isnan() & state[f].isnan())
+                             ).reshape(C, -1).all(1)
+        state = new
+    moved = moved.cpu()
+    total = 0
+    for c in range(C):
+        cuts = sorted({s + 1 for s in range(S) if moved[c, s]}
+                      | set(range(ROUND_TILE, S, ROUND_TILE)) | {S})
+        total += sum(-(-(b - a) // ROUND_SLOTS) for a, b in zip([0] + cuts, cuts))
+    return total
+
+
 def phase_kernel_vs_plain_qam(device) -> dict:
     """K3 at QamRx's k_out = 2 against symsync_fused_reference, then
     qam_eq_scan on K3's slots and agc_scan on a level-stepped block against
@@ -1504,6 +1565,32 @@ def phase_kernel_vs_plain_qam(device) -> dict:
         print(f"[kernel-vs-plain] QamRx(eq_len={eq_len}).step_masked vs the all-plain chain: "
               f"bit-identical (syms, soft, mask) {same}, state fields that differ {bad}")
         require(all(same) and not bad, f"QamRx at eq_len={eq_len} vs the all-plain chain")
+
+    # qam_eq_scan in rounds (the register instance): every state field bit
+    # for bit, and its round counter against the plain loop's segments (cut
+    # where the loop's state moved, one slot at a time, at every tile and
+    # every ROUND_SLOTS slots)
+    for (c, n), (k_eq, h_len, m, traffic) in zip(
+            [(13, 165), (37, 300), (5, 1), (16, 128), (13, 165), (37, 300), (16, 165), (13, 165),
+             (13, 165), (13, 165), (13, 165)],
+            [(2, 7, 16, "random"), (1, 7, 16, "random"), (3, 7, 16, "random"),
+             (2, 1, 16, "random"), (2, 16, 16, "random"), (2, 7, 4, "random"),
+             (2, 7, 64, "random"), (2, 7, 16, "zeros"), (2, 7, 16, "nan"), (2, 7, 16, "quiet"),
+             (3, 16, 64, "sparse")]):
+        args = eq_case(rng, c, n, k_eq, h_len, m, traffic, device)
+        counts = trace.device_counter("qam_eq_scan.rounds", torch.device(device))
+        before = int(counts.item())
+        k = qam_eq_scan_apply(*args, k_eq=k_eq)
+        rounds = int(counts.item()) - before
+        p = qam_eq_scan_reference(*args, k_eq=k_eq)
+        same = [same_bits(a, b) for a, b in zip(k[:3], p[:3])]
+        bad = [f for f in k[3] if not same_bits(k[3][f], p[3][f])]
+        want = eq_rounds(*args, k_eq=k_eq)
+        print(f"[kernel-vs-plain] qam_eq_scan in rounds C={c} S={n} k_eq={k_eq} h_len={h_len} "
+              f"M={m} {traffic}: bit-identical (syms, soft, mask) {same}, state fields that "
+              f"differ {bad}; {rounds} rounds (the plain loop's segments: {want})")
+        require(all(same) and not bad and rounds == want,
+                f"qam_eq_scan in rounds vs plain, {(c, n, k_eq, h_len, m, traffic)}")
 
     # agc_scan at the edges of its tiles and channel groups
     for c, n in ((13, 1), (13, 127), (37, 129), (5, 300)):

@@ -34,7 +34,7 @@ from yagi_tpu_torch._src.struct import load_state
 from yagi_tpu_torch.chains import QamRx
 from yagi_tpu_torch._src.device import resolve_device
 from yagi_tpu_torch.errors import ConfigError, DeviceError
-from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply, qam_eq_scan_reference
+from yagi_tpu_torch.kernels.qam import STATE_FIELDS, qam_eq_scan_apply, qam_eq_scan_reference
 from yagi_tpu_torch.modem import Modem
 from yagi_tpu_torch.utils import compact_valid
 
@@ -403,10 +403,213 @@ def test_step_masked_with_a_17_tap_equalizer_matches_yagi_tpu(impaired):
                                              (654, 16, True), (655, 16, False)])
 def test_eq_scan_shared_memory_need(h_len, m, fits):
     """The wrapper's mirror of csrc/qam.cu's shared-memory layout: up to 16
-    taps the window lives in registers and adds nothing."""
+    taps (the instance that runs rounds: 16 channels a block, 64-slot tiles,
+    rings of 256 valid samples and 15 copies) the window lives in registers and adds
+    nothing; past 16, each channel's window and weights."""
     from yagi_tpu_torch.kernels import qam
 
-    tiles = 8 * (m + 2 * 16 * 65) + 4 * 16 * 65 + 2 * 16 * 68
-    window = 4 * 16 * ((5 * h_len) | 1) if h_len > qam.MAX_REG_H_LEN else 0
-    assert qam.smem_bytes(m, h_len) == tiles + window
+    if h_len <= qam.MAX_REG_H_LEN:
+        tile, ring = 16 * 65, 16 * (256 + 16 + 1)
+        need = (8 * (m + 3 * tile + ring) + 4 * (2 * ring + 2 * tile + 2 * 16 * 2 + 2 * 16)
+                + 3 * 16 * 68 + 2 * 2 * 16 * 66)
+    else:
+        need = 8 * (m + 2 * 16 * 65) + 4 * 16 * 65 + 2 * 16 * 68 + 4 * 16 * ((5 * h_len) | 1)
+    assert qam.smem_bytes(m, h_len) == need
     assert (qam.smem_bytes(m, h_len) <= qam._SMEM_LIMIT) == fits
+
+
+# ------------------------------------------- the kernel's order: rounds over segments
+def _bits(t):
+    """A tensor's bits (complex as its float32 pairs), so NaNs compare equal."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def _segment_order_scan(y, valid, table, mu, alpha, beta, state, *, k_eq, slots, tile):
+    """``qam_eq_scan`` in ``csrc/qam.cu``'s order, in plain torch: the plain
+    version's ``(syms, soft, mask, state)``, and the rounds summed over
+    channels.
+
+    The plan comes from the inputs alone: slot by slot, the window's valid
+    samples, Σ|x|² as (x2_sum + |x|²) − x2[0], the count and sym_phase, hence
+    each slot's is_sym and can_adapt; then each channel's rounds, cut after
+    every adapting slot, every ``slots`` slots and every ``tile`` slots.
+    Round r of every channel runs at once: each of its slots decided from
+    the state its segment started with, the state updated only at its last
+    slot, where that slot adapts."""
+    C, S = y.shape
+    H = state["w"].shape[1]
+    rows = torch.arange(C)
+    # the plan: hist / x2h hold the window's samples and |x|², oldest first,
+    # then each valid slot's; a slot with v valid slots before it pushes onto
+    # hist[v + 1 : v + H] and drops x2h[v]
+    hist = torch.zeros(C, H + S, dtype=torch.complex64)
+    hist[:, :H] = state["buffer"]
+    x2h = torch.zeros(C, H + S)
+    x2h[:, :H] = state["x2"]
+    x2s, cnt, sph = state["x2_sum"], state["count"], state["sym_phase"]
+    nv = torch.zeros(C, dtype=torch.long)
+    vidx = torch.zeros(C, S, dtype=torch.long)
+    x2sp = torch.zeros(C, S)
+    is_sym = torch.zeros(C, S, dtype=torch.bool)
+    can = torch.zeros(C, S, dtype=torch.bool)
+    lms = torch.zeros(C, S, dtype=torch.bool)
+    for s in range(S):
+        xr, xi, vi = y.real[:, s], y.imag[:, s], valid[:, s]
+        x2n = xr * xr + xi * xi
+        x2s_p = x2s + x2n - x2h[rows, nv]
+        is_sym[:, s] = vi & (sph == 0)
+        can[:, s] = is_sym[:, s] & (x2s_p > 0.5 * H)
+        lms[:, s] = can[:, s] & (cnt + 1 >= H)
+        x2sp[:, s], vidx[:, s] = x2s_p, nv
+        hist[rows, H + nv] = torch.where(vi, y[:, s], hist[rows, H + nv])
+        x2h[rows, H + nv] = torch.where(vi, x2n, x2h[rows, H + nv])
+        x2s, cnt = torch.where(vi, x2s_p, x2s), torch.where(vi, cnt + 1, cnt)
+        sph = torch.where(vi, sph ^ 1 if k_eq == 2 else (sph + 1) % k_eq, sph)
+        nv = nv + vi.long()
+    rounds = []  # each channel's rounds: (first slot, slots)
+    for c in range(C):
+        rs, start = [], 0
+        for s in range(S):
+            if can[c, s] or s + 1 - start == slots or (s + 1) % tile == 0 or s + 1 == S:
+                rs.append((start, s + 1 - start))
+                start = s + 1
+        rounds.append(rs)
+    # the rounds
+    wr, wi = state["w"].real, state["w"].imag
+    theta, dtheta = state["theta"], state["dtheta"]
+    eacc, ecnt = state["evm_accum"], state["evm_count"]
+    tr, ti = table.real, table.imag
+    syms = torch.zeros(C, S, dtype=torch.int64)
+    soft_r, soft_i = torch.zeros(C, S), torch.zeros(C, S)
+    k = torch.arange(slots)
+    for r in range(max(len(rs) for rs in rounds)):
+        act = torch.tensor([r < len(rs) for rs in rounds])
+        start = torch.tensor([rs[r][0] if r < len(rs) else 0 for rs in rounds])
+        n = torch.tensor([rs[r][1] if r < len(rs) else 1 for rs in rounds])
+        last = start + n - 1
+        s = torch.minimum(start[:, None] + k, last[:, None])  # [C, slots]
+        taps = vidx[rows[:, None], s][..., None] + 1 + torch.arange(H - 1)
+        win = torch.cat([hist[rows[:, None, None], taps], y[rows[:, None], s][..., None]], -1)
+        br_p, bi_p = win.real, win.imag  # [C, slots, H]
+        prod_r, prod_i = wr[:, None] * br_p + wi[:, None] * bi_p, wr[:, None] * bi_p - wi[:, None] * br_p
+        yr, yi = prod_r[..., 0], prod_i[..., 0]
+        for j in range(1, H):  # left to right
+            yr, yi = yr + prod_r[..., j], yi + prod_i[..., j]
+        co, sn = torch.cos(theta), torch.sin(theta)  # [C], as the plain version takes them
+        vs_r = yr * co[:, None] + yi * sn[:, None]
+        vs_i = yi * co[:, None] - yr * sn[:, None]
+        dr, di = vs_r[..., None] - tr, vs_i[..., None] - ti
+        sym = torch.argmin(dr * dr + di * di, dim=-1)
+        out = act[:, None] & (k < n[:, None])
+        cs, ss = rows[:, None].expand_as(s)[out], s[out]
+        syms[cs, ss], soft_r[cs, ss], soft_i[cs, ss] = sym[out], vs_r[out], vs_i[out]
+        e = n - 1  # the round's last slot
+        yr_e, yi_e, vr_e, vi_e = yr[rows, e], yi[rows, e], vs_r[rows, e], vs_i[rows, e]
+        sr, si = tr[sym[rows, e]], ti[sym[rows, e]]
+        br_e, bi_e = br_p[rows, e], bi_p[rows, e]
+        pe = (vi_e * sr - vr_e * si) / torch.clamp(sr * sr + si * si, min=1e-12)
+        theta_n = theta + dtheta + alpha * pe
+        dtheta_n = dtheta + beta * pe
+        ar = (sr * co - si * sn) - yr_e
+        ai = (si * co + sr * sn) - yi_e
+        g = (mu / torch.clamp(x2sp[rows, last], min=1e-20))[:, None]
+        wr_u = wr + g * (ar[:, None] * br_e + ai[:, None] * bi_e)
+        wi_u = wi + g * (ar[:, None] * bi_e - ai[:, None] * br_e)
+        adapt, upd = act & can[rows, last], (act & lms[rows, last])[:, None]
+        wr, wi = torch.where(upd, wr_u, wr), torch.where(upd, wi_u, wi)
+        theta = torch.where(adapt, theta_n, theta)
+        dtheta = torch.where(adapt, dtheta_n, dtheta)
+        er, ei = vr_e - sr, vi_e - si
+        eacc = torch.where(adapt, eacc + (er * er + ei * ei), eacc)
+        ecnt = torch.where(adapt, ecnt + 1.0, ecnt)
+    window = nv[:, None] + torch.arange(H)
+    new = dict(w=torch.complex(wr, wi), buffer=hist[rows[:, None], window],
+               x2=x2h[rows[:, None], window], x2_sum=x2s, count=cnt, theta=theta,
+               dtheta=dtheta, sym_phase=sph, evm_accum=eacc, evm_count=ecnt)
+    return (syms, torch.complex(soft_r, soft_i), is_sym, new), sum(len(rs) for rs in rounds)
+
+
+def _eq_case(k_eq, h_len, m, traffic, c=5, n=None):
+    """Random slots (valid about ½, or 0.2 for ``sparse``) and a random state:
+    the window, its |x|², a count on either side of h_len, θ, dθ, sym_phase
+    (one channel's out of range); ``zeros`` puts a run of zero slots in,
+    ``nan`` NaN slots in some channels, ``quiet`` scales the slots so that
+    Σ|x|² stays under ½·h_len (no slot adapts once the window has filled)."""
+    from yagi_tpu_torch.kernels.qam import ROUND_TILE
+
+    n = 2 * ROUND_TILE + 37 if n is None else n
+    g = np.random.default_rng(100 * k_eq + 10 * h_len + m + len(traffic))
+
+    def cplx(*shape):
+        return torch.from_numpy(((g.standard_normal(shape) + 1j * g.standard_normal(shape))
+                                 / np.sqrt(2)).astype(np.complex64))
+
+    y = cplx(c, n)
+    valid = torch.from_numpy(g.random((c, n)) < (0.2 if traffic == "sparse" else 0.5))
+    if traffic == "zeros":
+        y[:, n // 5: n // 2] = 0
+    elif traffic == "nan":
+        y[::2, n // 3] = complex("nan+nanj")
+    elif traffic == "quiet":
+        y = y * 0.05
+    table = Modem.create({4: "qpsk", 16: "qam16", 64: "qam64"}[m], device=DEV).table
+    x2 = torch.from_numpy(g.random((c, h_len)).astype(np.float32) * (0.1 if traffic == "quiet" else 2))
+    w = cplx(c, h_len) * 0.1
+    w[:, h_len // 2] += 1
+    state = dict(w=w, buffer=cplx(c, h_len), x2=x2, x2_sum=x2.sum(1),
+                 count=torch.from_numpy(g.integers(0, 2 * h_len + 2, c).astype(np.int32)),
+                 theta=torch.from_numpy(g.uniform(-3, 3, c).astype(np.float32)),
+                 dtheta=torch.from_numpy(g.uniform(-1e-3, 1e-3, c).astype(np.float32)),
+                 sym_phase=torch.from_numpy(g.integers(0, k_eq, c).astype(np.int32)),
+                 evm_accum=torch.zeros(c), evm_count=torch.zeros(c))
+    state["sym_phase"][0] = -7
+
+    def vec(v):
+        return torch.full((c,), v, dtype=torch.float32)
+
+    return y, valid, table, vec(0.02), vec(0.02), vec(0.02 ** 2 / 2), state
+
+
+@pytest.mark.parametrize("k_eq, h_len, m, traffic", [
+    (2, 7, 16, "random"), (1, 7, 16, "random"), (3, 7, 16, "random"), (2, 1, 16, "random"),
+    (2, 16, 16, "random"), (2, 7, 4, "random"), (2, 7, 64, "random"), (2, 7, 16, "zeros"),
+    (2, 7, 16, "nan"), (2, 7, 16, "quiet"), (3, 16, 64, "sparse"),
+])
+def test_eq_scan_in_rounds_equals_the_plain_loop(k_eq, h_len, m, traffic):
+    """The kernel's order (rounds over segments, csrc/qam.cu) equals
+    ``qam_eq_scan_reference`` bit for bit, outputs and every state field, on
+    S = 2·tile + 37 slots (not a multiple of the tile); and its rounds are
+    the plain loop's segments cut at its state-changing slots (where θ, dθ,
+    w or the EVM sums move, one slot at a time), at every tile and every
+    ``ROUND_SLOTS`` slots (a longer segment takes more rounds)."""
+    from yagi_tpu_torch.kernels.qam import ROUND_SLOTS, ROUND_TILE
+
+    args = _eq_case(k_eq, h_len, m, traffic)
+    want = qam_eq_scan_reference(*args, k_eq=k_eq)
+    got, rounds = _segment_order_scan(*args, k_eq=k_eq, slots=ROUND_SLOTS, tile=ROUND_TILE)
+    for a, b in zip(got[:3], want[:3]):
+        assert _same_bits(a, b)
+    for f in STATE_FIELDS:
+        assert _same_bits(got[3][f], want[3][f]), f
+    # the plain loop one slot at a time: the slots after which its state moved
+    y, valid, table, mu, alpha, beta, state = args
+    C, S = y.shape
+    moved = torch.zeros(C, S, dtype=torch.bool)
+    for s in range(S):
+        *_, new = qam_eq_scan_reference(y[:, s:s + 1], valid[:, s:s + 1], table, mu, alpha, beta,
+                                        state, k_eq=k_eq)
+        for f in ("w", "theta", "dtheta", "evm_accum", "evm_count"):
+            moved[:, s] |= (_bits(new[f]) != _bits(state[f])).reshape(C, -1).any(1)
+        state = new
+    cuts = [sorted({s + 1 for s in range(S) if moved[c, s]}
+                   | set(range(ROUND_TILE, S, ROUND_TILE)) | {S}) for c in range(C)]
+    want_rounds = sum(-(-(b - a) // ROUND_SLOTS) for cut in cuts for a, b in zip([0] + cut, cut))
+    assert rounds == want_rounds
+    if traffic in ("quiet", "sparse"):  # no slot adapts / segments longer than a round
+        assert (moved.sum() == 0) == (traffic == "quiet") and rounds > moved.sum() + C * 3

@@ -111,6 +111,28 @@ def test_set_up_spans_and_counters_record_with_tracing_off():
     assert trace.snapshot()["counters"] == {}
 
 
+def test_device_counters_are_read_by_snapshot_and_zeroed_by_reset(monkeypatch):
+    """A kernel's device counter (a CPU tensor here): one int64 a name and
+    device, read by snapshot beside the host's counters, zeroed by reset; the
+    CPU route of qam_eq_scan_apply counts neither slots nor rounds."""
+    from yagi_tpu_torch.kernels.qam import qam_eq_scan_apply
+
+    monkeypatch.setattr(trace, "_device_counters", {})
+    cpu = torch.device("cpu")
+    t = trace.device_counter("qam_eq_scan.rounds", cpu)
+    assert trace.device_counter("qam_eq_scan.rounds", cpu) is t
+    assert t.dtype == torch.int64 and t.shape == (1,) and int(t) == 0
+    t += 1950
+    trace.count("qam_eq_scan.slots", 8192)
+    assert trace.snapshot()["counters"] == {"qam_eq_scan.slots": 8192, "qam_eq_scan.rounds": 1950}
+    trace.reset()
+    assert trace.snapshot()["counters"] == {"qam_eq_scan.rounds": 0}
+    rx = QamRx.create(batch_shape=(2,), device=DEV)
+    y = _block(2, 32, 3)
+    qam_eq_scan_apply(y, torch.ones(2, 32, dtype=torch.bool), *rx.eq_scan_args())
+    assert trace.snapshot()["counters"] == {"qam_eq_scan.rounds": 0}
+
+
 def test_registry_lists_the_ten_wrappers():
     counts = trace.launches()
     assert sorted(counts) == sorted(WRAPPERS)

@@ -1,5 +1,5 @@
 // QamRx's equalizer / carrier loop over a block's symsync slots
-// (qam_eq_scan), kLanes lanes per channel.
+// (qam_eq_scan), in rounds over segments.
 //
 // Replaces the eq-only lax.scan of yagi_tpu/chains/qam.py
 // (_step_masked_decoupled, qam.py:294-302), whose body is eq_slot
@@ -27,39 +27,56 @@
 // smallest distance (a NaN counts as smallest, as torch.argmin), and the
 // clamps are comparisons so a NaN propagates as torch.clamp lets it.
 //
-// What bounds it on an H100: the slots are serial per channel, and the
-// ~430 MB a config[3] block moves take ~0.13 ms, so the loop's issue rate and
-// its chain of dependent operations are the limit. One thread per channel
-// gives 64 warps for 2048 channels, each issuing ~500 instructions a slot in
-// order, half of them the 16-way argmin (~2,500 cycles a slot, PERF.md §6).
-// So each channel has kLanes lanes: 8, 512 warps at C = 2048, one per
-// scheduler (16 lanes, two warps per scheduler, and 4 lanes both measured
-// slower, PERF.md §6):
+// What bounds it on an H100: the ~430 MB a config[3] block moves take
+// ~0.13 ms, so the loop's chain of dependent operations and its instruction rate
+// are the limit. Walking every slot on the chain cost ~890 cycles a slot
+// (PERF.md §6). But the state the decisions feed (w, θ, dθ, the EVM sums)
+// moves only on a slot where can_adapt holds, and can_adapt, the window and
+// Σ|x|² depend on the inputs alone (valid, the slots, sym_phase, the count),
+// never on a decision. So the register instance (h_len ≤ kMaxRegTaps) runs
+// rounds, not slots:
 //
-// * the argmin is lane-parallel: lane ℓ takes the points m ≡ ℓ (mod kLanes)
-//   in increasing m, then an xor butterfly over the channel's lanes takes
-//   the smallest key (NaN first, then the distance, then the index). That
-//   is the index the serial strict-< scan from 0 picks, ties and NaNs
-//   included: distances are ≥ 0 or NaN, so their bits order as the floats.
-//   Each distance is the plain version's __fsub_rn/__fmul_rn/__fadd_rn.
-// * the h_len-tap dot, cos/sin, the PLL and the LMS update run on every lane
-//   of the channel, the same ops in the same order, so every lane holds the
-//   same bits and no sum changes order.
-// * each block stages a tile of its channels' slots (y, valid) in shared
-//   memory with coalesced loads, issued into registers one tile ahead so they
-//   fly while the loop runs, and writes syms, soft and mask back from shared
-//   memory in coalesced rows.
+// * a segment is the run of slots after an adapting slot up to and including
+//   the next one (or the tile's end). Every slot of it is decided from the
+//   state the segment starts with; only its last slot, where it adapts, runs
+//   the PLL, the LMS update and the EVM sums. A round decides up to kRW slots
+//   of a segment at once, kRL lanes a slot (kRW·kRL lanes a channel); a
+//   longer segment takes more rounds from the same state, and one with no
+//   adapting slot (zeros, NaNs, energy under ½·h_len) is all parallel. The
+//   chain is one slot's dot, decision and update a round: 3.7 slots a round
+//   on config[3]'s traffic (segments of 4 slots, cut at each tile's end).
+// * a planner warp copies the block's tile t + 1 of slots into shared memory
+//   (cp.async, coalesced rows) and plans tile t while the rounds run tile
+//   t − 1; a barrier a tile hands the plan over. It plans from the inputs
+//   alone, with lanes over a channel's slots: each valid slot's place among
+//   the channel's valid slots (a prefix count by ballot), its sym_phase and
+//   count from that place, the valid samples and their |x|² into the
+//   channel's rings; then, a lane a channel, Σ|x|² after each valid slot in
+//   the plain version's order ((x2_sum + |x|²) − x2[0], the only serial
+//   part); then the adapting slots and those that update the taps as bit
+//   masks (lanes over slots), and the rounds cut from them (a lane a
+//   channel).
+// * in a round, each slot's group forms the slot's pushed window (the h_len − 1
+//   valid samples before it from the ring, whose first h_len − 1 places are
+//   copied past its end so a window reads on, then the slot), the dot left to
+//   right, the derotation by the segment's θ and the argmin: lane ℓ of the
+//   group takes the points m ≡ ℓ (mod kRL) in increasing m, then an xor
+//   butterfly over the group takes the smallest key (NaN first, then the
+//   distance, then the index), the index the serial strict-< scan from 0
+//   picks, ties and NaNs included (distances are ≥ 0 or NaN, so their bits
+//   order as the floats). Its first lane writes the slot's outputs. The last
+//   slot's decision, v and y reach the channel's lanes by shuffles, and
+//   every lane runs the update, the same ops in the same order, so every
+//   lane holds the same state bits.
+// * the kernel adds its rounds, summed over live channels, to a device
+//   counter (one atomicAdd a block), which trace.snapshot() reads.
 //
-// Up to kMaxRegTaps taps the window and weights live in registers (h_len is a
-// template parameter, so the push is a register rename); a longer equalizer
-// runs qam_eq_scan_smem_kernel, the same lane map, dot order and argmin with
-// the window, |x|² window and weights of a channel in shared memory (5·h_len
-// floats, the window a ring, the LMS update's taps split over the lanes). The
-// table sits in shared memory, and a
-// lane's own points in registers too where the table has at most kPts·kLanes
-// (16-QAM: 2 a lane), so its distances wait on no load (14% faster than the
-// loop over shared memory; 8 points a lane, most of them predicated off,
-// was 6% slower: PERF.md §6).
+// The table sits in shared memory, and a lane's own points in registers too
+// where the table has at most kRPts·kRL points (16-QAM), so its distances
+// wait on no load. A longer equalizer runs qam_eq_scan_smem_kernel, which
+// walks every slot: kLanes lanes a channel split the argmin as above, the
+// window, |x|² window and weights of a channel in shared memory (5·h_len
+// floats, the window a ring, the LMS update's taps split over the lanes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +84,8 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLanes = 8;  // lanes per channel: a power of two ≤ 32 (8 beat 4 and 16: PERF.md §6)
+// the shared-memory instance's lanes per channel: a power of two ≤ 32
+constexpr int kLanes = 8;
 static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0, "lanes");
 constexpr int kChans = 16;                  // channels per block
 constexpr int kThreads = kChans * kLanes;   // 128 at 8 lanes: 4 warps
@@ -75,7 +93,6 @@ constexpr int kPre = 8;                     // tile elements each thread loads
 constexpr int kTile = kPre * kThreads / kChans;  // slots per tile: 8·kLanes
 constexpr int kPitch = kTile + 1;   // 4- and 8-byte rows: channels on distinct banks
 constexpr int kBPitch = kTile + 4;  // byte rows
-constexpr int kPts = 2;  // table points a lane holds in registers (M ≤ kPts·kLanes)
 constexpr int kMaxRegTaps = 16;  // h_len up to which the window lives in registers
 
 struct EqIn {
@@ -138,195 +155,497 @@ size_t smem_bytes(int M) {
          2 * kChans * kBPitch;
 }
 
+// The register instance (h_len ≤ kMaxRegTaps) runs rounds. A segment is the
+// run of slots after an adapting slot up to and including the next adapting
+// slot (or the tile's end); every slot of it is decided from the state the
+// segment starts with, and only its last slot, where it adapts, moves the
+// state. A round decides up to kRW slots of one segment at once, kRL lanes a
+// slot; a longer segment takes more rounds from the same state. 4 slots of 2
+// lanes (4 channels a warp, 512 warps at C = 2048, one a scheduler) beat 4
+// of 4 and 4 of 8 lanes (more warps, each issuing a round's update for fewer
+// channels) and 8 of 2; 64-slot tiles beat 128 (PERF.md §6).
+constexpr int kRW = 4;  // slots a round
+constexpr int kRL = 2;  // lanes a slot: a power of two
+constexpr int kRG = kRW * kRL;  // lanes a channel
+static_assert((kRL & (kRL - 1)) == 0 && kRG <= 32 && 32 % kRG == 0, "round lanes");
+constexpr int kRChans = 16;                 // channels a block: one planner lane each
+static_assert(kRChans <= 32, "one planner warp");
+constexpr int kCompute = kRChans * kRG;     // threads that run the rounds
+constexpr int kRThreads = kCompute + 32;    // and the planner warp
+constexpr int kRT = 64;                     // slots a tile: whole warps of slots
+static_assert(kRT % 32 == 0 && kRT <= 255 && kRChans * kRT % 256 == 0,
+              "the planner's passes; a round's start is a byte; the planner's loads");
+static_assert(kRW < 32, "a round's slots within a mask word");
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+// a channel's valid samples kept: the h_len − 1 before a tile, that tile's and the next's
+constexpr int kRing = pow2_at_least(2 * kRT + kMaxRegTaps - 1);
+static_assert(kRing <= 0x4000, "a slot's window start in 14 bits");
+constexpr int kRPts = (16 + kRL - 1) / kRL;  // table points a lane holds (up to 16-QAM)
+// a ring's row: its places, then copies of the first kMaxRegTaps − 1 so a window
+// reads on past the end; odd, so the planner's lanes (channels) hit distinct banks
+constexpr int kHP = kRing + kMaxRegTaps + 1;
+constexpr int kYP = kRT + 1, kWP = kRT + 2, kVP = kRT + 4, kMW = kRT / 32;
+constexpr unsigned kAdapt = 1u << 16, kLms = 1u << 17;  // a round entry's flags
+constexpr int kIsSym = 0x8000, kCountOk = 0x4000;      // a slot's flags beside its window start
+
+// Shared memory of the register instance: the table [M]; y [3][kRChans][kYP]
+// (three tiles: the one the rounds run, the one the planner plans, the one
+// landing); each channel's rings over its valid samples [kRChans][kHP]: the
+// samples, their |x|², and Σ|x|² after each; the rounds [2][kRChans][kYP]
+// (start | n << 8 | flags); the adapting and tap-updating slots as bit masks
+// [kRChans][2][kMW]; the round counts [2][kRChans]; valid [3][kRChans][kVP];
+// each slot's window start | flags [2][kRChans][kWP] uint16.
+size_t round_smem_bytes(int M) {
+  return sizeof(float2) * (M + 3 * kRChans * kYP + kRChans * kHP) +
+         sizeof(float) * (2 * kRChans * kHP + 2 * kRChans * kYP + 2 * kRChans * kMW +
+                          2 * kRChans) +
+         3 * kRChans * kVP + sizeof(uint16_t) * 2 * kRChans * kWP;
+}
+
+// Asynchronous copies from device to shared memory (cp.async, sm_80 on),
+// `bytes` of them from src and zeros after, so a slot past C or S lands as
+// zero; a thread's copies are waited on by groups, in the order committed.
+__device__ __forceinline__ void copy8_async(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void copy4_async(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
+// every committed group but the newest has landed
+__device__ __forceinline__ void wait_copies_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// sym_phase after v valid slots from sph0, as the slot-by-slot steps leave it
+// (k_eq = 2 flips the low bit; otherwise the first step brings it into
+// [0, k_eq), each next adds one mod k_eq)
+__device__ __forceinline__ int32_t sym_phase_at(int32_t sph0, int v, int k_eq) {
+  if (k_eq == 2) return sph0 ^ (v & 1);
+  if (v == 0) return sph0;
+  int32_t r = (sph0 + 1) % k_eq;
+  if (r < 0) r += k_eq;
+  return (int32_t)(((long long)r + v - 1) % k_eq);
+}
+
+// A round's plan entry and one group's slot of it, fetched a round ahead of
+// its use so the loads fly while the previous round's chain runs: the entry
+// (start | n << 8 | flags), the slot's window start | is_sym << 15, and its
+// pushed window (the h_len − 1 valid samples before it, then the slot).
 template <int H>
-__global__ void __launch_bounds__(kThreads)
+struct RoundSlot {
+  unsigned e;
+  int s, wq;
+  float br[H], bi[H];
+};
+
+template <int H>
+__device__ __forceinline__ void fetch_round(RoundSlot<H>& o, const unsigned* rr, int r, int nr,
+                                            const uint16_t* wpr, const float2* hr,
+                                            const float2* ytr, int grp) {
+  o.e = r < nr ? rr[r] : 0u;
+  const int start = o.e & 255, n = (o.e >> 8) & 255;
+  o.s = start + (grp < n ? grp : 0);
+  o.wq = wpr[o.s];
+  const float2* w0 = hr + (o.wq & (kRing - 1));
+#pragma unroll
+  for (int j = 0; j + 1 < H; ++j) {
+    const float2 h = w0[j];
+    o.br[j] = h.x;
+    o.bi[j] = h.y;
+  }
+  const float2 ys = ytr[o.s];
+  o.br[H - 1] = ys.x;
+  o.bi[H - 1] = ys.y;
+}
+
+template <int H>
+__global__ void __launch_bounds__(kRThreads, 1)
 qam_eq_scan_kernel(const float2* __restrict__ y, const uint8_t* __restrict__ valid,
                    const float2* __restrict__ table, const float* __restrict__ mu_in,
                    const float* __restrict__ alpha_in, const float* __restrict__ beta_in, EqIn in,
                    int64_t* __restrict__ syms, float2* __restrict__ soft,
-                   uint8_t* __restrict__ mask, EqOut out, int C, int S, int M, int k_eq) {
+                   uint8_t* __restrict__ mask, EqOut out, int C, int S, int M, int k_eq,
+                   int64_t* __restrict__ rounds_out) {
   extern __shared__ float2 smem[];
   float2* tab = smem;
   float2* yt = tab + M;
-  float2* st = yt + kChans * kPitch;
-  int32_t* symt = reinterpret_cast<int32_t*>(st + kChans * kPitch);
-  uint8_t* vt = reinterpret_cast<uint8_t*>(symt + kChans * kPitch);
-  uint8_t* mt = vt + kChans * kBPitch;
+  float2* hist = yt + 3 * kRChans * kYP;
+  float* x2c = reinterpret_cast<float*>(hist + kRChans * kHP);
+  float* x2p = x2c + kRChans * kHP;
+  unsigned* rl = reinterpret_cast<unsigned*>(x2p + kRChans * kHP);
+  unsigned* msk = rl + 2 * kRChans * kYP;
+  int* nrs = reinterpret_cast<int*>(msk + 2 * kRChans * kMW);
+  uint8_t* vt = reinterpret_cast<uint8_t*>(nrs + 2 * kRChans);
+  uint16_t* wp = reinterpret_cast<uint16_t*>(vt + 3 * kRChans * kVP);
 
   const int tid = threadIdx.x;
-  const int ch = tid / kLanes;
-  const int lane = tid % kLanes;
-  const int c0 = blockIdx.x * kChans;
-  const bool live = c0 + ch < C;
-  const int c = live ? c0 + ch : C - 1;  // a dead channel runs the last one, for the shuffles
-
-  for (int i = tid; i < M; i += kThreads) tab[i] = table[i];
-
-  const float mu = mu_in[c], alpha = alpha_in[c], beta = beta_in[c];
+  const int c0 = blockIdx.x * kRChans;
+  const int nT = (S + kRT - 1) / kRT;
   const float half_h = 0.5f * H;
-  float br[H], bi[H], x2t[H], wr[H], wi[H];
+  for (int i = tid; i < M; i += kRThreads) tab[i] = table[i];
+
+  if (tid >= kCompute) {  // ---- the planner: a tile ahead of the rounds
+    // A lane is a channel for the carried scalars and the serial Σ|x|², a
+    // slot in the passes over a channel's tile.
+    const int pl = tid - kCompute;
+    const bool live = pl < kRChans && c0 + pl < C;
+    const int c = c0 + pl;
+    const unsigned below = (1u << pl) - 1u;  // the lanes before this one
+    float x2s = 0.0f;
+    int32_t cnt0 = 0, sph0 = 0;
+    int vidx = 0;  // the channel's valid slots so far: its rings' next place
+    long long rounds = 0;
+    if (live) {  // the window goes in oldest first, at places −H … −1
+      for (int j = 0; j < H; ++j) {
+        hist[pl * kHP + ((j - H) & (kRing - 1))] = in.buf[c * H + j];
+        x2c[pl * kHP + ((j - H) & (kRing - 1))] = in.x2[c * H + j];
+      }
+      x2s = in.x2s[c];
+      cnt0 = in.cnt[c];
+      sph0 = in.sph[c];
+    }
+    // Step u copies tile u's slots of the block's channels into y and valid
+    // buffer u % 3 (coalesced rows, asynchronous; valid 4 slots a copy where
+    // S allows, else a byte at a time through registers), then plans tile
+    // u − 1, whose copies have landed, before barrier u − 1: the first tile
+    // before the rounds start, each next one while they run the one before.
+    const bool words = S % 4 == 0;
+    for (int u = 0; u <= nT + 1; ++u) {
+      if (u < nT) {
+        const int s0 = u * kRT, b = u % 3;
+#pragma unroll
+        for (int k = 0; k < kRChans * kRT / 32; ++k) {
+          const int i = pl + k * 32, r = i / kRT, col = i % kRT;
+          const bool in_range = c0 + r < C && s0 + col < S;
+          copy8_async(&yt[(b * kRChans + r) * kYP + col],
+                      in_range ? y + (size_t)(c0 + r) * S + s0 + col : y, in_range ? 8 : 0);
+        }
+        for (int i = pl; i < kRChans * kRT / 4; i += 32) {
+          const int r = i / (kRT / 4), col = i % (kRT / 4) * 4;
+          uint8_t* dst = &vt[(b * kRChans + r) * kVP + col];
+          const size_t o = (size_t)(c0 + r) * S + s0 + col;
+          if (words) {
+            const bool in_range = c0 + r < C && s0 + col < S;
+            copy4_async(dst, in_range ? valid + o : valid, in_range ? 4 : 0);
+          } else {
+            for (int k = 0; k < 4; ++k) dst[k] = c0 + r < C && s0 + col + k < S ? valid[o + k] : 0;
+          }
+        }
+      }
+      commit_copies();
+      if (u == 0) continue;
+      const int t = u - 1;
+      if (t < nT) {
+        const int s0 = t * kRT, b = t & 1, bt = t % 3, tn = min(kRT, S - s0);
+        wait_copies_but_newest();
+        __syncwarp();
+        // lanes over slots, kBatch channels at a time (their loads ahead of
+        // their stores): each valid slot's place among the channel's valid
+        // slots (a prefix count), its sym_phase and count from that place,
+        // the slot's window start and flags, and the valid samples and
+        // their |x|² into the channel's rings
+        const int v0 = vidx;
+        constexpr int kBatch = 4;
+        static_assert(kRChans % kBatch == 0, "whole batches of channels");
+        for (int c1 = 0; c1 < kRChans; c1 += kBatch) {
+          float2 v[kBatch][kMW];
+          bool vi[kBatch][kMW];
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+            for (int h = 0; h < kMW; ++h) {
+              const int ch = c1 + i, s = h * 32 + pl;
+              v[i][h] = yt[(bt * kRChans + ch) * kYP + s];
+              vi[i][h] = c0 + ch < C && s < tn && vt[(bt * kRChans + ch) * kVP + s] != 0;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+            const int ch = c1 + i;
+            int vb = __shfl_sync(kFull, vidx, ch);
+            const int32_t sp = __shfl_sync(kFull, sph0, ch), cn = __shfl_sync(kFull, cnt0, ch);
+            const bool lv = c0 + ch < C;
+#pragma unroll
+            for (int h = 0; h < kMW; ++h) {
+              const int s = h * 32 + pl;
+              const unsigned bal = __ballot_sync(kFull, vi[i][h]);
+              const int vid = vb + __popc(bal & below);
+              const bool is_sym = vi[i][h] && sym_phase_at(sp, vid, k_eq) == 0;
+              const bool count_ok = (int32_t)((uint32_t)cn + (uint32_t)vid + 1u) >= H;
+              if (lv && s < tn)
+                wp[(b * kRChans + ch) * kWP + s] =
+                    (uint16_t)(((vid - (H - 1)) & (kRing - 1)) | (count_ok ? kCountOk : 0) |
+                               (is_sym ? kIsSym : 0));
+              if (vi[i][h]) {
+                const int at = vid & (kRing - 1);
+                hist[ch * kHP + at] = v[i][h];
+                if (at < kMaxRegTaps - 1) hist[ch * kHP + kRing + at] = v[i][h];
+                x2c[ch * kHP + (vid & (kRing - 1))] =
+                    fa(fm(v[i][h].x, v[i][h].x), fm(v[i][h].y, v[i][h].y));
+              }
+              vb += __popc(bal);
+            }
+            if (pl == ch) vidx = vb;
+          }
+        }
+        __syncwarp();
+        // lane = channel: Σ|x|² after each of the tile's valid slots, the only
+        // serial part, as (x2_sum + |x|²) − x2[0] in the plain version's
+        // order, four at a time (their loads ahead of the chain)
+        if (live) {
+          const float* xc = x2c + pl * kHP;
+          float* xp = x2p + pl * kHP;
+          for (int k = v0; k < vidx; k += 4) {
+            float xn[4], xo[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              xn[i] = xc[(k + i) & (kRing - 1)];
+              xo[i] = xc[(k + i - H) & (kRing - 1)];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (k + i < vidx) {
+                x2s = fs(fa(x2s, xn[i]), xo[i]);
+                xp[(k + i) & (kRing - 1)] = x2s;
+              }
+            }
+          }
+        }
+        __syncwarp();
+        // lanes over slots, kBatch channels at a time: the adapting slots
+        // (is_sym ∧ Σ|x|² > ½·h_len) and those that also update the taps
+        // (count ≥ h_len), as bit masks
+        for (int c1 = 0; c1 < kRChans; c1 += kBatch) {
+          int wq[kBatch][kMW];
+          float x2[kBatch][kMW];
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+            for (int h = 0; h < kMW; ++h) {
+              const int s = h * 32 + pl;
+              wq[i][h] = s < tn ? wp[(b * kRChans + c1 + i) * kWP + s] : 0;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+            for (int h = 0; h < kMW; ++h)
+              x2[i][h] = x2p[(c1 + i) * kHP + ((wq[i][h] + H - 1) & (kRing - 1))];
+          }
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+            for (int h = 0; h < kMW; ++h) {
+              const bool can_adapt = (wq[i][h] & kIsSym) && x2[i][h] > half_h;
+              const unsigned ab = __ballot_sync(kFull, can_adapt);
+              const unsigned lb = __ballot_sync(kFull, can_adapt && (wq[i][h] & kCountOk));
+              if (pl == 0) {
+                msk[((c1 + i) * 2) * kMW + h] = ab;
+                msk[((c1 + i) * 2 + 1) * kMW + h] = lb;
+              }
+            }
+          }
+        }
+        __syncwarp();
+        // lane = channel: the rounds, cut at each adapting slot, every kRW
+        // slots and at the tile's end
+        if (pl < kRChans) {
+          unsigned am[kMW + 1], lm[kMW];
+#pragma unroll
+          for (int h = 0; h < kMW; ++h) {
+            am[h] = msk[(pl * 2) * kMW + h];
+            lm[h] = msk[(pl * 2 + 1) * kMW + h];
+          }
+          am[kMW] = 0;
+          unsigned* rr = rl + (b * kRChans + pl) * kYP;
+          int nr = 0;
+          for (int start = 0; live && start < tn;) {
+            const int word = start >> 5, off = start & 31, reach = min(kRW, tn - start);
+            unsigned lo = 0, hi = 0;  // the mask words at word and word + 1 (registers: unrolled picks)
+#pragma unroll
+            for (int h = 0; h < kMW; ++h) {
+              if (h == word) lo = am[h];
+              if (h == word + 1) hi = am[h];
+            }
+            unsigned bits = lo >> off;
+            if (off + reach > 32) bits |= hi << (32 - off);
+            bits &= (1u << reach) - 1u;
+            const int n = bits ? __ffs(bits) : reach, last = start + n - 1;
+            unsigned lw = 0;
+#pragma unroll
+            for (int h = 0; h < kMW; ++h)
+              if (h == last >> 5) lw = lm[h];
+            rr[nr++] = start | n << 8 | (bits ? kAdapt : 0u) | ((lw >> (last & 31)) & 1u ? kLms : 0u);
+            start = last + 1;
+          }
+          nrs[b * kRChans + pl] = nr;
+          rounds += nr;
+        }
+      }
+      __syncthreads();
+    }
+    if (live) {  // the window goes out oldest first
+      for (int j = 0; j < H; ++j) {
+        out.buf[c * H + j] = hist[pl * kHP + ((vidx - H + j) & (kRing - 1))];
+        out.x2[c * H + j] = x2c[pl * kHP + ((vidx - H + j) & (kRing - 1))];
+      }
+      out.x2s[c] = x2s;
+      out.cnt[c] = (int32_t)((uint32_t)cnt0 + (uint32_t)vidx);
+      out.sph[c] = sym_phase_at(sph0, vidx, k_eq);
+    }
+    if (rounds_out != nullptr) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) rounds += __shfl_xor_sync(kFull, rounds, off);
+      if (pl == 0) atomicAdd(reinterpret_cast<unsigned long long*>(rounds_out),
+                             (unsigned long long)rounds);
+    }
+    return;
+  }
+
+  // ---- the rounds: kRG lanes a channel, group g of kRL lanes on a round's slot g
+  const int ch = tid / kRG, q = tid % kRG, grp = q / kRL, sub = q % kRL;
+  const int base = (tid & 31) & ~(kRG - 1);  // the channel's first lane in the warp
+  const bool live = c0 + ch < C;
+  const int c = live ? c0 + ch : C - 1;  // a dead channel runs the last one's state, unwritten
+  const float mu = mu_in[c], alpha = alpha_in[c], beta = beta_in[c];
+  float wr[H], wi[H];
 #pragma unroll
   for (int j = 0; j < H; ++j) {
-    const float2 b = in.buf[c * H + j], w = in.w[c * H + j];
-    br[j] = b.x;
-    bi[j] = b.y;
+    const float2 w = in.w[c * H + j];
     wr[j] = w.x;
     wi[j] = w.y;
-    x2t[j] = in.x2[c * H + j];
   }
-  float x2s = in.x2s[c], theta = in.theta[c], dtheta = in.dtheta[c];
-  float eacc = in.eacc[c], ecnt = in.ecnt[c];
-  int32_t cnt = in.cnt[c], sph = in.sph[c];
-  // this lane's points m = lane + k·kLanes, for tables that fit in registers
-  const bool held = M <= kPts * kLanes;
-  float2 pts[kPts];
+  float theta = in.theta[c], dtheta = in.dtheta[c], eacc = in.eacc[c], ecnt = in.ecnt[c];
+  float sn, co;
+  sincosf(theta, &sn, &co);
+  // this lane's points m = sub + k·kRL, for tables that fit in registers;
+  // past M, point 0 at index m, which never wins: point 0's own key (in
+  // lane 0) has the same distance and a smaller index
+  const bool held = M <= kRPts * kRL;
+  float2 pts[kRPts];
 #pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    const int m = lane + k * kLanes;
-    pts[k] = held && m < M ? table[m] : make_float2(0.0f, 0.0f);
+  for (int k = 0; k < kRPts; ++k) {
+    const int m = sub + k * kRL;
+    pts[k] = held ? table[m < M ? m : 0] : make_float2(0.0f, 0.0f);
   }
+  const float2* hr = hist + ch * kHP;
+  __syncthreads();  // the table, and the planner's first tile
 
-  float2 py[kPre];
-  uint8_t pv[kPre];
-  fetch_tile(y, valid, c0, 0, C, S, py, pv);
-
-  for (int s0 = 0; s0 < S; s0 += kTile) {
-    const int tn = min(kTile, S - s0);
+  for (int t = 0; t < nT; ++t) {
+    const int b = t & 1, s0 = t * kRT;
+    const float2* ytr = yt + (t % 3 * kRChans + ch) * kYP;
+    const uint16_t* wpr = wp + (b * kRChans + ch) * kWP;
+    const unsigned* rr = rl + (b * kRChans + ch) * kYP;
+    const int nr = nrs[b * kRChans + ch];
+    const int rmax = kRG == 32 ? nr : __reduce_max_sync(kFull, nr);
+    int64_t* srow = syms + (size_t)c * S + s0;  // the tile's outputs of this channel
+    float2* frow = soft + (size_t)c * S + s0;
+    uint8_t* mrow = mask + (size_t)c * S + s0;
+    RoundSlot<H> cur;
+    fetch_round(cur, rr, 0, nr, wpr, hr, ytr, grp);
+    for (int r = 0; r < rmax; ++r) {
+      RoundSlot<H> nxt;
+      if (r + 1 < rmax) fetch_round(nxt, rr, r + 1, nr, wpr, hr, ytr, grp);
+      const unsigned e = cur.e;
+      const int start = e & 255, n = (e >> 8) & 255, last = start + n - 1;
+      // the last slot's window and Σ|x|², for the LMS update
+      float lr[H], li[H];
+      const int we = wpr[last > 0 ? last : 0];
+      const float2* w1 = hr + (we & (kRing - 1));
 #pragma unroll
-    for (int k = 0; k < kPre; ++k) {  // park the tile fetched one tile ago
-      const int i = tid + k * kThreads, r = i / kTile, col = i % kTile;
-      yt[r * kPitch + col] = py[k];
-      vt[r * kBPitch + col] = pv[k];
-    }
-    __syncthreads();
-    if (s0 + kTile < S) fetch_tile(y, valid, c0, s0 + kTile, C, S, py, pv);  // in flight now
-
-    for (int tt = 0; tt < tn; ++tt) {
-      const float2 v = yt[ch * kPitch + tt];
-      const bool vi = vt[ch * kBPitch + tt] != 0;
-      // push (eqlms.rs:125)
-      const float x2n = fa(fm(v.x, v.x), fm(v.y, v.y));
-      float brp[H], bip[H], x2p[H];
-#pragma unroll
-      for (int j = 0; j + 1 < H; ++j) {
-        brp[j] = br[j + 1];
-        bip[j] = bi[j + 1];
-        x2p[j] = x2t[j + 1];
+      for (int j = 0; j < H; ++j) {
+        const float2 x = j + 1 < H ? w1[j] : ytr[last > 0 ? last : 0];
+        lr[j] = x.x;
+        li[j] = x.y;
       }
-      brp[H - 1] = v.x;
-      bip[H - 1] = v.y;
-      x2p[H - 1] = x2n;
-      const float x2sp = fs(fa(x2s, x2n), x2t[0]);
-      const int32_t cntp = cnt + 1;
-      // execute (eqlms.rs:137)
-      float yr = fa(fm(wr[0], brp[0]), fm(wi[0], bip[0]));
-      float yi = fs(fm(wr[0], bip[0]), fm(wi[0], brp[0]));
+      const float x2e = x2p[ch * kHP + ((we + H - 1) & (kRing - 1))];
+      // y = Σ_j conj(w_j)·buf_j left to right (eqlms.rs:137)
+      float yr = fa(fm(wr[0], cur.br[0]), fm(wi[0], cur.bi[0]));
+      float yi = fs(fm(wr[0], cur.bi[0]), fm(wi[0], cur.br[0]));
 #pragma unroll
       for (int j = 1; j < H; ++j) {
-        yr = fa(yr, fa(fm(wr[j], brp[j]), fm(wi[j], bip[j])));
-        yi = fa(yi, fs(fm(wr[j], bip[j]), fm(wi[j], brp[j])));
+        yr = fa(yr, fa(fm(wr[j], cur.br[j]), fm(wi[j], cur.bi[j])));
+        yi = fa(yi, fs(fm(wr[j], cur.bi[j]), fm(wi[j], cur.br[j])));
       }
-      const bool is_sym = vi && sph == 0;
-      const bool can_adapt = is_sym && x2sp > half_h;
-      // derotation and decision: this lane's points, then the channel's lanes
-      float sn, co;
-      sincosf(theta, &sn, &co);
+      // derotation by the segment's θ and decision: this lane's points, then the slot's lanes
       const float vr = fa(fm(yr, co), fm(yi, sn));
       const float vim = fs(fm(yi, co), fm(yr, sn));
       unsigned long long key = ~0ull;
       if (held) {
+        unsigned long long k2[kRPts];
 #pragma unroll
-        for (int k = 0; k < kPts; ++k) {
-          const int m = lane + k * kLanes;
-          if (m < M) {
-            const float dr = fs(vr, pts[k].x), di = fs(vim, pts[k].y);
-            key = key_min(key, arg_key(fa(fm(dr, dr), fm(di, di)), m));
-          }
+        for (int k = 0; k < kRPts; ++k) {
+          const int m = sub + k * kRL;
+          const float dr = fs(vr, pts[k].x), di = fs(vim, pts[k].y);
+          k2[k] = arg_key(fa(fm(dr, dr), fm(di, di)), m);
         }
+#pragma unroll
+        for (int w = 1; w < kRPts; w *= 2) {  // a tree: the order of a min does not matter
+#pragma unroll
+          for (int k = 0; k + w < kRPts; k += 2 * w) k2[k] = key_min(k2[k], k2[k + w]);
+        }
+        key = k2[0];
       } else {
-        for (int m = lane; m < M; m += kLanes) {
+        for (int m = sub; m < M; m += kRL) {
           const float dr = fs(vr, tab[m].x), di = fs(vim, tab[m].y);
           key = key_min(key, arg_key(fa(fm(dr, dr), fm(di, di)), m));
         }
       }
 #pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
+      for (int off = kRL / 2; off > 0; off >>= 1)
         key = key_min(key, __shfl_xor_sync(kFull, key, off));
       const int sym = (int)(unsigned)key;
-      const float sr = tab[sym].x, si = tab[sym].y;
-      // PLL
-      const float pe = __fdiv_rn(fs(fm(vim, sr), fm(vr, si)),
-                                 clamp_min(fa(fm(sr, sr), fm(si, si)), 1e-12f));
-      // LMS toward ŝ·e^{jθ} (eqlms.rs:170-187)
-      const float ar = fs(fs(fm(sr, co), fm(si, sn)), yr);
-      const float ai = fs(fa(fm(si, co), fm(sr, sn)), yi);
-      const float g = __fdiv_rn(mu, clamp_min(x2sp, 1e-20f));
-      if (can_adapt && cntp >= H) {
+      if (live && grp < n && sub == 0) {
+        srow[cur.s] = sym;
+        frow[cur.s] = make_float2(vr, vim);
+        mrow[cur.s] = (uint8_t)(cur.wq >> 15);
+      }
+      // the round's last slot, from its group's first lane, to the channel's lanes
+      const int src = base + (n > 0 ? n - 1 : 0) * kRL;
+      const int sym_e = __shfl_sync(kFull, sym, src);
+      const float vr_e = __shfl_sync(kFull, vr, src), vi_e = __shfl_sync(kFull, vim, src);
+      const float yr_e = __shfl_sync(kFull, yr, src), yi_e = __shfl_sync(kFull, yi, src);
+      if (e & kAdapt) {
+        const float sr = tab[sym_e].x, si = tab[sym_e].y;
+        // PLL
+        const float pe = __fdiv_rn(fs(fm(vi_e, sr), fm(vr_e, si)),
+                                   clamp_min(fa(fm(sr, sr), fm(si, si)), 1e-12f));
+        // LMS toward ŝ·e^{jθ} (eqlms.rs:170-187), on the last slot's window,
+        // where it updates the taps
+        const bool lms = e & kLms;
+        const float ar = fs(fs(fm(sr, co), fm(si, sn)), yr_e);
+        const float ai = fs(fa(fm(si, co), fm(sr, sn)), yi_e);
+        const float g = __fdiv_rn(mu, clamp_min(x2e, 1e-20f));
 #pragma unroll
         for (int j = 0; j < H; ++j) {
-          const float ur = fm(g, fa(fm(ar, brp[j]), fm(ai, bip[j])));
-          const float ui = fm(g, fs(fm(ar, bip[j]), fm(ai, brp[j])));
-          wr[j] = fa(wr[j], ur);
-          wi[j] = fa(wi[j], ui);
+          const float ur = fm(g, fa(fm(ar, lr[j]), fm(ai, li[j])));
+          const float ui = fm(g, fs(fm(ar, li[j]), fm(ai, lr[j])));
+          wr[j] = lms ? fa(wr[j], ur) : wr[j];
+          wi[j] = lms ? fa(wi[j], ui) : wi[j];
         }
-      }
-      if (vi) {
-#pragma unroll
-        for (int j = 0; j < H; ++j) {
-          br[j] = brp[j];
-          bi[j] = bip[j];
-          x2t[j] = x2p[j];
-        }
-        x2s = x2sp;
-        cnt = cntp;
-        if (k_eq == 2) {
-          sph ^= 1;
-        } else {
-          sph = (sph + 1) % k_eq;
-          if (sph < 0) sph += k_eq;
-        }
-      }
-      if (can_adapt) {
         const float theta_n = fa(fa(theta, dtheta), fm(alpha, pe));
         dtheta = fa(dtheta, fm(beta, pe));
         theta = theta_n;
-        const float er = fs(vr, sr), ei = fs(vim, si);
+        const float er = fs(vr_e, sr), ei = fs(vi_e, si);
         eacc = fa(eacc, fa(fm(er, er), fm(ei, ei)));
         ecnt = fa(ecnt, 1.0f);
+        sincosf(theta, &sn, &co);
       }
-      if (lane == 0) {
-        symt[ch * kPitch + tt] = sym;
-        st[ch * kPitch + tt] = make_float2(vr, vim);
-        mt[ch * kBPitch + tt] = is_sym;
-      }
+      cur = nxt;
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kPre; ++k) {  // the tile's outputs, in coalesced rows
-      const int i = tid + k * kThreads, r = i / kTile, col = i % kTile;
-      if (c0 + r < C && col < tn) {
-        const size_t o = (size_t)(c0 + r) * S + s0 + col;
-        syms[o] = symt[r * kPitch + col];
-        soft[o] = st[r * kPitch + col];
-        mask[o] = mt[r * kBPitch + col];
-      }
-    }
-    // the next park writes yt and vt, which no thread reads any more; the
-    // output tiles are written again only after the next __syncthreads
+    __syncthreads();  // the planner's next tile is in; this one's buffers are free
   }
 
-  if (live && lane == 0) {
+  if (live && q == 0) {
 #pragma unroll
-    for (int j = 0; j < H; ++j) {
-      out.buf[c * H + j] = make_float2(br[j], bi[j]);
-      out.w[c * H + j] = make_float2(wr[j], wi[j]);
-      out.x2[c * H + j] = x2t[j];
-    }
-    out.x2s[c] = x2s;
-    out.cnt[c] = cnt;
+    for (int j = 0; j < H; ++j) out.w[c * H + j] = make_float2(wr[j], wi[j]);
     out.theta[c] = theta;
     out.dtheta[c] = dtheta;
-    out.sph[c] = sph;
     out.eacc[c] = eacc;
     out.ecnt[c] = ecnt;
   }
@@ -538,14 +857,14 @@ template <int H>
 cudaError_t launch(const float2* y, const uint8_t* valid, const float2* table, const float* mu,
                    const float* alpha, const float* beta, const EqIn& in, int64_t* syms,
                    float2* soft, uint8_t* mask, const EqOut& out, int C, int S, int M, int k_eq,
-                   cudaStream_t stream) {
-  const int blocks = (C + kChans - 1) / kChans;
-  const int smem = (int)smem_bytes(M);
+                   int64_t* rounds, cudaStream_t stream) {
+  const int blocks = (C + kRChans - 1) / kRChans;
+  const int smem = (int)round_smem_bytes(M);
   cudaError_t err = cudaFuncSetAttribute(qam_eq_scan_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  qam_eq_scan_kernel<H><<<blocks, kThreads, smem, stream>>>(y, valid, table, mu, alpha, beta, in,
-                                                            syms, soft, mask, out, C, S, M, k_eq);
+  qam_eq_scan_kernel<H><<<blocks, kRThreads, smem, stream>>>(
+      y, valid, table, mu, alpha, beta, in, syms, soft, mask, out, C, S, M, k_eq, rounds);
   return cudaGetLastError();
 }
 
@@ -556,20 +875,20 @@ cudaError_t launch(const float2* y, const uint8_t* valid, const float2* table, c
 // [C, h_len] complex64; x2 [C, h_len], x2_sum [C] float32; count [C] int32;
 // theta, dtheta [C] float32; sym_phase [C] int32; evm_accum, evm_count [C]
 // float32); syms: [C, S] int64; soft: [C, S] complex64; mask: [C, S] uint8;
-// then fresh arrays for the new state in the same order. h_len ≥ 1; past 16
-// the shared-memory instance runs, while its 16·(5·h_len | 1) floats fit the
-// block's shared memory.
+// then fresh arrays for the new state in the same order. h_len ≥ 1; up to 16
+// the register instance runs, and adds the rounds it ran (summed over
+// channels) to *rounds, a device int64, unless rounds is null; past 16 the
+// shared-memory instance runs (rounds untouched), while its
+// 16·(5·h_len | 1) floats fit the block's shared memory.
 // Launches on `stream`; returns the launch's CUDA error (0 on success).
-extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void* table,
-                                const float* mu, const float* alpha, const float* beta,
-                                const void* w, const void* buf, const float* x2,
-                                const float* x2s, const int32_t* cnt, const float* theta,
-                                const float* dtheta, const int32_t* sph, const float* eacc,
-                                const float* ecnt, int64_t* syms, void* soft, uint8_t* mask,
-                                void* w_out, void* buf_out, float* x2_out, float* x2s_out,
-                                int32_t* cnt_out, float* theta_out, float* dtheta_out,
-                                int32_t* sph_out, float* eacc_out, float* ecnt_out, int C, int S,
-                                int M, int h_len, int k_eq, void* stream) {
+extern "C" int yagi_qam_eq_scan_counted(
+    const void* y, const uint8_t* valid, const void* table, const float* mu, const float* alpha,
+    const float* beta, const void* w, const void* buf, const float* x2, const float* x2s,
+    const int32_t* cnt, const float* theta, const float* dtheta, const int32_t* sph,
+    const float* eacc, const float* ecnt, int64_t* syms, void* soft, uint8_t* mask, void* w_out,
+    void* buf_out, float* x2_out, float* x2s_out, int32_t* cnt_out, float* theta_out,
+    float* dtheta_out, int32_t* sph_out, float* eacc_out, float* ecnt_out, int C, int S, int M,
+    int h_len, int k_eq, int64_t* rounds, void* stream) {
   const EqIn in{static_cast<const float2*>(w), static_cast<const float2*>(buf), x2, x2s, cnt,
                 theta, dtheta, sph, eacc, ecnt};
   const EqOut out{static_cast<float2*>(w_out), static_cast<float2*>(buf_out), x2_out, x2s_out,
@@ -583,7 +902,7 @@ extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void*
 #define YAGI_QAM_CASE(H)                                                                  \
   case H:                                                                                 \
     err = launch<H>(yy, valid, tt, mu, alpha, beta, in, syms, ss, mask, out, C, S, M, k_eq, \
-                    st);                                                                  \
+                    rounds, st);                                                          \
     break;
     YAGI_QAM_CASE(1) YAGI_QAM_CASE(2) YAGI_QAM_CASE(3) YAGI_QAM_CASE(4)
     YAGI_QAM_CASE(5) YAGI_QAM_CASE(6) YAGI_QAM_CASE(7) YAGI_QAM_CASE(8)
@@ -596,4 +915,21 @@ extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void*
                                 : cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The same, counting no rounds.
+extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void* table,
+                                const float* mu, const float* alpha, const float* beta,
+                                const void* w, const void* buf, const float* x2,
+                                const float* x2s, const int32_t* cnt, const float* theta,
+                                const float* dtheta, const int32_t* sph, const float* eacc,
+                                const float* ecnt, int64_t* syms, void* soft, uint8_t* mask,
+                                void* w_out, void* buf_out, float* x2_out, float* x2s_out,
+                                int32_t* cnt_out, float* theta_out, float* dtheta_out,
+                                int32_t* sph_out, float* eacc_out, float* ecnt_out, int C, int S,
+                                int M, int h_len, int k_eq, void* stream) {
+  return yagi_qam_eq_scan_counted(y, valid, table, mu, alpha, beta, w, buf, x2, x2s, cnt, theta,
+                                  dtheta, sph, eacc, ecnt, syms, soft, mask, w_out, buf_out,
+                                  x2_out, x2s_out, cnt_out, theta_out, dtheta_out, sph_out,
+                                  eacc_out, ecnt_out, C, S, M, h_len, k_eq, nullptr, stream);
 }

@@ -60,6 +60,8 @@ _SIGNATURES = {
     # y, valid, table, mu, alpha, beta, the 10 state arrays, syms, soft,
     # mask, the 10 new state arrays, C, S, M, h_len, k_eq, stream
     "yagi_qam_eq_scan": [_P] * 29 + [_I] * 5 + [_P],
+    # the same, then the device int64 the kernel adds its rounds to
+    "yagi_qam_eq_scan_counted": [_P] * 29 + [_I] * 5 + [_P, _P],
     # x, b, a, scale, v_in, y, v_out, scratch, C, T, m, sos, cx, cc, inst, stream
     "yagi_iir_scan": [_P] * 8 + [_I] * 7 + [_P],
     # x, b, a, scale, v_in, y, v_out, C, T, m, nst, cx, cc, inst, stream

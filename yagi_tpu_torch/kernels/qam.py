@@ -5,11 +5,20 @@ yagi_tpu runs this loop as a ``lax.scan`` whose body is ``eq_slot``
 (``yagi_tpu/chains/qam.py:173-247``), which XLA compiles into one device
 loop; it wrote no Pallas kernel for it. In eager torch a slot is ~75 small
 ops, so the port runs the loop as a hand-written CUDA kernel
-(``csrc/qam.cu``), 8 lanes per channel (the decision's distances split over
-the lanes), beside its plain version :func:`qam_eq_scan_reference`. Up to
-:data:`MAX_REG_H_LEN` taps the window and weights live in registers; a
-longer equalizer runs the kernel's shared-memory instance (the same lane map,
-dot order and argmin), chosen from h_len before the launch.
+(``csrc/qam.cu``) beside its plain version :func:`qam_eq_scan_reference`.
+Up to :data:`MAX_REG_H_LEN` taps it runs in rounds: the state (w, θ, dθ, the
+EVM sums) moves only on a slot where can_adapt holds, and can_adapt and
+every slot's window follow from the inputs alone, so the slots after one
+adapting slot up to the next (a segment) are all decided from the state the
+segment starts with, :data:`ROUND_SLOTS` of them at once (a round), and only
+a round's last slot, where it adapts, updates the state. A planner warp
+plans each tile of :data:`ROUND_TILE` slots from the inputs, a tile ahead; a
+round never crosses a tile. The kernel adds its rounds to the device counter
+``qam_eq_scan.rounds`` and the wrapper the slots it hands over to
+``qam_eq_scan.slots`` (:mod:`yagi_tpu_torch.trace`). A longer equalizer runs
+the kernel's shared-memory instance, which walks every slot with 8 lanes a
+channel (the decision's distances split over the lanes, the same dot order
+and argmin), chosen from h_len before the launch.
 
 Per channel, for each emission slot in stream order (``eq_slot`` op for op,
 the math of ``Eqlms.push/execute/step``, eqlms.rs:125-187): push the slot into
@@ -25,11 +34,13 @@ Every reduction has one evaluation order, the kernel's: the h_len-tap dot
 left to right over the taps in increasing index, (x2_sum + |x|²) − x2[0],
 and the decision the first table index of the smallest distance (a NaN
 distance counts as smallest, as ``torch.argmin`` and ``jnp.argmin`` take it;
-the kernel's lanes each take every 8th point and then the smallest of
-(NaN first, distance, index), which is the same index).
+the kernel's lanes each take every other point, every 8th in its
+shared-memory instance, and then the smallest of (NaN first, distance,
+index), which is the same index).
 Every operation is rounded on its own, so the kernel equals the plain
-version bit for bit; the loop feeds its decisions back, so one ulp would
-part a channel for good on noise.
+version bit for bit, in rounds as slot by slot: a round computes each slot
+by the same operations from the same state; the loop feeds its decisions
+back, so one ulp would part a channel for good on noise.
 
 Layout, channel-major: ``y`` complex64 [C, S] and ``valid`` bool [C, S], the
 S = n·E slots of a block in stream order (``Symsync`` slots [C, n, E]
@@ -56,15 +67,25 @@ STATE_FIELDS = ("w", "buffer", "x2", "x2_sum", "count", "theta", "dtheta", "sym_
                 "evm_accum", "evm_count")
 MAX_REG_H_LEN = 16  # up to here the window lives in registers; past it, in shared memory
 _SMEM_LIMIT = 232448  # bytes of shared memory a block can use on an H100
-_CHANS, _PITCH, _BPITCH = 16, 65, 68  # csrc/qam.cu: channels per block, tile row pitches
+# csrc/qam.cu's register instance: slots a round, channels per block, slots a
+# tile, each channel's ring of valid samples
+ROUND_SLOTS, _RCHANS, ROUND_TILE, _RING = 4, 16, 64, 256
+_CHANS, _PITCH, _BPITCH = 16, 65, 68  # its shared-memory instance: channels per block, row pitches
 
 
 def smem_bytes(m: int, h_len: int) -> int:
-    """Shared memory of one ``qam_eq_scan`` block (``csrc/qam.cu``): the table,
-    the tiles of slots and outputs and, past :data:`MAX_REG_H_LEN`, each
-    channel's window and weights, 5·h_len floats at an odd stride."""
+    """Shared memory of one ``qam_eq_scan`` block (``csrc/qam.cu``): the table
+    and, up to :data:`MAX_REG_H_LEN` taps, three tiles of slots (y, valid),
+    two tiles' plans and each channel's rings over its valid samples; past
+    it, the tiles of slots and outputs and each channel's window and
+    weights, 5·h_len floats at an odd stride."""
+    if h_len <= MAX_REG_H_LEN:
+        tile, ring = _RCHANS * (ROUND_TILE + 1), _RCHANS * (_RING + MAX_REG_H_LEN + 1)
+        masks = 2 * _RCHANS * (ROUND_TILE // 32)
+        return (8 * (m + 3 * tile + ring) + 4 * (2 * ring + 2 * tile + masks + 2 * _RCHANS)
+                + 3 * _RCHANS * (ROUND_TILE + 4) + 2 * 2 * _RCHANS * (ROUND_TILE + 2))
     tiles = 8 * (m + 2 * _CHANS * _PITCH) + 4 * _CHANS * _PITCH + 2 * _CHANS * _BPITCH
-    return tiles + (4 * _CHANS * ((5 * h_len) | 1) if h_len > MAX_REG_H_LEN else 0)
+    return tiles + 4 * _CHANS * ((5 * h_len) | 1)
 
 
 def _dot(a):
@@ -149,7 +170,9 @@ def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2)
     with a 16-point table).
 
     CPU tensors run :func:`qam_eq_scan_reference`; CUDA tensors launch the
-    kernel (counted in ``qam_eq_scan_apply.launches``) or raise.
+    kernel (counted in ``qam_eq_scan_apply.launches``; the register
+    instance's slots and rounds in the counters ``qam_eq_scan.slots`` and
+    ``qam_eq_scan.rounds``) or raise.
     """
     if not isinstance(y, torch.Tensor) or y.dim() != 2 or y.shape[0] < 1 or y.shape[1] < 1:
         raise ValueError("qam_eq_scan_apply: y must be a [C, S] tensor with C, S >= 1")
@@ -187,10 +210,13 @@ def qam_eq_scan_apply(y, valid, table, mu, alpha, beta, state, *, k_eq: int = 2)
     soft = torch.empty_like(y)
     mask = torch.empty_like(valid)
     new = {k: torch.empty_like(state[k]) for k in STATE_FIELDS}
-    launch(qam_eq_scan_apply, y.device, "yagi_qam_eq_scan",
+    rounds = trace.device_counter("qam_eq_scan.rounds", y.device)
+    launch(qam_eq_scan_apply, y.device, "yagi_qam_eq_scan_counted",
            y.data_ptr(), valid.data_ptr(), table.data_ptr(), mu.data_ptr(), alpha.data_ptr(),
            beta.data_ptr(), *(state[k].data_ptr() for k in STATE_FIELDS), syms.data_ptr(),
            soft.data_ptr(), mask.data_ptr(), *(new[k].data_ptr() for k in STATE_FIELDS),
-           C, S, table.shape[0], h_len, k_eq)
+           C, S, table.shape[0], h_len, k_eq, rounds.data_ptr())
     qam_eq_scan_apply.launches += 1
+    if h_len <= MAX_REG_H_LEN:  # the instance that runs rounds
+        trace.count("qam_eq_scan.slots", C * S)
     return syms, soft, mask, new

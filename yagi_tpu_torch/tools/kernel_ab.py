@@ -41,7 +41,9 @@ with the first ``chain.cu``'s entry point (banded taps, no complex64
 layout) is called through it, its complex64 case as split, kernel, join;
 one without K4's staged entry point runs K4's direct instance; the first
 ``iir.cu`` (no instance argument to ``yagi_iir_chunked``, no order-specialised
-``iir_scan`` instances) is called through its own signatures. Another variant of a
+``iir_scan`` instances) is called through its own signatures; a ``qam.cu``
+without the round counter (``yagi_qam_eq_scan_counted``) through
+``yagi_qam_eq_scan``, the counter left out. Another variant of a
 kernel (a lane count, a tile size) is an edited copy of its source in a
 directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
@@ -391,6 +393,10 @@ def main(argv=None) -> None:
         libs["v1"] = _build.bind(builds["v1"][0],
                                  {**SIGNATURES, "yagi_iir_chunked": FIRST_IIR_CHUNKED})
         FIRST_IIR_LIBS.add(libs["v1"]._name)
+    for lib in libs.values():
+        if hasattr(lib, "yagi_qam_eq_scan") and not hasattr(lib, "yagi_qam_eq_scan_counted"):
+            lib.yagi_qam_eq_scan_counted = (  # args: ..., rounds, stream
+                lambda *a, f=lib.yagi_qam_eq_scan: f(*a[:-2], a[-1]))
 
     result = {"card": card, "cases": {}}
     only = [w for w in args.only.split(",") if w]

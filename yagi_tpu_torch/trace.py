@@ -37,8 +37,12 @@ Every name starts with ``yagi.``:
   clock reads are nothing beside the designs and builds they time.
 
 Counters count whether tracing is on or off: ``library.builds`` (nvcc runs of
-the kernels' library), and each registered kernel wrapper's launches, in its
-``launches`` attribute, which :func:`launches` reads.
+the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
+hands to the kernel's register instance), and each registered kernel
+wrapper's launches, in its ``launches`` attribute, which :func:`launches`
+reads. A kernel can count on the device too, into a :func:`device_counter`:
+``qam_eq_scan.rounds`` (the rounds that instance ran, summed over channels).
+:func:`snapshot` reads those, and only it does, so a step adds no sync.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ import functools
 import threading
 import time
 
-__all__ = ["PREFIX", "count", "enable", "kernel", "launches", "reset", "snapshot", "span",
-           "spanned"]
+__all__ = ["PREFIX", "count", "device_counter", "enable", "kernel", "launches", "reset",
+           "snapshot", "span", "spanned"]
 
 PREFIX = "yagi."
 
@@ -56,6 +60,7 @@ _on = False
 _clock = time.perf_counter_ns
 _spans: dict[str, list[int]] = {}  # name -> [count, ns, self ns]
 _counters: dict[str, int] = {}
+_device_counters: dict[str, dict] = {}  # name -> {device: int64 tensor of one element}
 _local = threading.local()  # .stack: this thread's open spans, innermost last
 _kernels: list = []  # the registered kernel wrappers
 
@@ -118,9 +123,13 @@ def enable(on: bool = True) -> None:
 
 
 def reset() -> None:
-    """Clear the span totals and the counters (not the kernels' launches)."""
+    """Clear the span totals and the counters, the device's too (not the
+    kernels' launches)."""
     _spans.clear()
     _counters.clear()
+    for per in _device_counters.values():
+        for t in per.values():
+            t.zero_()
 
 
 def span(name: str, always: bool = False):
@@ -149,6 +158,18 @@ def count(name: str, n: int = 1) -> None:
     _counters[name] = _counters.get(name, 0) + n
 
 
+def device_counter(name: str, device):
+    """Counter ``name`` on ``device``: an int64 tensor of one element, made
+    (zero) at the first call for a name and device, that a kernel adds to."""
+    per = _device_counters.setdefault(name, {})
+    t = per.get(device)
+    if t is None:
+        import torch
+
+        t = per[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
+
+
 def kernel(fn):
     """Register a kernel wrapper. Each call runs inside span
     ``yagi.kernel.<name>``; ``fn.launch_span`` names its launch's span and
@@ -170,9 +191,14 @@ def launches() -> dict[str, int]:
 
 def snapshot() -> dict:
     """The totals so far as plain numbers: ``spans`` (name -> count, ns,
-    self_ns), ``counters`` and ``launches`` (name -> count)."""
+    self_ns), ``counters`` (the device counters summed over devices, read
+    here: a sync of each device that has one) and ``launches`` (name ->
+    count)."""
+    counters = dict(_counters)
+    for name, per in _device_counters.items():
+        counters[name] = counters.get(name, 0) + sum(int(t.item()) for t in per.values())
     return {
         "spans": {n: {"count": c, "ns": ns, "self_ns": s} for n, (c, ns, s) in _spans.items()},
-        "counters": dict(_counters),
+        "counters": counters,
         "launches": launches(),
     }
