@@ -191,7 +191,8 @@ __device__ __forceinline__ void fetch(float* ring_r, float* ring_i, const float*
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: ≤ 128 registers
+// two blocks an SM: ≤ 128 registers
+__global__ void __launch_bounds__(kThreads, 2)
 channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,  // [T·64]
                         const float* __restrict__ taps,                            // [p, 128]
                         const float* __restrict__ hr,                              // scale at [0]

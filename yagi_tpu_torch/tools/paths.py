@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from ..chains import FmStereoRx, FusedRxChain, QamRx
+from ..chains import ChannelizerFmRx, FmStereoRx, FusedRxChain, QamRx
 from ..channel import Channel
 from ..design import fir_design_kaiser
 from ..filter import (Dds, Fdelay, FftFilt, FirDecimationFilter, FirInterpolationFilter,
@@ -122,6 +122,11 @@ def make_fused(c: int, device, **kw) -> FusedRxChain:
 
 def make_channelizer(device, **kw) -> FusedChannelizer:
     return FusedChannelizer.create_kaiser(**{**CHZ, **kw}, device=device)
+
+
+def make_chzfm(device) -> ChannelizerFmRx:
+    """config[4]'s entry: the channelizer of :data:`CHZ` → the discriminator at :data:`KF`."""
+    return ChannelizerFmRx.create(M4, CHZ["m"], CHZ["as_"], KF, device=device)
 
 
 def make_msresamp(c: int, device) -> MsResamp:

@@ -11,9 +11,9 @@ host ms and self ms of each span) over ``--steps`` more steps with its
 tracing on and no profiler.
 
 * ``0``, config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
-* ``4``, config[4]: ``FusedChannelizer.analyzer_execute_planar`` (M = 64,
-  2^15 steps, p = 8) → ``Freqdem.demodulate`` on the channel-major view, 2^21
-  complex samples a block, seed 1;
+* ``4``, config[4]: ``ChannelizerFmRx.step`` (K2 at M = 64, 2^15 steps,
+  p = 8, then the FM discriminator on its step-major planes), 2^21 complex
+  samples a block, seed 1;
 * ``1``, config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``,
   1024 channels × 4096 samples (K3); ``1p``, the same with
   ``backend="pallas"``: ``branch_outputs`` builds the all-branch stream and
@@ -124,20 +124,11 @@ def config4(device):
     rng = np.random.default_rng(seed)
     xs = [tuple(torch.from_numpy(rng.standard_normal(m4 * t4, dtype=np.float32)).to(device)
                 for _ in range(2)) for _ in range(4)]
-    from yagi_tpu_torch.modem import Freqdem
-
-    if hasattr(paths, "make_channelizer"):
-        chz = paths.make_channelizer(device)
-    else:  # another checkout, whose tools/paths.py has no config[4] yet
-        from yagi_tpu_torch.multichannel import FusedChannelizer
-
-        chz = FusedChannelizer.create_kaiser(m4, 4, 60.0, r2=128, device=device)
-    state = [chz, Freqdem.create(getattr(paths, "KF", 0.1), batch_shape=(m4,), device=device), 0]
+    state = [paths.make_chzfm(device), 0]
 
     def step():
-        yr, yi, state[0] = state[0].analyzer_execute_planar(*xs[state[2] % 4])
-        _, state[1] = state[1].demodulate(torch.complex(yr, yi).T)
-        state[2] += 1
+        state[0] = state[0].step(*xs[state[1] % 4])[3]
+        state[1] += 1
 
     return step
 
@@ -373,7 +364,7 @@ def main(argv=None) -> None:
     print(f"[step] card: {card}")
     runs = {
         "0": ("config[0] FusedRxChain.step", lambda: config0(device), 10 * args.steps),
-        "4": ("config[4] FusedChannelizer -> Freqdem", lambda: config4(device), 10 * args.steps),
+        "4": ("config[4] ChannelizerFmRx.step", lambda: config4(device), 10 * args.steps),
         "1": ("config[1] MsResamp -> Symsync", lambda: config1(device), args.steps),
         "1p": ("config[1] MsResamp -> Symsync(backend='pallas')",
                lambda: config1(device, "pallas"), max(2, args.steps // 4)),

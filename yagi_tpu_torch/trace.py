@@ -25,6 +25,9 @@ Every name starts with ``yagi.``:
   (``QamRx.step_masked``) over ``yagi.agc.run`` (``Agc._run``),
   ``yagi.symsync.run`` (``Symsync._run_slots``), ``yagi.qamrx.eq`` (the
   equalizer's arguments and scan) and ``yagi.qamrx.state`` (the new state);
+  ``yagi.chzfm.step`` (``ChannelizerFmRx.step``) over ``yagi.chzfm.channelize``
+  (K2 and the history copies), ``yagi.chzfm.demod`` (the discriminator) and
+  ``yagi.chzfm.state`` (the last outputs, the new state);
 - kernel wrappers (the ten registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
@@ -32,9 +35,10 @@ Every name starts with ``yagi.``:
 - set-up: ``yagi.library`` (the kernels' library found, built or loaded,
   and bound: its first use), ``yagi.rxchain.create`` over
   ``yagi.rxchain.taps`` (the compact taps' round trip to host numpy),
-  ``yagi.qamrx.create``. These are timed whether tracing is on or off
-  (``always=True``): each runs once for an object or a process, and two
-  clock reads are nothing beside the designs and builds they time.
+  ``yagi.qamrx.create``, ``yagi.chzfm.create``. These are timed whether
+  tracing is on or off (``always=True``): each runs once for an object or a
+  process, and two clock reads are nothing beside the designs and builds
+  they time.
 
 Counters count whether tracing is on or off: ``library.builds`` (nvcc runs of
 the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
