@@ -166,7 +166,11 @@ Fifteen phases:
    each tone's channel power; Cvsd over [1024, 8000] (SNR, a split and card
    = CPU bit for bit); save_state / load_state mid-stream on the card,
    outputs and every leaf bit-identical; the times of a frame by stage;
-15. timing with CUDA events: each kernel by CUDA-graph replay, each plain
+15. timing with CUDA events: K2's FM instance (ChannelizerFmRx's step in
+   one launch) against its plain version, the plain instance and the torch
+   discriminator, checked (channels and state bit for bit, fm within 1e-6)
+   and timed in turns at config[4]'s block and at the benchmark cell's
+   (2^24 samples); each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
@@ -391,6 +395,8 @@ from yagi_tpu_torch.tools.paths import (  # noqa: E402
     T2,
     T3,
     T4,
+    T4_CELL,
+    chzfm_calls,
     complex_block,
     draw_impairments,
     fm_block,
@@ -422,6 +428,9 @@ CHAIN_SHAPES = ((3, 2048, 2), (5, 1024, 1), (3, 512, 4), (3, 512, 8), (3, 2048, 
 # as tests/test_fused_chain.py holds the TPU kernel
 REL_TOL = 1e-4
 SPLIT_ATOL = 1e-5
+# K2's FM instance against the torch discriminator on the same planes: two
+# float32 ulps of |fm| ≤ 5 (tests/test_torch_chzfm.py's Freqdem bound)
+FM_PLAIN_TOL = 1e-6
 
 # config[4] (M4 channels, T4 analyzer steps per block, the bank CHZ, the FM
 # factor KF) comes from yagi_tpu_torch/tools/paths.py too. K2's other
@@ -1089,6 +1098,37 @@ def phase_timing_config4(device, card: str) -> tuple[float, float]:
           f"Firpfbch -> Freqdem {r_msps:.1f} Msps (input complex Msamples/s, eager steps of "
           f"{n}-sample blocks)")
     return k_ms, p_ms
+
+
+def phase_fm_epilogue(device, card: str) -> dict:
+    """K2's FM instance (ChannelizerFmRx's step in one launch: the channels,
+    the discriminator and the carried state) against its plain version (K2's
+    plain instance, the torch discriminator ``fm_reference`` and the state's
+    copies) from a random state, at config[4]'s block (N_ROT input sets) and
+    at the benchmark cell's (2 sets): the channel planes and the state equal
+    bit for bit, fm within FM_PLAIN_TOL; then both timed by graph replay in
+    turns (plain, fm, fm, plain). Returns {steps: (fm ms, plain ms)}."""
+    out = {}
+    for t, sets in ((T4, N_ROT), (T4_CELL, 2)):
+        fused, plain = chzfm_calls(device, t, sets)
+        gap = 0.0
+        for f, p in zip(fused, plain):
+            got, want = f(), p()
+            require(all(torch.equal(a, b) for i, (a, b) in enumerate(zip(got, want)) if i != 2),
+                    f"FM instance at T={t}: channels or state differ from the plain instance's")
+            gap = max(gap, (got[2] - want[2]).abs().max().item())
+        print(f"[fm-epilogue] T={t}: channels and state bit for bit; largest |fm − plain| "
+              f"{gap:.3e} (<= {FM_PLAIN_TOL})")
+        require(gap <= FM_PLAIN_TOL, f"FM instance at T={t}: fm gap {gap}")
+        reps = max(1, 20 // sets)
+        p1, f1, f2, p2 = (graph_ms(calls * reps, reps=5) for calls in (plain, fused, fused, plain))
+        out[t] = ((f1 + f2) / 2, (p1 + p2) / 2)
+        print(f"[timing] {card}: config[4] step at T={t} (M={M4}, {M4 * t} samples): FM instance "
+              f"{out[t][0]:.4f} ms ({f1:.4f}, {f2:.4f}); plain instance + torch discriminator "
+              f"{out[t][1]:.4f} ms ({p1:.4f}, {p2:.4f}); graph replay in turns")
+        del fused, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_timing_mix(device, card: str) -> tuple[float, float]:
@@ -3983,6 +4023,7 @@ def main() -> None:
     mark("framing")
     phase_frames(device, smi)
     mark("frames")
+    phase_fm_epilogue(device, smi)
     times = {
         **phase_timing(device, smi),
         "channelizer_fp32": phase_timing_config4(device, smi),

@@ -1,7 +1,11 @@
 """ChannelizerFmRx (config[4]: K2 → FM discriminator over 64 channels) on
 the CPU route: against the benchmark's float64 reference of liquid's
 analyzer and freqdem, block invariance, its discriminator against Freqdem,
-and its spans and counter."""
+the wrapper's FM route against the entry's earlier two calls, and its spans
+and counter."""
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -19,6 +23,7 @@ DEV = "cpu"
 T, BLOCKS = 512, 3  # analyzer steps a block (N = 64·T, a multiple of 16,384), blocks a stream
 CFG = registry.data("configs", "chz64fm")
 SPANS = ("yagi.chzfm.channelize", "yagi.chzfm.demod", "yagi.chzfm.state")
+KERNEL = "yagi.kernel.fused_channelizer_apply"
 
 
 def _fmband(seed):
@@ -124,7 +129,57 @@ def test_bad_parameters_raise(kw):
         ChannelizerFmRx.create(device=DEV, **kw)
 
 
+def _two_calls(rx, xr, xi):
+    """The entry's step as two calls, the channelizer and then the
+    discriminator's torch ops on its planes, with row 0 against the carried
+    last outputs: the form it had before its one call of the wrapper's FM
+    route."""
+    yr, yi, chz = rx.chz.analyzer_execute_planar(xr, xi)
+    fm = torch.empty_like(yr)
+    rp = rx.r_prime
+    for pr, pi, rr, ri, out in ((rp.real, rp.imag, yr[0], yi[0], fm[0]),
+                                (yr[:-1], yi[:-1], yr[1:], yi[1:], fm[1:])):
+        im = pr * ri
+        im.addcmul_(pi, rr, value=-1.0)
+        re = pr * rr
+        re.addcmul_(pi, ri)
+        torch.atan2(im, re, out=out)
+    fm.mul_(rx.ref)
+    return yr, yi, fm, rx.replace(chz=chz, r_prime=torch.complex(yr[-1], yi[-1]))
+
+
+@pytest.mark.parametrize("m", [4, 33], ids=["p8", "p66"])
+@pytest.mark.parametrize("signal", [_fmband, _noise], ids=["fmband", "noise"])
+def test_fm_route_equals_the_two_calls(signal, m):
+    """Bit for bit, block after block: the CPU route of
+    ``fused_channelizer_apply(..., fm=...)`` is the channelizer's reference and
+    then the same torch ops; at 66 taps a branch (the card's tiled instance,
+    which has no epilogue) too."""
+    one = two = ChannelizerFmRx.create(m=m, device=DEV)
+    for x in signal(13):
+        *got, one = one.step(x[0], x[1])
+        *want, two = _two_calls(two, x[0], x[1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(v, _state(two)[k]) for k, v in _state(one).items())
+
+
+def test_fm_instance_limit_mirrors_the_kernel_source():
+    """The wrapper hands p ≤ ``_MAX_ONE_PASS`` taps a branch to K2's FM
+    instance, which ``csrc/channelizer.cu`` runs up to kMaxOnePass = kRing −
+    2·kTile and refuses past."""
+    from yagi_tpu_torch.kernels import channelizer
+
+    src = (Path(channelizer.__file__).parent.parent / "csrc" / "channelizer.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    tile = const["kThreads"] // const["kGroup"]
+    assert channelizer._MAX_ONE_PASS == const["kRing"] - 2 * tile
+    assert "constexpr int kMaxOnePass = kRing - 2 * kTile;" in src
+    assert "if (p > kMaxOnePass) return (int)cudaErrorInvalidValue;" in src
+
+
 def test_spans_and_counter():
+    """The CPU route is the two-step one: step ⊃ channelize ⊃ the kernel
+    wrapper ⊃ demod, and step ⊃ state; no launch, no FM-instance count."""
     from yagi_tpu_torch.kernels.channelizer import fused_channelizer_apply
 
     rx = ChannelizerFmRx.create(device=DEV)
@@ -134,16 +189,19 @@ def test_spans_and_counter():
     trace.enable()
     for x in _noise(2)[:2]:
         _, _, _, rx = rx.step(x[0], x[1])
-    spans = trace.snapshot()["spans"]
+    snap = trace.snapshot()
+    spans = snap["spans"]
     step = spans["yagi.chzfm.step"]
     assert step["count"] == 2 and all(spans[s]["count"] == 2 for s in SPANS)
-    assert step["self_ns"] == step["ns"] - sum(spans[s]["ns"] for s in SPANS)
-    kernel = spans["yagi.kernel.fused_channelizer_apply"]
+    channelize, demod, state = (spans[s] for s in SPANS)
+    assert step["self_ns"] == step["ns"] - channelize["ns"] - state["ns"]
+    kernel = spans[KERNEL]
     assert kernel["count"] == 2
-    channelize = spans["yagi.chzfm.channelize"]
     assert channelize["self_ns"] == channelize["ns"] - kernel["ns"]
+    assert kernel["self_ns"] == kernel["ns"] - demod["ns"]
     assert not [n for n in spans if n.endswith(".launch")]  # the CPU route launches nothing
     assert fused_channelizer_apply.launches == launches
+    assert "channelizer.fm_epilogue" not in snap["counters"]
 
 
 def test_outputs_and_state_are_the_same_with_tracing_on_and_off():

@@ -3,11 +3,15 @@ analysis bank, then an FM discriminator on every channel.
 
 liquid's ``firpfbch_crcf_create_kaiser(LIQUID_ANALYZER, 64, m, As)`` followed
 by ``freqdem_create(kf)`` on each channel, as ``bench.py:85-125`` runs it:
-the channelizer is :class:`FusedChannelizer` (one K2 launch a block, planar
-step-major [T, 64] output) and the discriminator is Freqdem's formula
-(freqdem.rs:35), arg(conj(r[t−1])·r[t]) / (2π·kf), taken along the step axis
-of K2's planes, with row 0 against each channel's carried last sample. The
-JAX package has no such entry; ``bench.py`` chains the two by hand there.
+the channelizer is :class:`FusedChannelizer`'s bank (planar step-major
+[T, 64] output) and the discriminator is Freqdem's formula (freqdem.rs:35),
+arg(conj(r[t−1])·r[t]) / (2π·kf), taken along the step axis of the channel
+planes, with row 0 against each channel's carried last sample. A step is
+one call of ``fused_channelizer_apply`` with its FM argument: on the card one
+launch of K2's FM instance writes the channels, the discriminator and the new
+state (``kernels/channelizer.py``); past 64 taps a branch, and on the CPU,
+the channelizer and then the discriminator's plain version. The JAX package
+has no such entry; ``bench.py`` chains the two by hand there.
 
 State: the channelizer's raw input history and each channel's last complex
 output, ``r_prime`` [64], zeros at the stream's start (Freqdem's). A stream
@@ -23,19 +27,10 @@ from .. import trace
 from .._src import struct
 from .._src.device import resolve_device
 from ..errors import ConfigError
+from ..kernels.channelizer import fused_channelizer_apply
 from ..multichannel import FusedChannelizer
 
 __all__ = ["ChannelizerFmRx"]
-
-
-def _phase_step(pr, pi, rr, ri, out: torch.Tensor) -> torch.Tensor:
-    """``out`` = atan2(pr·ri − pi·rr, pr·rr + pi·ri) = arg(conj(r′)·r),
-    elementwise, from the planes of r′ (pr, pi) and r (rr, ri)."""
-    im = pr * ri
-    im.addcmul_(pi, rr, value=-1.0)
-    re = pr * rr
-    re.addcmul_(pi, ri)
-    return torch.atan2(im, re, out=out)
 
 
 @struct.state
@@ -68,15 +63,13 @@ class ChannelizerFmRx:
         [N] (N = 64·T, a multiple of 16,384) → ``(yr, yi, fm, state)``: the
         channels as K2 writes them, [T, 64] step-major, and the discriminator
         output fm [T, 64] float32, step-major."""
+        chz = self.chz
         with trace.span("yagi.chzfm.channelize"):
-            yr, yi, chz = self.chz.analyzer_execute_planar(xr, xi)
-        with trace.span("yagi.chzfm.demod"):
-            fm = torch.empty_like(yr)
-            _phase_step(self.r_prime.real, self.r_prime.imag, yr[0], yi[0], fm[0])
-            _phase_step(yr[:-1], yi[:-1], yr[1:], yi[1:], fm[1:])
-            fm.mul_(self.ref)
+            yr, yi, fm, r_prime, hist_r, hist_i = fused_channelizer_apply(
+                xr, xi, chz.taps, chz.hr, chz.hi, chz.hist_r, chz.hist_i, p=chz.p, r2=chz.r2,
+                fm=(self.r_prime, self.ref))
         with trace.span("yagi.chzfm.state"):
-            new = self.replace(chz=chz, r_prime=torch.complex(yr[-1], yi[-1]))
+            new = self.replace(chz=chz.replace(hist_r=hist_r, hist_i=hist_i), r_prime=r_prime)
         return yr, yi, fm, new
 
     __call__ = step

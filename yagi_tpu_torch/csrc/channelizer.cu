@@ -44,6 +44,15 @@
 //   hands the 8 × 8 values over through shared memory (pitch 9, bank-free),
 //   and runs the outer one for k1 = j; it stores y[t, j + 8·k2], which a warp
 //   writes as whole 32-byte sectors.
+// * The FM instance (kFm, ChannelizerFmRx's step): the same kernel with
+//   Freqdem's discriminator in its epilogue, fm[t, k] = arg(conj(y[t − 1, k])
+//   · y[t, k])·ref, and the carried state (y[T − 1], the input's last nh
+//   samples) written by the same launch. A step's y row is still in shared
+//   memory when the step after it needs it, so fm costs its own 67 MB of
+//   stores at 2^24 samples and no pass over the channel planes: the step
+//   moves 335 MB in one launch, where K2 and six torch passes moved ~1.5 GB.
+//   Each y[t − 1] is the value stored for step t − 1, and every fm is one
+//   formula in one order, so a stream cut anywhere gives one call's bits.
 // Every precision mode runs this fp32 kernel (TF32 would miss the 1e-4
 // bound). A bank of more than kMaxOnePass = 64 taps a branch runs a second
 // instance that stages kTapTile = 64 taps at a time per block of 64 steps,
@@ -68,8 +77,10 @@ constexpr int kUPitch = kSteps + 4;  // its u row pitch: 68 ≡ 4 (mod 32)
 constexpr int kTapTile = 64;    // its taps staged at once
 constexpr float kR2 = 0.70710678118654752440f;  // √2/2
 
-size_t onepass_smem_bytes(int p) {  // the ring, the exchange, the taps
-  return sizeof(float) * (2 * kRing * kRowPitch + 2 * kTile * kZPitch + (size_t)p * kM);
+// the ring, the exchange, the FM instance's carry rows, the taps
+size_t onepass_smem_bytes(int p, bool fm) {
+  return sizeof(float) *
+         (2 * kRing * kRowPitch + 2 * kTile * kZPitch + (fm ? 4 * kM : 0) + (size_t)p * kM);
 }
 
 size_t tiled_smem_bytes() {  // u, a tile of taps, its input rows, the exchange
@@ -144,12 +155,10 @@ __device__ __forceinline__ void twiddles(int j, float* twr, float* twi) {
 
 // One step's y = scale·DFT64(u) from the 8 branch outputs thread j of the
 // step's group holds, a[c1] = u[8·c1 + j]; z is the step's exchange (re
-// plane at zr, im plane at zi). Every thread of the warp calls it; only those
-// with `store` write y[at + k] for their k = j + 8·k2.
-__device__ __forceinline__ void fft64_store(float* ar, float* ai, const float* twr,
-                                            const float* twi, float* zr, float* zi, int j,
-                                            float scale, float* __restrict__ yr,
-                                            float* __restrict__ yi, int64_t at, bool store) {
+// plane at zr, im plane at zi). Every thread of the group calls it; on return
+// ar[k2], ai[k2] hold y[k] for its k = j + 8·k2.
+__device__ __forceinline__ void fft64(float* ar, float* ai, const float* twr, const float* twi,
+                                      float* zr, float* zi, int j, float scale) {
   dft8(ar, ai);  // over c1: A[k1] of branch set c2 = j
   __syncwarp();  // the group's reads of the last exchange are done
 #pragma unroll
@@ -164,12 +173,21 @@ __device__ __forceinline__ void fft64_store(float* ar, float* ai, const float* t
     ai[c2] = zi[c2 * 9 + j];
   }
   dft8(ar, ai);  // over c2, for k1 = j: Y[j + 8·k2]
-  if (store) {
 #pragma unroll
-    for (int k2 = 0; k2 < 8; ++k2) {
-      yr[at + j + 8 * k2] = scale * ar[k2];
-      yi[at + j + 8 * k2] = scale * ai[k2];
-    }
+  for (int k2 = 0; k2 < 8; ++k2) {
+    ar[k2] *= scale;
+    ai[k2] *= scale;
+  }
+}
+
+// Thread j's share of a row of y, y[j + 8·k2] at `at`: a warp's four steps
+// write whole 32-byte sectors.
+__device__ __forceinline__ void store_row(const float* ar, const float* ai, float* __restrict__ yr,
+                                          float* __restrict__ yi, int64_t at, int j) {
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) {
+    yr[at + j + 8 * k2] = ar[k2];
+    yi[at + j + 8 * k2] = ai[k2];
   }
 }
 
@@ -191,7 +209,51 @@ __device__ __forceinline__ void fetch(float* ring_r, float* ring_i, const float*
   }
 }
 
+// Thread j's branch outputs of step t, a[c1] = u[8·c1 + j] (re, im): taps
+// i = 0 .. p − 1 summed in order with fmaf, lane 8·c1 + j's tap i on ring row
+// X[t − i − 1], or X[t − i] for lane 0. Nothing here depends on where the
+// step's block or tile starts.
+__device__ __forceinline__ void branch_sums(const float* ring_r, const float* ring_i,
+                                            const float* s_taps, int t, int j, int p, float* ar,
+                                            float* ai) {
+  const int lag0 = j == 0 ? 0 : 1;
+#pragma unroll
+  for (int c1 = 0; c1 < 8; ++c1) ar[c1] = ai[c1] = 0.0f;
+  for (int i = 0; i < p; ++i) {
+    const int o1 = ((t - i - 1) & (kRing - 1)) * kRowPitch + j;
+    const int o0 = ((t - i - lag0) & (kRing - 1)) * kRowPitch + j;
+    const float* tp = s_taps + i * kM + j;
+#pragma unroll
+    for (int c1 = 0; c1 < 8; ++c1) {
+      const int o = (c1 == 0 ? o0 : o1) + 8 * c1;
+      const float tap = tp[8 * c1];
+      ar[c1] = fmaf(tap, ring_r[o], ar[c1]);
+      ai[c1] = fmaf(tap, ring_i[o], ai[c1]);
+    }
+  }
+}
+
+// Freqdem's phase step arg(conj(q)·r) = atan2(qr·ri − qi·rr, qr·rr + qi·ri),
+// in the plain version's order (kernels/channelizer.py::phase_step): each
+// first product rounded, the second added to it in one fused multiply-add.
+__device__ __forceinline__ float phase_step(float qr, float qi, float rr, float ri) {
+  return atan2f(fmaf(-qi, rr, __fmul_rn(qr, ri)), fmaf(qi, ri, __fmul_rn(qr, rr)));
+}
+
+// The one-pass instance. With kFm it is also the FM discriminator: each step's
+// y row goes to its exchange row once the FFT is done, and after a barrier
+// thread (s, j) forms fm[t, k] = phase_step(y[t − 1, k], y[t, k])·ref for its
+// k = j + 8·k2 against the row before it. A tile's step 0 reads the tile
+// before's last row, kept in `carry` (two rows by tile parity, so the tile
+// that writes the next one never races the step that reads this one); a
+// block's first tile reads step t0 − 1 computed again by its first warp
+// before the loop (its arithmetic is that of the block that owns it, so the
+// row is bit for bit the one stored there; the first fetch reaches one row
+// further back for it), or at t0 = 0 the carried last outputs rp_in. The
+// block that owns step T − 1 writes that row as rp_out (complex), and the
+// last block copies the input's last nh samples into the new history.
 // two blocks an SM: ≤ 128 registers
+template <bool kFm>
 __global__ void __launch_bounds__(kThreads, 2)
 channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ xi,  // [T·64]
                         const float* __restrict__ taps,                            // [p, 128]
@@ -199,13 +261,20 @@ channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ 
                         const float* __restrict__ hist_r,
                         const float* __restrict__ hist_i,  // [nh]
                         float* __restrict__ yr, float* __restrict__ yi,  // [T, 64]
-                        int T, int p, int nh, int each) {
+                        int T, int p, int nh, int each,
+                        // kFm only:
+                        const float* __restrict__ rp_in,  // [64] complex: y[−1]
+                        float ref,                        // 1/(2π·kf) in float32
+                        float* __restrict__ fm,           // [T, 64]
+                        float* __restrict__ rp_out,       // [64] complex: y[T − 1]
+                        float* __restrict__ hist_r_out, float* __restrict__ hist_i_out) {  // [nh]
   extern __shared__ __align__(16) float smem[];
   float* ring_r = smem;                      // [kRing][kRowPitch]  X[r] at slot r mod kRing
   float* ring_i = ring_r + kRing * kRowPitch;
   float* z_r = ring_i + kRing * kRowPitch;   // [kTile][kZPitch]  the steps' exchanges
   float* z_i = z_r + kTile * kZPitch;
-  float* s_taps = z_i + kTile * kZPitch;     // [p][64]
+  float* carry = z_i + kTile * kZPitch;      // kFm: [2][2][64]  (re, im) row by tile parity
+  float* s_taps = carry + (kFm ? 4 * kM : 0);  // [p][64]
 
   const int tid = threadIdx.x;
   const int s = tid / kGroup, j = tid % kGroup;
@@ -216,11 +285,34 @@ channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ 
   float twr[8], twi[8];
   twiddles(j, twr, twi);
   const float scale = hr[0];
-  // lane 8·c1 + j's row of tap i: X[t − i − 1], or X[t − i] for lane 0
-  const int lag0 = j == 0 ? 0 : 1;
 
-  fetch(ring_r, ring_i, xr, xi, hist_r, hist_i, nh, k0 * kTile - p, min((k0 + 1) * kTile, T));
+  const int first = k0 * kTile - p - (kFm && k0 > 0 ? 1 : 0);
+  fetch(ring_r, ring_i, xr, xi, hist_r, hist_i, nh, first, min((k0 + 1) * kTile, T));
   cp_async_commit();
+  if constexpr (kFm) {  // y[t0 − 1] into the carry row tile k0 reads
+    float* c = carry + ((k0 + 1) & 1) * 2 * kM;
+    if (k0 == 0) {
+      for (int i = tid; i < kM; i += kThreads) {
+        c[i] = rp_in[2 * i];
+        c[kM + i] = rp_in[2 * i + 1];
+      }
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // the rows and the taps are in
+      if (tid < 32) {   // the whole first warp (fft64's __syncwarp), each group alike
+        float ar[8], ai[8];
+        branch_sums(ring_r, ring_i, s_taps, k0 * kTile - 1, j, p, ar, ai);
+        fft64(ar, ai, twr, twi, z_r + s * kZPitch, z_i + s * kZPitch, j, scale);
+        if (s == 0) {
+#pragma unroll
+          for (int k2 = 0; k2 < 8; ++k2) {
+            c[j + 8 * k2] = ar[k2];
+            c[kM + j + 8 * k2] = ai[k2];
+          }
+        }
+      }
+    }
+  }
   for (int k = k0; k < k1; ++k) {
     const int t0 = k * kTile;
     __syncthreads();  // the last tile is computed: the rows before it may be refilled
@@ -231,25 +323,55 @@ channelizer_fp32_kernel(const float* __restrict__ xr, const float* __restrict__ 
     __syncthreads();     // and everyone's
 
     const int t = t0 + s;
+    float* zr = z_r + s * kZPitch;
+    float* zi = z_i + s * kZPitch;
     float ar[8], ai[8];
+    branch_sums(ring_r, ring_i, s_taps, t, j, p, ar, ai);
+    fft64(ar, ai, twr, twi, zr, zi, j, scale);
+    if (t < T) store_row(ar, ai, yr, yi, (int64_t)t * kM, j);
+    if constexpr (kFm) {
+      __syncwarp();  // the group's reads of its exchange are done: the row takes y[t]
+      float* c = carry + (k & 1) * 2 * kM;
 #pragma unroll
-    for (int c1 = 0; c1 < 8; ++c1) ar[c1] = ai[c1] = 0.0f;
-    for (int i = 0; i < p; ++i) {
-      const int o1 = ((t - i - 1) & (kRing - 1)) * kRowPitch + j;
-      const int o0 = ((t - i - lag0) & (kRing - 1)) * kRowPitch + j;
-      const float* tp = s_taps + i * kM + j;
+      for (int k2 = 0; k2 < 8; ++k2) {
+        zr[j + 8 * k2] = ar[k2];
+        zi[j + 8 * k2] = ai[k2];
+        if (s == kTile - 1) {
+          c[j + 8 * k2] = ar[k2];
+          c[kM + j + 8 * k2] = ai[k2];
+        }
+      }
+      __syncthreads();
+      const float* qr = s ? zr - kZPitch : carry + ((k + 1) & 1) * 2 * kM;  // y[t − 1]
+      const float* qi = s ? zi - kZPitch : qr + kM;
+      if (t < T) {
+        const int64_t at = (int64_t)t * kM + j;
 #pragma unroll
-      for (int c1 = 0; c1 < 8; ++c1) {
-        const int o = (c1 == 0 ? o0 : o1) + 8 * c1;
-        const float tap = tp[8 * c1];
-        ar[c1] = fmaf(tap, ring_r[o], ar[c1]);
-        ai[c1] = fmaf(tap, ring_i[o], ai[c1]);
+        for (int k2 = 0; k2 < 8; ++k2) {
+          const int col = j + 8 * k2;
+          fm[at + 8 * k2] = __fmul_rn(phase_step(qr[col], qi[col], ar[k2], ai[k2]), ref);
+        }
+        if (t == T - 1) {
+#pragma unroll
+          for (int k2 = 0; k2 < 8; ++k2) {
+            rp_out[2 * (j + 8 * k2)] = ar[k2];
+            rp_out[2 * (j + 8 * k2) + 1] = ai[k2];
+          }
+        }
       }
     }
-    fft64_store(ar, ai, twr, twi, z_r + s * kZPitch, z_i + s * kZPitch, j, scale, yr, yi,
-                (int64_t)t * kM, t < T);
   }
   cp_async_wait<0>();
+  if constexpr (kFm) {
+    if (blockIdx.x == gridDim.x - 1) {  // the new history: cat(hist, x)[−nh:]
+      const int64_t n = (int64_t)T * kM;
+      for (int e = tid; e < nh; e += kThreads) {
+        const int64_t g = n - nh + e;
+        hist_r_out[e] = g >= 0 ? xr[g] : hist_r[nh + g];
+        hist_i_out[e] = g >= 0 ? xi[g] : hist_i[nh + g];
+      }
+    }
+  }
 }
 
 // The instance for p > kMaxOnePass, one block per 64 steps: the taps and the
@@ -327,9 +449,39 @@ channelizer_tiled_kernel(const float* __restrict__ xr, const float* __restrict__
       ar[c1] = s_ur[(8 * c1 + j) * kUPitch + s];
       ai[c1] = s_ui[(8 * c1 + j) * kUPitch + s];
     }
-    fft64_store(ar, ai, twr, twi, z_r + (tid / kGroup) * kZPitch, z_i + (tid / kGroup) * kZPitch,
-                j, scale, yr, yi, (int64_t)(t0 + s) * kM, t0 + s < T);
+    fft64(ar, ai, twr, twi, z_r + (tid / kGroup) * kZPitch, z_i + (tid / kGroup) * kZPitch, j,
+          scale);
+    if (t0 + s < T) store_row(ar, ai, yr, yi, (int64_t)(t0 + s) * kM, j);
   }
+}
+
+// The one-pass instance's launch: as many blocks as the card holds at once,
+// or fewer where that gives every block the same number of tiles (the last
+// block may have fewer).
+template <bool kFm>
+int launch_onepass(const float* xr, const float* xi, const float* taps, const float* hr,
+                   const float* hist_r, const float* hist_i, float* yr, float* yi, int T, int p,
+                   int nh, const float* rp_in, float ref, float* fm, float* rp_out,
+                   float* hist_r_out, float* hist_i_out, cudaStream_t st) {
+  const size_t smem = onepass_smem_bytes(p, kFm);
+  // past 48 KB, shared memory is dynamic only and must be allowed first
+  cudaError_t err = cudaFuncSetAttribute(channelizer_fp32_kernel<kFm>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, channelizer_fp32_kernel<kFm>,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (T + kTile - 1) / kTile;
+  const int places = sms * (per_sm > 0 ? per_sm : 1);
+  const int each = (nt + places - 1) / places;
+  channelizer_fp32_kernel<kFm><<<(nt + each - 1) / each, kThreads, smem, st>>>(
+      xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh, each, rp_in, ref, fm, rp_out,
+      hist_r_out, hist_i_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -346,34 +498,32 @@ extern "C" int yagi_channelizer_fp32(const float* xr, const float* xi, const flo
                                      int nh, void* stream) {
   (void)hi;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (p > kMaxOnePass) {
     const size_t smem = tiled_smem_bytes();
     // past 48 KB, shared memory is dynamic only and must be allowed first
-    err = cudaFuncSetAttribute(channelizer_tiled_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        channelizer_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     channelizer_tiled_kernel<<<(T + kSteps - 1) / kSteps, kThreads, smem, st>>>(
         xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh);
     return (int)cudaGetLastError();
   }
-  const size_t smem = onepass_smem_bytes(p);
-  err = cudaFuncSetAttribute(channelizer_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  // the grid: as many blocks as the card holds at once, or fewer where that
-  // gives every block the same number of tiles (the last block may have fewer)
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, channelizer_fp32_kernel, kThreads,
-                                                        smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nt = (T + kTile - 1) / kTile;
-  const int places = sms * (per_sm > 0 ? per_sm : 1);
-  const int each = (nt + places - 1) / places;
-  channelizer_fp32_kernel<<<(nt + each - 1) / each, kThreads, smem, st>>>(
-      xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh, each);
-  return (int)cudaGetLastError();
+  return launch_onepass<false>(xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh, nullptr,
+                               0.0f, nullptr, nullptr, nullptr, nullptr, st);
+}
+
+// The same analysis with the FM discriminator in its epilogue, in one launch:
+// as yagi_channelizer_fp32 (p ≤ 64 only), and besides fm [T, 64] step-major,
+// fm[t, k] = arg(conj(y[t − 1, k])·y[t, k])·ref with y[−1] = rp_in [64]
+// (complex64, interleaved); rp_out [64] (complex64) = y[T − 1]; hist_r_out,
+// hist_i_out [nh] = the last nh samples of the history followed by the block.
+// The outputs alias no input. Returns cudaErrorInvalidValue past 64 taps.
+extern "C" int yagi_channelizer_fm(const float* xr, const float* xi, const float* taps,
+                                   const float* hr, const float* hist_r, const float* hist_i,
+                                   const float* rp_in, float* yr, float* yi, float* fm,
+                                   float* rp_out, float* hist_r_out, float* hist_i_out, int T,
+                                   int p, int nh, float ref, void* stream) {
+  if (p > kMaxOnePass) return (int)cudaErrorInvalidValue;
+  return launch_onepass<true>(xr, xi, taps, hr, hist_r, hist_i, yr, yi, T, p, nh, rp_in, ref, fm,
+                              rp_out, hist_r_out, hist_i_out, static_cast<cudaStream_t>(stream));
 }

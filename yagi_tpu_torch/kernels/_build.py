@@ -44,6 +44,9 @@ _SIGNATURES = {
     "yagi_chain_c64": [_P] * 7 + [_I] * 4 + [_P],
     # xr, xi, taps, hr, hi, hist_r, hist_i, yr, yi, T, p, nh, stream
     "yagi_channelizer_fp32": [_P] * 9 + [_I] * 3 + [_P],
+    # xr, xi, taps, hr, hist_r, hist_i, rp_in, yr, yi, fm, rp_out, hist_r_out,
+    # hist_i_out, T, p, nh, ref, stream
+    "yagi_channelizer_fm": [_P] * 13 + [_I] * 3 + [_F, _P],
     # x, theta0, dtheta, y, n, stream
     "yagi_mix_down": [_P] * 4 + [_I, _P],
     # xs4, n_valid, st_in, locked, radj, pll_a, pll_b, y, valid, st_out,

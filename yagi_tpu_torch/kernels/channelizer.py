@@ -25,6 +25,13 @@ Two implementations of one function, chosen by the device of the input:
   input rows in shared memory; a longer bank (``create_kaiser(m=33)``:
   p = 66) runs its second instance, which walks the taps in tiles of 64,
   for any p ≥ 1.
+
+With ``fm=(r_prime, ref)`` the call is ChannelizerFmRx's whole step: the
+channels, Freqdem's discriminator along the step axis (row 0 against each
+channel's carried last output ``r_prime``) and the new state. Up to 64 taps a
+branch the card runs the kernel's FM instance, one launch that writes all of
+it (counted in the ``channelizer.fm_epilogue`` counter); past that, and on the
+CPU, the channelizer and then :func:`fm_reference`, its plain version.
 """
 
 from __future__ import annotations
@@ -35,12 +42,13 @@ import torch
 from .. import trace
 from ._check import aligned16, check_tensors, route
 
-__all__ = ["branch_outputs", "channelizer_tables", "fused_channelizer_apply",
-           "fused_channelizer_reference", "halo_rows"]
+__all__ = ["branch_outputs", "channelizer_tables", "fm_reference", "fused_channelizer_apply",
+           "fused_channelizer_reference", "halo_rows", "phase_step"]
 
 _LANE = 128
 _M = 64  # channels (the kernel is specialized to M = 64, the config[4] workload)
 _S = _LANE // _M  # analyzer steps per 128-lane row (= 2)
+_MAX_ONE_PASS = 64  # csrc/channelizer.cu kMaxOnePass: taps a branch of the one-pass instance
 
 
 def channelizer_tables(branches: np.ndarray, scale: float):
@@ -127,6 +135,39 @@ def fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int)
     return yr.reshape(t2 * _S, _M), yi.reshape(t2 * _S, _M)
 
 
+def phase_step(pr, pi, rr, ri, out: torch.Tensor) -> torch.Tensor:
+    """``out`` = atan2(pr·ri − pi·rr, pr·rr + pi·ri) = arg(conj(r′)·r),
+    elementwise, from the planes of r′ (pr, pi) and r (rr, ri)."""
+    im = pr * ri
+    im.addcmul_(pi, rr, value=-1.0)
+    re = pr * rr
+    re.addcmul_(pi, ri)
+    return torch.atan2(im, re, out=out)
+
+
+def fm_reference(yr, yi, r_prime, ref: float) -> torch.Tensor:
+    """The FM instance's plain version, after the channelizer: Freqdem's
+    discriminator fm [T, 64] = arg(conj(y[t − 1])·y[t])·ref along the step
+    axis of the planes yr, yi [T, 64], row 0 against ``r_prime`` [64]
+    (complex64), every row by :func:`phase_step`."""
+    fm = torch.empty_like(yr)
+    phase_step(r_prime.real, r_prime.imag, yr[0], yi[0], fm[0])
+    phase_step(yr[:-1], yi[:-1], yr[1:], yi[1:], fm[1:])
+    return fm.mul_(ref)
+
+
+def _two_step_fm(yr, yi, xr, xi, hist_r, hist_i, r_prime, ref: float):
+    """The FM route's outputs from the channels of a launch or the reference,
+    in span ``yagi.chzfm.demod``: :func:`fm_reference`, then the new state as
+    new tensors, y[T − 1] and the history ``cat(hist, x)[−nh:]``."""
+    with trace.span("yagi.chzfm.demod"):
+        fm = fm_reference(yr, yi, r_prime, ref)
+        nh = hist_r.shape[0]
+        hist = [x[-nh:].clone() if x.shape[0] >= nh else torch.cat([h, x])[-nh:]
+                for h, x in ((hist_r, xr), (hist_i, xi))]
+        return yr, yi, fm, torch.complex(yr[-1], yi[-1]), *hist
+
+
 def _check(xr, xi, taps, hr, hi, hist_r, hist_i, p: int, r2: int) -> None:
     if not isinstance(xr, torch.Tensor) or xr.dim() != 1:
         raise ValueError("fused_channelizer_apply: xr must be a 1-d tensor")
@@ -145,7 +186,8 @@ def _check(xr, xi, taps, hr, hi, hist_r, hist_i, p: int, r2: int) -> None:
 
 
 @trace.kernel
-def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2: int = 128):
+def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2: int = 128,
+                            fm=None):
     """Channelize planar stream planes xr/xi [N] (N = T·64, T steps).
 
     taps [p, 128], hr/hi [128, 128] from :func:`channelizer_tables`;
@@ -156,12 +198,26 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
     Returns (yr, yi) shaped [T, 64] (step-major). State advance (caller):
     hist' = x[-halo·128:].
 
-    CPU tensors run :func:`fused_channelizer_reference`; CUDA tensors launch
-    the kernel (counted in ``fused_channelizer_apply.launches``) or raise.
+    With ``fm=(r_prime, ref)`` (r_prime [64] complex64, each channel's last
+    output; ref Freqdem's float32 scale 1/(2π·kf)) it returns ``(yr, yi, fm,
+    r_prime', hist_r', hist_i')``: the discriminator [T, 64] (its plain version
+    :func:`fm_reference`) and the new state, y[T − 1] and the history
+    ``cat(hist, x)[−nh:]``, every tensor new.
+
+    CPU tensors run :func:`fused_channelizer_reference` (then
+    :func:`fm_reference` and the state's copies, in span ``yagi.chzfm.demod``);
+    CUDA tensors launch the kernel (counted in
+    ``fused_channelizer_apply.launches``; the FM instance also in the counter
+    ``channelizer.fm_epilogue``) or raise: past 64 taps a branch the tiled
+    instance, then the same plain steps as the CPU's.
     """
     _check(xr, xi, taps, hr, hi, hist_r, hist_i, p, r2)
+    if fm is not None:
+        check_tensors("fused_channelizer_apply", xr.device,
+                      {"r_prime": (fm[0], (_M,), torch.complex64)})
     if route(xr.device, "fused_channelizer_apply") == "reference":
-        return fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, p=p)
+        yr, yi = fused_channelizer_reference(xr, xi, taps, hr, hi, hist_r, hist_i, p=p)
+        return (yr, yi) if fm is None else _two_step_fm(yr, yi, xr, xi, hist_r, hist_i, *fm)
 
     from ._build import launch
 
@@ -170,12 +226,25 @@ def fused_channelizer_apply(xr, xi, taps, hr, hi, hist_r, hist_i, *, p: int, r2:
     n = xr.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"stream length {n} exceeds the kernel's index range")
-    t = n // _M
+    t, nh = n // _M, hist_r.shape[0]
     yr = torch.empty((t, _M), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    launch(fused_channelizer_apply, xr.device, "yagi_channelizer_fp32",
-           xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-           hist_r.data_ptr(), hist_i.data_ptr(), yr.data_ptr(), yi.data_ptr(), t, p,
-           hist_r.shape[0])
+    if fm is None or p > _MAX_ONE_PASS:
+        launch(fused_channelizer_apply, xr.device, "yagi_channelizer_fp32",
+               xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+               hist_r.data_ptr(), hist_i.data_ptr(), yr.data_ptr(), yi.data_ptr(), t, p, nh)
+        fused_channelizer_apply.launches += 1
+        # the tiled instance has no epilogue
+        return (yr, yi) if fm is None else _two_step_fm(yr, yi, xr, xi, hist_r, hist_i, *fm)
+
+    r_prime, ref = fm
+    out = torch.empty_like(yr)
+    r_new = torch.empty(_M, dtype=torch.complex64, device=xr.device)
+    hr_new, hi_new = torch.empty_like(hist_r), torch.empty_like(hist_i)
+    launch(fused_channelizer_apply, xr.device, "yagi_channelizer_fm",
+           xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), hr.data_ptr(), hist_r.data_ptr(),
+           hist_i.data_ptr(), r_prime.data_ptr(), yr.data_ptr(), yi.data_ptr(), out.data_ptr(),
+           r_new.data_ptr(), hr_new.data_ptr(), hi_new.data_ptr(), t, p, nh, ref)
     fused_channelizer_apply.launches += 1
-    return yr, yi
+    trace.count("channelizer.fm_epilogue")
+    return yr, yi, out, r_new, hr_new, hi_new

@@ -48,6 +48,13 @@ kernel (a lane count, a tile size) is an edited copy of its source in a
 directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
 measurement and, last, one JSON object, which ``--out`` also receives.
+
+Where the package's library has K2's FM instance (``yagi_channelizer_fm``),
+one more case holds it, and v1's where v1 has one, against its plain version
+on that library, K2's plain instance and the torch discriminator
+(``kernels.channelizer.fm_reference``) with the state's copies, at config[4]'s
+block: the channels and the state bit for bit, fm within 1e-6, then all timed
+in turns, plain, v1, v2, v2, v1, plain.
 """
 
 from __future__ import annotations
@@ -73,9 +80,9 @@ from ..kernels.qam import qam_eq_scan_apply
 from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
                                symsync_scan_launch)
 from ..kernels.iir import iir_chunked_apply, iir_scan_apply
-from .paths import (C0, C1, C2, C3, CHAIN, M4, T0, T1, T2, T3, T4, complex_block,
-                    make_channelizer, make_fmstereo, make_fused, make_msresamp, make_qamrx,
-                    make_symsync)
+from .paths import (C0, C1, C2, C3, CHAIN, M4, T0, T1, T2, T3, T4, chzfm_calls,
+                    complex_block, make_channelizer, make_fmstereo, make_fused, make_msresamp,
+                    make_qamrx, make_symsync)
 from .timing import graph_ms
 
 REPS = 10
@@ -103,6 +110,8 @@ SIGNATURES = {
 # m, nst, cx, cc, stream (no instance)
 FIRST_IIR_CHUNKED = [_P] * 7 + [_I] * 6 + [_P]
 TURNS = ("v1", "v2", "v2", "v1")
+FM_CASE = "channelizer fm epilogue config[4]"  # the FM instance against its plain version
+FM_TOL = 1e-6  # |fm − plain|: two float32 ulps of |fm| ≤ 5
 CHAIN_TURNS = ("v1", "v2", "twostage", "twostage", "v2", "v1")
 
 
@@ -329,6 +338,41 @@ def cases(device, only=()):
     ]
 
 
+def fm_epilogue_case(device, libs) -> dict:
+    """K2's FM instance of v2, and of v1 where v1 has one, against its plain
+    version on v2's library (the plain instance, the torch discriminator and
+    the state's copies) at config[4]'s block: the channels and the state bit
+    for bit, fm within FM_TOL; then timed by graph replay in turns, plain,
+    v1, v2, v2, v1, plain."""
+    fused, plain = chzfm_calls(device, T4, 4)
+    versions = [v for v in ("v1", "v2") if serves(libs[v], "yagi_channelizer_fm")]
+    with using(libs["v2"]):
+        want = [p() for p in plain]
+    gaps = {}
+    for v in versions:
+        with using(libs[v]):
+            got = [f() for f in fused]
+        for g, w in zip(got, want):
+            if not all(torch.equal(a, b) for i, (a, b) in enumerate(zip(g, w)) if i != 2):
+                raise SystemExit(f"kernel_ab: {FM_CASE}: {v}'s channels or state differ from "
+                                 "the plain version's")
+        gaps[v] = max(float((g[2] - w[2]).abs().max()) for g, w in zip(got, want))
+        if gaps[v] > FM_TOL:
+            raise SystemExit(f"kernel_ab: {FM_CASE}: {v}'s fm differs from the plain's by "
+                             f"{gaps[v]}")
+    turns = ("plain", *versions, *versions[::-1], "plain")
+    times = []
+    for v in turns:
+        with using(libs["v2" if v == "plain" else v]):
+            times.append(graph_ms((plain if v == "plain" else fused) * 5, reps=REPS))
+    per = {v: [t for o, t in zip(turns, times) if o == v] for v in ("plain", *versions)}
+    print(f"[ab] {FM_CASE} (M={M4}, T={T4}): channels and state bit for bit, largest |fm − "
+          f"plain| {gaps}; ms per call in turns "
+          + ", ".join(f"{o} {t:.4f}" for o, t in zip(turns, times)))
+    return {"shape": f"M={M4}, T={T4}", "fm_gap": gaps, "ms": per,
+            "mean_ms": {v: sum(ts) / len(ts) for v, ts in per.items()}}
+
+
 def serves(lib, entry: str) -> bool:
     """Whether a library has the entry point (for K1: any of its forms)."""
     names = (("yagi_chain_planar", "yagi_chain_fp32", "yagi_chain_twostage")
@@ -427,6 +471,8 @@ def main(argv=None) -> None:
                                  "mean_ms": {v: sum(ts) / len(ts) for v, ts in per.items()}}
         if any(v is False for v in same.values()):
             raise SystemExit(f"kernel_ab: {name}: a version differs from v1: {same}")
+    if (not only or any(w in FM_CASE for w in only)) and serves(libs["v2"], "yagi_channelizer_fm"):
+        result["cases"][FM_CASE] = fm_epilogue_case(device, libs)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

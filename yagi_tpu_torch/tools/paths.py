@@ -18,6 +18,7 @@ from ..design import fir_design_kaiser
 from ..filter import (Dds, Fdelay, FftFilt, FirDecimationFilter, FirInterpolationFilter,
                       MsResamp, OrdFilt, Rresamp, Symsync)
 from ..framing import FrameGen64, frame64_len
+from ..kernels.channelizer import fm_reference, fused_channelizer_apply
 from ..multichannel import FusedChannelizer
 
 # config[0] (bench.py:44-82): 64-tap Kaiser FIR → 2× interpolator → mix-down
@@ -33,6 +34,7 @@ M4, T4 = 64, 1 << 15
 CHZ = dict(num_channels=M4, m=4, as_=60.0, r2=128)
 KF = 0.1
 CHZ_SEED = 1
+T4_CELL = 1 << 18  # the benchmark cell chz64fm.blk16m's block: 2^24 complex samples
 
 # config[1] (bench.py:160-192): MsResamp → Symsync over 1024 channels,
 # blocks of 4096
@@ -127,6 +129,39 @@ def make_channelizer(device, **kw) -> FusedChannelizer:
 def make_chzfm(device) -> ChannelizerFmRx:
     """config[4]'s entry: the channelizer of :data:`CHZ` → the discriminator at :data:`KF`."""
     return ChannelizerFmRx.create(M4, CHZ["m"], CHZ["as_"], KF, device=device)
+
+
+def chzfm_calls(device, t: int, sets: int, seed: int = CHZ_SEED):
+    """config[4]'s step on ``sets`` random input sets of t analyzer steps,
+    from a random history and random last outputs, two ways: K2's FM instance
+    (one call of the wrapper with its FM argument) and its plain version (the
+    plain instance, the torch discriminator ``fm_reference``, the state's
+    copies). Each call returns ``(yr, yi, fm, r_prime', hist_r', hist_i')``;
+    returns the two lists of calls, one call an input set."""
+    rx = make_chzfm(device)
+    chz = rx.chz
+    g = torch.Generator().manual_seed(seed)
+
+    def f32(n: int) -> torch.Tensor:
+        return torch.randn(n, generator=g).to(device)
+
+    nh = chz.hist_r.shape[0]
+    hist = (f32(nh), f32(nh))
+    r_prime = torch.complex(f32(M4), f32(M4))
+    xs = [(f32(M4 * t), f32(M4 * t)) for _ in range(sets)]
+
+    def fused(xr, xi):
+        return fused_channelizer_apply(xr, xi, chz.taps, chz.hr, chz.hi, *hist, p=chz.p,
+                                       r2=chz.r2, fm=(r_prime, rx.ref))
+
+    def plain(xr, xi):
+        yr, yi = fused_channelizer_apply(xr, xi, chz.taps, chz.hr, chz.hi, *hist, p=chz.p,
+                                         r2=chz.r2)
+        fm = fm_reference(yr, yi, r_prime, rx.ref)
+        return (yr, yi, fm, torch.complex(yr[-1], yi[-1]), xr[-nh:].clone(),
+                xi[-nh:].clone())
+
+    return [lambda x=x: fused(*x) for x in xs], [lambda x=x: plain(*x) for x in xs]
 
 
 def make_msresamp(c: int, device) -> MsResamp:

@@ -11,9 +11,9 @@ host ms and self ms of each span) over ``--steps`` more steps with its
 tracing on and no profiler.
 
 * ``0``, config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
-* ``4``, config[4]: ``ChannelizerFmRx.step`` (K2 at M = 64, 2^15 steps,
-  p = 8, then the FM discriminator on its step-major planes), 2^21 complex
-  samples a block, seed 1;
+* ``4``, config[4]: ``ChannelizerFmRx.step`` (K2's FM instance at M = 64,
+  2^15 steps, p = 8: the channels, the FM discriminator and the state in one
+  launch), 2^21 complex samples a block, seed 1;
 * ``1``, config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``,
   1024 channels × 4096 samples (K3); ``1p``, the same with
   ``backend="pallas"``: ``branch_outputs`` builds the all-branch stream and

@@ -26,8 +26,12 @@ Every name starts with ``yagi.``:
   ``yagi.symsync.run`` (``Symsync._run_slots``), ``yagi.qamrx.eq`` (the
   equalizer's arguments and scan) and ``yagi.qamrx.state`` (the new state);
   ``yagi.chzfm.step`` (``ChannelizerFmRx.step``) over ``yagi.chzfm.channelize``
-  (K2 and the history copies), ``yagi.chzfm.demod`` (the discriminator) and
-  ``yagi.chzfm.state`` (the last outputs, the new state);
+  (the one call of ``fused_channelizer_apply`` with its FM argument, whose
+  kernel span holds, on the two-step routes alone, the CPU's and that past
+  64 taps a branch, ``yagi.chzfm.demod``: the plain discriminator and the
+  state's copies after the channelizer; on the card up to 64 taps the FM
+  instance's one launch writes it all) and ``yagi.chzfm.state`` (the new
+  state);
 - kernel wrappers (the ten registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
@@ -42,7 +46,9 @@ Every name starts with ``yagi.``:
 
 Counters count whether tracing is on or off: ``library.builds`` (nvcc runs of
 the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
-hands to the kernel's register instance), and each registered kernel
+hands to the kernel's register instance), ``channelizer.fm_epilogue`` (the
+launches of K2's FM instance, the channelizer with the discriminator in its
+epilogue), and each registered kernel
 wrapper's launches, in its ``launches`` attribute, which :func:`launches`
 reads. A kernel can count on the device too, into a :func:`device_counter`:
 ``qam_eq_scan.rounds`` (the rounds that instance ran, summed over channels).
