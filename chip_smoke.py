@@ -174,8 +174,8 @@ Fifteen phases:
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
-   one eager call at config[2]'s shape, and the config[0], config[4],
-   config[1], config[3] and config[2] steps.
+   one eager call at config[2]'s shape, and the config[1] and config[2]
+   steps.
 
 Prints one line per check, the seconds spent by stretch of phases, a JSON
 line of per-kernel results (with each kernel's bound at its path's shape:
@@ -469,7 +469,6 @@ N_QAM = 8  # main-path blocks
 N_QAM_PLAIN = 2  # of them held against the all-plain chain (~10 s a block)
 QAM_SPLIT = 2000  # where the block-split check cuts a block
 N_QAM_SIG = 3  # blocks of the impaired 16-QAM signal
-N_QAM_STEPS = 20  # eager steps timed
 # the impaired channel of tests/test_qamrx.py:69-88, and its pass marks
 QAM_GAIN, QAM_PHASE, QAM_CFO, QAM_NOISE = 0.5, 0.3, 1e-4, 0.002
 QAM_ECHO, QAM_ECHO_DELAY = 0.1 * np.exp(1j * 1.1), 3
@@ -878,23 +877,6 @@ def phase_timing(device, card: str) -> dict:
           f"complex64 {c_ms:.4f} ({c1:.4f}, {c2:.4f}); fused_chain_reference {p_ms:.4f} ms/step "
           f"({p1:.4f}, {p2:.4f}), on complex64 views {pc_ms:.4f}; device time from graph "
           f"replay at [{C}, {T}] P={p}. Eager kernel calls: {k_eager:.4f} ms/call")
-
-    blocks = [complex_block(rng, (C, T), device) for _ in range(N_ROT)]
-
-    def chain_msps(chain, iters: int) -> float:
-        state = [chain, 0]
-
-        def step():
-            _, _, state[0] = state[0].step(blocks[state[1] % N_ROT])
-            state[1] += 1
-
-        return C * T / (cuda_ms(step, iters) * 1e-3) / 1e6
-
-    rx = RxChain.create(**CHAIN, mix_freq=MIX_FREQ, batch_shape=(C,), device=device)
-    f_msps = chain_msps(make_fused(C, device), 200)
-    r_msps = chain_msps(rx, 20)
-    print(f"[timing] {card}: FusedRxChain.step {f_msps:.1f} Msps, RxChain.step "
-          f"{r_msps:.1f} Msps (input complex Msamples/s, eager steps of [{C}, {T}] blocks)")
     return {"chain_fp32": (k_ms, p_ms), "chain_c64": (c_ms, pc_ms)}
 
 
@@ -1057,8 +1039,8 @@ def phase_mix_path(device) -> int:
 
 
 def phase_timing_config4(device, card: str) -> tuple[float, float]:
-    """config[4]: K2 and its plain version by graph replay, then the eager
-    channelize → FM step; returns (kernel ms, plain ms)."""
+    """config[4]: K2 and its plain version by graph replay; returns (kernel
+    ms, plain ms)."""
     rng = np.random.default_rng(SEED + 14)
     fz = FusedChannelizer.create_kaiser(**CHZ, device=device)
     n, nh = T4 * M4, fz.hist_r.shape[0]
@@ -1074,29 +1056,6 @@ def phase_timing_config4(device, card: str) -> tuple[float, float]:
           f"fused_channelizer_reference {p_ms:.4f} ms/block ({p1:.4f}, {p2:.4f}); device "
           f"time from graph replay at T={T4}, M={M4}, p={fz.p}. Eager kernel calls: "
           f"{k_eager:.4f} ms/call")
-
-    cplx = [torch.complex(a[0], a[1]) for a in sets]
-
-    def step_msps(chz, iters: int, complex_in: bool) -> float:
-        state = [chz, Freqdem.create(KF, batch_shape=(M4,), device=device), 0]
-
-        def step():
-            i = state[2] % N_ROT
-            if complex_in:
-                y, state[0] = state[0].analyzer_execute(cplx[i])
-            else:
-                yr, yi, state[0] = state[0].analyzer_execute_planar(sets[i][0], sets[i][1])
-                y = torch.complex(yr, yi).T
-            _, state[1] = state[1].demodulate(y)
-            state[2] += 1
-
-        return n / (cuda_ms(step, iters) * 1e-3) / 1e6
-
-    f_msps = step_msps(FusedChannelizer.create_kaiser(**CHZ, device=device), 100, False)
-    r_msps = step_msps(Firpfbch.create_kaiser(M4, CHZ["m"], CHZ["as_"], device=device), 20, True)
-    print(f"[timing] {card}: config[4] step FusedChannelizer -> Freqdem {f_msps:.1f} Msps, "
-          f"Firpfbch -> Freqdem {r_msps:.1f} Msps (input complex Msamples/s, eager steps of "
-          f"{n}-sample blocks)")
     return k_ms, p_ms
 
 
@@ -1787,9 +1746,8 @@ def phase_signal_config3(device) -> None:
 
 def phase_timing_config3(device, card: str, plain_ms: dict) -> dict:
     """agc_scan, qam_eq_scan and K3 (k_out = 2) by graph replay at config[3]'s
-    shape, and the config[3] step, kernels against the all-plain chain;
-    returns {name: (kernel ms, plain ms)}, the plain versions' times from
-    their checks (``plain_ms``)."""
+    shape; returns {name: (kernel ms, plain ms)}, the plain versions' times
+    from their checks (``plain_ms``)."""
     rng = np.random.default_rng(SEED + 31)
     rx = make_qamrx(C3, device)
     ss = rx.symsync
@@ -1817,28 +1775,6 @@ def phase_timing_config3(device, card: str, plain_ms: dict) -> dict:
           f"{plain_ms['qam_eq_scan']:.2f} ms/block; agc_scan {(agc_1 + agc_2) / 2:.4f} ms/block "
           f"({agc_1:.4f}, {agc_2:.4f}), agc_scan_reference {plain_ms['agc_scan']:.2f} ms/block. "
           f"Kernels by graph replay, plain versions by one eager call")
-
-    rng = np.random.default_rng(QAM_SEED)
-    blocks = [complex_block(rng, (C3, T3), device) for _ in range(N_ROT)]
-
-    def step_msps(iters: int, warmup: int, plain: bool) -> float:
-        state = [make_qamrx(C3, device), 0]
-
-        def step():
-            x = blocks[state[1] % N_ROT]
-            if plain:
-                state[0] = state[0]._step_masked(x, plain=True)[3]
-            else:
-                state[0] = state[0].step_masked(x)[3]
-            state[1] += 1
-
-        return C3 * T3 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
-
-    f_msps = step_msps(N_QAM_STEPS, 3, False)
-    p_msps = step_msps(1, 0, True)
-    print(f"[timing] {card}: config[3] step QamRx.step_masked {f_msps:.1f} Msps ({N_QAM_STEPS} "
-          f"eager steps over {N_ROT} blocks), all-plain chain {p_msps:.4f} Msps (1 eager step) "
-          f"(input complex Msamples/s, [{C3}, {T3}] blocks)")
     return {"agc_scan": ((agc_1 + agc_2) / 2, plain_ms["agc_scan"]),
             "qam_eq_scan": ((eq_1 + eq_2) / 2, plain_ms["qam_eq_scan"])}
 

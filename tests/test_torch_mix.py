@@ -22,6 +22,7 @@ from yagi_tpu.nco import Osc as JOsc
 from yagi_tpu_torch.kernels import _build
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference
 from yagi_tpu_torch.nco import Osc
+from yagi_tpu_torch.tools import kernel_ab
 
 torch.set_num_threads(1)
 
@@ -109,9 +110,15 @@ def test_kernel_sources_are_plain_c(name):
         assert entry in _build._SIGNATURES
 
 
-def test_every_bound_entry_point_has_a_source():
-    text = "".join((_build._CSRC / name).read_text() for name in _SOURCES)
-    for entry in _build._SIGNATURES:
+@pytest.mark.parametrize("signatures, dirs", [
+    (_build._SIGNATURES, (_build._CSRC,)),
+    (kernel_ab.SIGNATURES, (_build._CSRC, kernel_ab.VARIANTS)),
+], ids=["package", "kernel_ab"])
+def test_every_bound_entry_point_has_a_source(signatures, dirs):
+    """Every entry point a binding declares is defined in its sources: the
+    A/B tool binds no interface that no source has any more."""
+    text = "".join(src.read_text() for d in dirs for src in sorted(d.glob("*.cu")))
+    for entry in signatures:
         assert f'extern "C" int {entry}(' in text
     assert sorted(p.name for p in _build._CSRC.glob("*.cu")) == sorted(_SOURCES)
 

@@ -916,20 +916,3 @@ extern "C" int yagi_qam_eq_scan_counted(
   }
   return (int)err;
 }
-
-// The same, counting no rounds.
-extern "C" int yagi_qam_eq_scan(const void* y, const uint8_t* valid, const void* table,
-                                const float* mu, const float* alpha, const float* beta,
-                                const void* w, const void* buf, const float* x2,
-                                const float* x2s, const int32_t* cnt, const float* theta,
-                                const float* dtheta, const int32_t* sph, const float* eacc,
-                                const float* ecnt, int64_t* syms, void* soft, uint8_t* mask,
-                                void* w_out, void* buf_out, float* x2_out, float* x2s_out,
-                                int32_t* cnt_out, float* theta_out, float* dtheta_out,
-                                int32_t* sph_out, float* eacc_out, float* ecnt_out, int C, int S,
-                                int M, int h_len, int k_eq, void* stream) {
-  return yagi_qam_eq_scan_counted(y, valid, table, mu, alpha, beta, w, buf, x2, x2s, cnt, theta,
-                                  dtheta, sph, eacc, ecnt, syms, soft, mask, w_out, buf_out,
-                                  x2_out, x2s_out, cnt_out, theta_out, dtheta_out, sph_out,
-                                  eacc_out, ecnt_out, C, S, M, h_len, k_eq, nullptr, stream);
-}

@@ -61,9 +61,8 @@ _SIGNATURES = {
     # mode_out, timer_out, C, n, timeout, stream
     "yagi_agc_scan": [_P] * 14 + [_I] * 3 + [_P],
     # y, valid, table, mu, alpha, beta, the 10 state arrays, syms, soft,
-    # mask, the 10 new state arrays, C, S, M, h_len, k_eq, stream
-    "yagi_qam_eq_scan": [_P] * 29 + [_I] * 5 + [_P],
-    # the same, then the device int64 the kernel adds its rounds to
+    # mask, the 10 new state arrays, C, S, M, h_len, k_eq, the device int64
+    # the kernel adds its rounds to, stream
     "yagi_qam_eq_scan_counted": [_P] * 29 + [_I] * 5 + [_P, _P],
     # x, b, a, scale, v_in, y, v_out, scratch, C, T, m, sos, cx, cc, inst, stream
     "yagi_iir_scan": [_P] * 8 + [_I] * 7 + [_P],

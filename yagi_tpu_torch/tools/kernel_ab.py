@@ -36,14 +36,9 @@ within 1e-4 of |a| + 1e-3 for K1, within 1e-4 of the block's rms for K2
 (whose outputs, rms ~11, come within 0.01 of 0, where the per-sample
 criterion reads ~1e-3 with no fault), and within max |a − b| / max |b| of
 2e-5 (TF) or 1e-4 (SOS) for ``iir_chunked`` (another summation order), then
-each is timed by CUDA-graph replay in turns, v1, v2, v2, v1. A v1 library
-with the first ``chain.cu``'s entry point (banded taps, no complex64
-layout) is called through it, its complex64 case as split, kernel, join;
-one without K4's staged entry point runs K4's direct instance; the first
-``iir.cu`` (no instance argument to ``yagi_iir_chunked``, no order-specialised
-``iir_scan`` instances) is called through its own signatures; a ``qam.cu``
-without the round counter (``yagi_qam_eq_scan_counted``) through
-``yagi_qam_eq_scan``, the counter left out. Another variant of a
+each is timed by CUDA-graph replay in turns, v1, v2, v2, v1. v1's sources
+share the package's C interface (``kernels/_build.py``'s signatures), since
+every version runs through the package's kernel wrappers. Another variant of a
 kernel (a lane count, a tile size) is an edited copy of its source in a
 directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
@@ -77,8 +72,7 @@ from ..kernels.agc import agc_scan_apply
 from ..kernels.chain import fused_chain_apply, fused_chain_apply_c64
 from ..kernels.channelizer import fused_channelizer_apply
 from ..kernels.qam import qam_eq_scan_apply
-from ..kernels.symscan import (branch_outputs, symsync_fused_apply, symsync_scan_apply,
-                               symsync_scan_launch)
+from ..kernels.symscan import branch_outputs, symsync_fused_apply, symsync_scan_apply
 from ..kernels.iir import iir_chunked_apply, iir_scan_apply
 from .paths import (C0, C1, C2, C3, CHAIN, M4, T0, T1, T2, T3, T4, chzfm_calls,
                     complex_block, make_channelizer, make_fmstereo, make_fused, make_msresamp,
@@ -96,19 +90,12 @@ GATE_BANK = dict(k=4, m=22, beta=0.3, num_filters=64)  # L = 176: past K3's shar
 GATE_SHAPE = (1024, 1024)  # (C, n) of K4's case at that bank: 1.07 GB of stream
 VARIANTS = Path(__file__).resolve().parent / "variants"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of other sources than the package's, beside its own:
+# the package's C entry points and, beside them, variants/chain_twostage.cu's:
 SIGNATURES = {
     **_build._SIGNATURES,
-    # the first chain.cu (banded g, P in {1, 2, 4, 8}):
-    # xr, xi, g, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, stream
-    "yagi_chain_fp32": [_P] * 9 + [_I] * 3 + [_P],
-    # variants/chain_twostage.cu:
     # xr, xi, h, br, hist_r, hist_i, theta0, dtheta, yr, yi, C, T, P, n_taps, L, stream
     "yagi_chain_twostage": [_P] * 10 + [_I] * 5 + [_P],
 }
-# the first iir.cu's yagi_iir_chunked: x, b, a, scale, v_in, y, v_out, C, T,
-# m, nst, cx, cc, stream (no instance)
-FIRST_IIR_CHUNKED = [_P] * 7 + [_I] * 6 + [_P]
 TURNS = ("v1", "v2", "v2", "v1")
 FM_CASE = "channelizer fm epilogue config[4]"  # the FM instance against its plain version
 FM_TOL = 1e-6  # |fm − plain|: two float32 ulps of |fm| ≤ 5
@@ -138,8 +125,8 @@ def flat(out) -> list:
 
 def chain_calls(device, rng):
     """K1's calls at config[0]. Each looks at the library the wrappers point
-    at: the package's entry points go through the wrappers, the first
-    ``chain.cu``'s and the two-stage variant's through ctypes."""
+    at: the package's entry points go through the wrappers, the two-stage
+    variant's through ctypes."""
     chain = make_fused(C0, device)
     p = chain.p
     h_fir, branches = FusedRxChain.design_filters(CHAIN["n_taps"], CHAIN["fc"], CHAIN["as_"],
@@ -151,35 +138,26 @@ def chain_calls(device, rng):
     h, br = torch.from_numpy(h).to(device), torch.from_numpy(br).to(device)
     theta0 = torch.tensor(0x9E3779B9, dtype=torch.int64, device=device)
 
-    def raw(entry, x0, x1, hr, hi, *extra):
-        """A launch through a C entry point that has no wrapper."""
-        C, T = x0.shape
+    def planar(xr, xi, hr, hi):
+        lib = _build.library()
+        if not hasattr(lib, "yagi_chain_twostage"):
+            return fused_chain_apply(xr, xi, chain.g, hr, hi, theta0, chain.d_theta, p=p,
+                                     taps=chain.taps)
+        C, T = xr.shape  # the two-stage variant has no wrapper
         yr = torch.empty((C, T * p), dtype=torch.float32, device=device)
         yi = torch.empty_like(yr)
         stream = torch.cuda.current_stream(device).cuda_stream
-        taps = (h.data_ptr(), br.data_ptr()) if extra else (chain.g.data_ptr(),)
-        rc = entry(x0.data_ptr(), x1.data_ptr(), *taps, hr.data_ptr(), hi.data_ptr(),
-                   theta0.data_ptr(), chain.d_theta.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                   C, T, p, *extra, stream)
+        rc = lib.yagi_chain_twostage(
+            xr.data_ptr(), xi.data_ptr(), h.data_ptr(), br.data_ptr(), hr.data_ptr(),
+            hi.data_ptr(), theta0.data_ptr(), chain.d_theta.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), C, T, p, CHAIN["n_taps"], branches.shape[1], stream)
         if rc != 0:
             raise RuntimeError(f"chain variant launch failed with CUDA error {rc}")
         return yr, yi
 
-    def planar(xr, xi, hr, hi):
-        lib = _build.library()
-        if hasattr(lib, "yagi_chain_twostage"):
-            return raw(lib.yagi_chain_twostage, xr, xi, hr, hi, CHAIN["n_taps"],
-                       branches.shape[1])
-        if hasattr(lib, "yagi_chain_planar"):
-            return fused_chain_apply(xr, xi, chain.g, hr, hi, theta0, chain.d_theta, p=p,
-                                     taps=chain.taps)
-        return raw(lib.yagi_chain_fp32, xr, xi, hr, hi)
-
     def c64(x, hr, hi):
-        if hasattr(_build.library(), "yagi_chain_c64"):
-            return fused_chain_apply_c64(x, chain.g, hr, hi, theta0, chain.d_theta, p=p,
-                                         taps=chain.taps)
-        return torch.complex(*planar(x.real.contiguous(), x.imag.contiguous(), hr, hi))
+        return fused_chain_apply_c64(x, chain.g, hr, hi, theta0, chain.d_theta, p=p,
+                                     taps=chain.taps)
 
     def f32(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
@@ -205,53 +183,12 @@ def channelizer_calls(device, rng):
 
 def scan_calls(ss, c: int, n: int, n_valid, device, rng):
     """K4's calls on two streams from branch_outputs of random input through
-    bank ``ss``: the wrapper (the staged instance) where the library has it,
-    else the direct instance, K4's first version."""
+    bank ``ss``."""
     L = ss.mf.shape[1]
     kw = dict(E=2, **ss.kernel_args())
     loop = [kw.pop(k) for k in ("state", "locked", "radj", "pll_a", "pll_b")]
     xs4 = [branch_outputs(complex_block(rng, (c, n + L), device), ss.taps()) for _ in range(2)]
-
-    def call(x):
-        if hasattr(_build.library(), "yagi_symsync_scan_staged"):
-            return symsync_scan_apply(x, n_valid, *loop, **kw)
-        return symsync_scan_launch(x, n_valid, *loop, **kw, layout=None)
-
-    return [lambda x=x: call(x) for x in xs4]
-
-
-def first_iir_abi(csrc: Path) -> bool:
-    """Whether ``csrc``'s ``iir.cu`` is the first one: its chunked entry point
-    takes no instance, and its scan numbers only its register (0), shared (1)
-    and device-memory (2) instances."""
-    src = csrc / "iir.cu"
-    return src.exists() and "int nst, int cx, int cc, void* stream" in src.read_text()
-
-
-FIRST_IIR_LIBS: set = set()  # the paths of libraries built from the first iir.cu
-
-
-def iir_launch(x, b, a, scale, v, *, sos: bool, chunked: bool):
-    """One IIR launch on the library the wrappers point at: through the
-    wrapper, or, for the first ``iir.cu``, through its own entry points (the
-    cases' states fit its register instance, 0)."""
-    lib = _build.library()
-    if lib._name not in FIRST_IIR_LIBS:
-        return (iir_chunked_apply if chunked else iir_scan_apply)(x, b, a, scale, v, sos=sos)
-    C, T = x.shape
-    m = b.shape[0] if sos else b.shape[0] - 1
-    y, v_new = torch.empty_like(x), torch.empty_like(v)
-    ptrs = [t.data_ptr() for t in (x, b, a, scale, v, y, v_new)]
-    cx, cc = int(x.is_complex()), int(b.is_complex())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if chunked:
-        order, nst = (2, m) if sos else (m, 1)
-        rc = lib.yagi_iir_chunked(*ptrs, C, T, order, nst, cx, cc, stream)
-    else:
-        rc = lib.yagi_iir_scan(*ptrs, y.data_ptr(), C, T, m, int(sos), cx, cc, 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"first iir.cu launch failed with CUDA error {rc}")
-    return y, v_new
+    return [lambda x=x: symsync_scan_apply(x, n_valid, *loop, **kw) for x in xs4]
 
 
 def iir_cases(device, rng) -> list:
@@ -271,11 +208,10 @@ def iir_cases(device, rng) -> list:
         v_shape = (C2, bw.nsos, 2) if sos else (C2, 1)
         sets = [(f32((C2, T2)), f.b, f.a, f.scale, 0.5 * f32(v_shape)) for _ in range(N_ROT)]
         note = (f"C={C2}, T={T2}, float32, " + (f"SOS {bw.nsos} sections" if sos else "TF order 1"))
-        for chunked, name, entry in ((True, "iir_chunked", "yagi_iir_chunked"),
-                                     (False, "iir_scan", "yagi_iir_scan")):
-            calls = [lambda s=s, c=chunked, q=sos: iir_launch(*s, sos=q, chunked=c)
-                     for s in sets] * 5
-            out.append((f"{name} {tag}", entry, calls, note, tol if chunked else None, TURNS))
+        for apply, name, entry, t in ((iir_chunked_apply, "iir_chunked", "yagi_iir_chunked", tol),
+                                      (iir_scan_apply, "iir_scan", "yagi_iir_scan", None)):
+            calls = [lambda s=s, f=apply, q=sos: f(*s, sos=q) for s in sets] * 5
+            out.append((f"{name} {tag}", entry, calls, note, t, TURNS))
     return out
 
 
@@ -328,12 +264,12 @@ def cases(device, only=()):
          f"C={C1}, n={n1}, n_valid={n1 - 11}, L={L}, E=2, k_out=1", None, TURNS),
         ("symsync_fused config[3]", "yagi_symsync_fused", k3_3,
          f"C={C3}, n={T3}, L={L}, E=2, k_out=2", None, TURNS),
-        ("qam_eq_scan config[3]", "yagi_qam_eq_scan", eq,
+        ("qam_eq_scan config[3]", "yagi_qam_eq_scan_counted", eq,
          f"C={C3}, S={2 * T3}, M={eq_args[0].shape[0]}, h_len={rx.eq.h_len}", None, TURNS),
         ("agc_scan config[3]", "yagi_agc_scan", agc, f"C={C3}, n={T3}, squelch disabled", None,
          TURNS),
         ("chain planar config[0]", "yagi_chain_", planar, chain_note, CHAIN_TOL, CHAIN_TURNS),
-        ("chain complex64 config[0]", "yagi_chain_", c64, chain_note, CHAIN_TOL, TURNS),
+        ("chain complex64 config[0]", "yagi_chain_c64", c64, chain_note, CHAIN_TOL, TURNS),
         *iir,
     ]
 
@@ -375,7 +311,7 @@ def fm_epilogue_case(device, libs) -> dict:
 
 def serves(lib, entry: str) -> bool:
     """Whether a library has the entry point (for K1: any of its forms)."""
-    names = (("yagi_chain_planar", "yagi_chain_fp32", "yagi_chain_twostage")
+    names = (("yagi_chain_planar", "yagi_chain_twostage")
              if entry == "yagi_chain_" else (entry,))
     return any(hasattr(lib, n) for n in names)
 
@@ -433,14 +369,6 @@ def main(argv=None) -> None:
         for ln in build_log_lines(log):
             print(f"[ab] {name} build: {ln}")
     libs = {name: _build.bind(path, SIGNATURES) for name, (path, _) in builds.items()}
-    if first_iir_abi(Path(args.v1)):
-        libs["v1"] = _build.bind(builds["v1"][0],
-                                 {**SIGNATURES, "yagi_iir_chunked": FIRST_IIR_CHUNKED})
-        FIRST_IIR_LIBS.add(libs["v1"]._name)
-    for lib in libs.values():
-        if hasattr(lib, "yagi_qam_eq_scan") and not hasattr(lib, "yagi_qam_eq_scan_counted"):
-            lib.yagi_qam_eq_scan_counted = (  # args: ..., rounds, stream
-                lambda *a, f=lib.yagi_qam_eq_scan: f(*a[:-2], a[-1]))
 
     result = {"card": card, "cases": {}}
     only = [w for w in args.only.split(",") if w]

@@ -60,8 +60,8 @@ The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
 
 It imports the port by absolute name, so it also times another checkout of
-the package that has ``tools/paths.py``, as run from that checkout's
-root::
+the package whose ``tools/paths.py`` has the same names, as run from that
+checkout's root::
 
     python -m yagi_tpu_torch.tools.step_profile
     (cd <other checkout> && PYTHONPATH=$PWD python <this file>)
@@ -100,16 +100,8 @@ def blocks(c: int, n: int, device) -> list[torch.Tensor]:
 
 
 def config0(device):
-    c0, t0 = getattr(paths, "C0", 16), getattr(paths, "T0", 1 << 17)
-    xs = blocks(c0, t0, device)
-    if hasattr(paths, "make_fused"):
-        chain = paths.make_fused(c0, device)
-    else:  # another checkout, whose tools/paths.py has no config[0] yet
-        from yagi_tpu_torch.chains import FusedRxChain
-
-        chain = FusedRxChain.create(n_taps=64, fc=0.2, as_=60.0, rate=2.0, mix_freq=0.35,
-                                    batch_shape=(c0,), device=device)
-    state = [chain, 0]
+    xs = blocks(paths.C0, paths.T0, device)
+    state = [paths.make_fused(paths.C0, device), 0]
 
     def step():
         state[0] = state[0].step(xs[state[1] % 4])[2]
@@ -119,10 +111,9 @@ def config0(device):
 
 
 def config4(device):
-    m4, t4, seed = (getattr(paths, k, d) for k, d in (("M4", 64), ("T4", 1 << 15),
-                                                       ("CHZ_SEED", 1)))
-    rng = np.random.default_rng(seed)
-    xs = [tuple(torch.from_numpy(rng.standard_normal(m4 * t4, dtype=np.float32)).to(device)
+    rng = np.random.default_rng(paths.CHZ_SEED)
+    n = paths.M4 * paths.T4
+    xs = [tuple(torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(device)
                 for _ in range(2)) for _ in range(4)]
     state = [paths.make_chzfm(device), 0]
 
