@@ -176,8 +176,8 @@ Fifteen phases:
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
    version) in turns with its staged one, the plain iir_scan_reference by
-   one eager call at config[2]'s shape, and the config[1] and config[2]
-   steps.
+   one eager call at config[2]'s shape, and the config[2] step (the
+   benchmark's cells time the config[0], [1], [3] and [4] entries).
 
 Prints one line per check, the seconds spent by stretch of phases, a JSON
 line of per-kernel results (with each kernel's bound at its path's shape:
@@ -1330,8 +1330,8 @@ def phase_main_path_config1(device) -> tuple[int, int, float]:
 
 
 def phase_timing_config1(device, card: str) -> dict:
-    """K3 and K4 by graph replay, their plain versions by eager calls, and
-    the config[1] step; returns {name: (kernel ms, plain ms)}."""
+    """K3 and K4 by graph replay and their plain versions by eager calls at
+    config[1]'s shape; returns {name: (kernel ms, plain ms)}."""
     rng = np.random.default_rng(SEED + 22)
     ms = make_msresamp(C1, device)
     n1 = ms.out_capacity(T1)
@@ -1362,24 +1362,6 @@ def phase_timing_config1(device, card: str) -> dict:
           f"{k4_2:.4f}) in layout (chans, w, bytes) {scan_layout(ss.npfb, 2)}, its direct "
           f"instance {(d_1 + d_2) / 2:.4f} ({d_1:.4f}, {d_2:.4f}), graph replay in turns; "
           f"symsync_scan_reference {p4:.2f} ms/block, eager (2 calls after one)")
-
-    blocks = [complex_block(rng, (C1, T1), device) for _ in range(N_ROT)]
-
-    def step_msps(iters: int, warmup: int, backend: str) -> float:
-        state = [ms, ss, 0]
-
-        def step():
-            y, cnt, state[0] = state[0].execute_block(blocks[state[2] % N_ROT])
-            _, _, state[1] = state[1].execute_slots(y, n_valid=cnt, backend=backend)
-            state[2] += 1
-
-        return C1 * T1 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
-
-    f_msps = step_msps(20, 3, "auto")
-    p_msps = step_msps(2, 1, "xla")
-    print(f"[timing] {card}: config[1] step MsResamp -> Symsync {f_msps:.1f} Msps (K3, 20 eager "
-          f"steps), {p_msps:.2f} Msps (XLA-form scan, 2 eager steps) (input complex "
-          f"Msamples/s, [{C1}, {T1}] blocks)")
     return {"symsync_fused": ((k3_1 + k3_2) / 2, p3),
             "symsync_scan": ((k4_1 + k4_2) / 2, p4, (d_1 + d_2) / 2)}
 

@@ -5,3 +5,4 @@ from .fused import FusedRxChain  # noqa: F401
 from .qam import QamRx  # noqa: F401
 from .fm import FmStereoRx  # noqa: F401
 from .chzfm import ChannelizerFmRx  # noqa: F401
+from .symrx import ResampSymsyncRx  # noqa: F401

@@ -34,7 +34,7 @@ from .._src.device import resolve_device
 from .._src.struct import U32
 from .._src.window import carry
 from ..errors import ConfigError
-from .. import design
+from .. import design, trace
 from ..math.special import nextpow2
 from ..nco.osc import _rotate_down
 from ._farrow_resamp import farrow_resample_values
@@ -289,8 +289,17 @@ class Resamp:
         num_output, new_phase)."""
         consumed = n if consumed is None else consumed
         n_m, branch, _, valid, num_output, new_phase = self._schedule(out_capacity, consumed)
-        y = branch_dots(xa, self.branches, n_m.clamp(0, n - 1), branch)  # frame m = xa[s : s+L]
-        return y, valid, num_output, new_phase
+        return self._gather_dots(xa, n_m.clamp(0, n - 1), branch), valid, num_output, new_phase
+
+    def _gather_dots(self, xa, starts, branch):
+        """The u32 schedule's outputs by :func:`branch_dots` (frame m =
+        xa[..., s_m : s_m + L]), counted whether tracing is on or off, on the
+        host: ``resamp.calls`` and ``resamp.frame_bytes``, the bytes of the
+        frames [..., cap, L] the gather writes to device memory."""
+        trace.count("resamp.calls")
+        trace.count("resamp.frame_bytes",
+                    math.prod(xa.shape[:-1]) * starts.shape[0] * self.sub_len * xa.element_size())
+        return branch_dots(xa, self.branches, starts, branch)
 
     def _empty(self, x, out_capacity: int):
         """An empty block's result: out_capacity zeros and a count of 0."""
@@ -326,7 +335,7 @@ class Resamp:
             y = farrow_resample_values(xa, self.branches, self.step_cert, n, n_m, branch, lo,
                                        valid, band=round(min(0.42, 1.4 * self.fc), 3))
         else:
-            y = branch_dots(xa, self.branches, n_m.clamp(0, n - 1), branch)
+            y = self._gather_dots(xa, n_m.clamp(0, n - 1), branch)
             y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
         return y, num_output, self.replace(
             phase=new_phase,

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from ..chains import ChannelizerFmRx, FmStereoRx, FusedRxChain, QamRx
+from ..chains import ChannelizerFmRx, FmStereoRx, FusedRxChain, QamRx, ResampSymsyncRx
 from ..channel import Channel
 from ..design import fir_design_kaiser
 from ..filter import (Dds, Fdelay, FftFilt, FirDecimationFilter, FirInterpolationFilter,
@@ -170,6 +170,12 @@ def make_msresamp(c: int, device) -> MsResamp:
 
 def make_symsync(c: int, device) -> Symsync:
     return Symsync.create_rnyquist(**SYM, batch_shape=(c,), device=device).set_lf_bw(LF_BW)
+
+
+def make_symrx(c: int, device) -> ResampSymsyncRx:
+    """config[1]'s entry: the resampler at :data:`MS_RATE` → the synchronizer of
+    :data:`SYM` at :data:`LF_BW`, 1 sample a symbol."""
+    return ResampSymsyncRx.create(c, rate=MS_RATE, **SYM, lf_bw=LF_BW, device=device)
 
 
 def make_qamrx(c: int, device) -> QamRx:

@@ -14,8 +14,9 @@ tracing on and no profiler.
 * ``4``, config[4]: ``ChannelizerFmRx.step`` (K2's FM instance at M = 64,
   2^15 steps, p = 8: the channels, the FM discriminator and the state in one
   launch), 2^21 complex samples a block, seed 1;
-* ``1``, config[1]: ``MsResamp`` (rate 2/2.0663) → ``Symsync.execute_slots``,
-  1024 channels × 4096 samples (K3); ``1p``, the same with
+* ``1``, config[1]: ``ResampSymsyncRx.step`` (``MsResamp`` at rate
+  2/2.0663 → ``Symsync.execute_slots`` at k_out = 1, K3), 1024 channels ×
+  4096 samples; ``1p``, the two objects chained by hand with
   ``backend="pallas"``: ``branch_outputs`` builds the all-branch stream and
   K4 runs the loop on it;
 * ``3``, config[3]: ``QamRx.step_masked``, 2048 channels × 4096 samples;
@@ -157,13 +158,24 @@ def config4_stream(device, sharded: bool):
     return step
 
 
-def config1(device, backend: str = "auto"):
+def config1(device):
+    xs = blocks(C1, T1, device)
+    state = [paths.make_symrx(C1, device), 0]
+
+    def step():
+        state[0] = state[0].step(xs[state[1] % 4])[2]
+        state[1] += 1
+
+    return step
+
+
+def config1_pallas(device):
     xs = blocks(C1, T1, device)
     state = [make_msresamp(C1, device), make_symsync(C1, device), 0]
 
     def step():
         y, cnt, state[0] = state[0].execute_block(xs[state[2] % 4])
-        _, _, state[1] = state[1].execute_slots(y, n_valid=cnt, backend=backend)
+        _, _, state[1] = state[1].execute_slots(y, n_valid=cnt, backend="pallas")
         state[2] += 1
 
     return step
@@ -356,9 +368,9 @@ def main(argv=None) -> None:
     runs = {
         "0": ("config[0] FusedRxChain.step", lambda: config0(device), 10 * args.steps),
         "4": ("config[4] ChannelizerFmRx.step", lambda: config4(device), 10 * args.steps),
-        "1": ("config[1] MsResamp -> Symsync", lambda: config1(device), args.steps),
+        "1": ("config[1] ResampSymsyncRx.step", lambda: config1(device), args.steps),
         "1p": ("config[1] MsResamp -> Symsync(backend='pallas')",
-               lambda: config1(device, "pallas"), max(2, args.steps // 4)),
+               lambda: config1_pallas(device), max(2, args.steps // 4)),
         "3": ("config[3] QamRx.step_masked", lambda: config3(device), args.steps),
         "2": ("config[2] FmStereoRx.step", lambda: config2(device), args.steps),
         "4s": ("parallel/ stream FM, 4 config[4] blocks, world size 1",

@@ -31,7 +31,9 @@ Every name starts with ``yagi.``:
   64 taps a branch, ``yagi.chzfm.demod``: the plain discriminator and the
   state's copies after the channelizer; on the card up to 64 taps the FM
   instance's one launch writes it all) and ``yagi.chzfm.state`` (the new
-  state);
+  state); ``yagi.symrx.step`` (``ResampSymsyncRx.step``, ``step_full``)
+  over ``yagi.symrx.resamp`` (the whole ``MsResamp.execute_block``),
+  ``yagi.symsync.run`` and ``yagi.symrx.state`` (the new state);
 - kernel wrappers (the ten registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
@@ -39,7 +41,7 @@ Every name starts with ``yagi.``:
 - set-up: ``yagi.library`` (the kernels' library found, built or loaded,
   and bound: its first use), ``yagi.rxchain.create`` over
   ``yagi.rxchain.taps`` (the compact taps' round trip to host numpy),
-  ``yagi.qamrx.create``, ``yagi.chzfm.create``. These are timed whether
+  ``yagi.qamrx.create``, ``yagi.chzfm.create``, ``yagi.symrx.create``. These are timed whether
   tracing is on or off (``always=True``): each runs once for an object or a
   process, and two clock reads are nothing beside the designs and builds
   they time.
@@ -49,7 +51,9 @@ the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
 hands to the kernel's register instance), ``symsync_fused.slots`` (the C·n·E
 slots ``symsync_fused_apply`` hands to K3), ``channelizer.fm_epilogue`` (the
 launches of K2's FM instance, the channelizer with the discriminator in its
-epilogue), and each registered kernel
+epilogue), ``resamp.calls`` and ``resamp.frame_bytes`` (``Resamp``'s calls
+of its u32 frame gather, and the bytes of the frames [..., cap, L] each
+writes to device memory: C·cap·L·itemsize), and each registered kernel
 wrapper's launches, in its ``launches`` attribute, which :func:`launches`
 reads. A kernel can count on the device too, into a :func:`device_counter`:
 ``qam_eq_scan.rounds`` (the rounds that instance ran, summed over channels),
