@@ -14,10 +14,11 @@ Six paths of the port, yagi_tpu_torch, each at its real size:
 * the u32 NCO mix-down of blocks of 2^21 complex samples, phase carried
   (mix_down_apply, kernel K5, csrc/mix.cu);
 * BASELINE config[1]: arbitrary-rate MsResamp (rate 2/2.0663, "farrow",
-  whose decimation stage is the 256-branch PFB gather) → Symsync (RRCOS
-  k = 2, m = 7, β = 0.3, 32 filters, loop bandwidth 0.02) over 1024
-  channels, blocks of 4096 complex samples, the resampler's count fed on as
-  n_valid (kernel K3 for backend "auto", K4 for "pallas", csrc/symscan.cu);
+  whose decimation stage is the 256-branch PFB gather, the kernel
+  resamp_u32_apply, csrc/resamp.cu) → Symsync (RRCOS k = 2, m = 7, β = 0.3,
+  32 filters, loop bandwidth 0.02) over 1024 channels, blocks of 4096
+  complex samples, the resampler's count fed on as n_valid (kernel K3 for
+  backend "auto", K4 for "pallas", csrc/symscan.cu);
 * BASELINE config[3]: the 16-QAM receiver QamRx (AGC, bandwidth 1e-3 →
   Symsync RRCOS k = 2, m = 7, β = 0.3 at 2 samples/symbol out, two slots →
   7-tap LMS equalizer and carrier PLL → nearest-point decisions and EVM)
@@ -98,7 +99,10 @@ Fifteen phases:
    (a second wave of blocks);
 5. main paths: each streams 16 blocks with its state carried, held against
    the plain oracle (RxChain, Firpfbch → Freqdem, Osc.mix_block_down, and
-   for config[1] the XLA-form scan over its first 4 blocks; config[3] streams
+   for config[1] the resampler's plain version from each block's state
+   (counts, phase and window exact; values within 2e-6 of the rms of the
+   plain version in float64) and the XLA-form scan
+   over its first 4 blocks; config[3] streams
    8, the first 2 held bit for bit against the chain with every stage on
    its plain version; config[2] against the chain with its de-emphasis on
    the plain version, within 2e-5, then 4 blocks with the de-emphasis on
@@ -248,6 +252,7 @@ from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     scan_instance,
 )
 from yagi_tpu_torch.kernels.mix import mix_down_apply, mix_down_reference  # noqa: E402
+from yagi_tpu_torch.kernels.resamp import resamp_u32_reference  # noqa: E402
 from yagi_tpu_torch.kernels.qam import (  # noqa: E402
     ROUND_SLOTS, ROUND_TILE, qam_eq_scan_apply, qam_eq_scan_reference)
 from yagi_tpu_torch.errors import ConfigError  # noqa: E402
@@ -461,6 +466,10 @@ MIX_PHASE = 1.1
 N_SYM_CHECK = 4  # config[1] blocks held against the XLA-form scan
 N_PALLAS = 4  # config[1] blocks through K4
 SYM_SPLIT = 2000  # where the block-split check cuts a resampled block
+# the resampler's kernel against its plain version computed in float64: the
+# kernel's float32 sums of 14 taps, like the plain version's own, read up to
+# ~1e-6 of the rms from it over these 16 blocks of random input (64M outputs)
+RESAMP_TOL = 2e-6
 # K3 sums its dots in the order branch_outputs reproduces, and K4 and the
 # XLA-form scan read branch_outputs' stream, so all three are held to bit
 # identity (kernels/symscan.py says why one order: through the loop's
@@ -1257,38 +1266,54 @@ def phase_main_path_config1(device) -> tuple[int, int, float]:
     ms, ss = make()
     torch.cuda.synchronize()
     reset_counts()
-    outs = []
+    outs, states = [], []
     for x in blocks:
+        states.append(ms.arbitrary)
         y, cnt, ms = ms.execute_block(x)
         slots, valid, ss = ss.execute_slots(y, n_valid=cnt)
         outs.append((y, cnt, slots, valid))
+    states.append(ms.arbitrary)
     torch.cuda.synchronize()
     counts = read_counts()
-    k3 = counts["symsync_fused_apply"]
+    k3, rk = counts["symsync_fused_apply"], counts["resamp_u32_apply"]
     print(f"[main-path] MsResamp -> Symsync: {N_BLOCKS} blocks of [{C1}, {T1}] complex64, "
           f"kernel launches {counts}")
     require(k3 == N_BLOCKS and counts["symsync_scan_apply"] == 0,
             f"K3 launches {k3} != blocks {N_BLOCKS}")
+    require(rk == N_BLOCKS, f"resamp_u32_apply launches {rk} != blocks {N_BLOCKS}")
 
-    # the plain route: the same resampler (its counts also held against the
-    # host-side replay of the u32 schedule), then the XLA-form scan
-    ms_p, ss_p = make()
-    plain = []
+    # the resampler's kernel against its plain version from the same state,
+    # on the same CUDA tensors (its counts also held against the host-side
+    # replay of the u32 schedule), its values against the plain version in
+    # float64; then the XLA-form scan on the kernel's resampled blocks
+    ss_p = make_symsync(C1, device)
+    plain, worst, plain_gap, c128 = [], 0.0, 0.0, torch.complex128
+    cap = make_msresamp(C1, device).out_capacity(T1)
     for i, (x, (y, cnt, slots, _)) in enumerate(zip(blocks, outs)):
-        want = ms_p.get_num_output(T1)
-        y_p, cnt_p, ms_p = ms_p.execute_block(x)
+        st, nxt = states[i], states[i + 1]
+        want = st.get_num_output(T1)
+        y_p, cnt_p, ph_p, win_p = resamp_u32_reference(x, st.window, st.branches, st.phase,
+                                                       st.step, T1, out_capacity=cap)
+        y64 = resamp_u32_reference(x.to(c128), st.window.to(c128), st.branches.double(),
+                                   st.phase, st.step, T1, out_capacity=cap)[0]
         require(int(cnt) == int(cnt_p) == want,
                 f"block {i}: counts {int(cnt)}, {int(cnt_p)}, host replay {want}")
-        require(torch.equal(y, y_p), f"block {i}: resampler output")
+        require(int(nxt.phase) == int(ph_p) and torch.equal(as_bits(nxt.window), as_bits(win_p)),
+                f"block {i}: the resampler's carried phase and window")
+        c = int(cnt)
+        require(not as_bits(y)[:, c:].any(), f"block {i}: resampler zeros past the count")
+        worst = max(worst, rel_rms(y64[:, :c], y[:, :c].to(c128)))
+        plain_gap = max(plain_gap, rel_rms(y64[:, :c], y_p[:, :c].to(c128)))
+        require(worst <= RESAMP_TOL, f"block {i}: resampler output {worst:.3e} of its rms")
         require(tuple(slots.shape) == (C1, y.shape[1], 2), f"block {i}: slot shape")
         require(bool(torch.isfinite(slots).all()), f"block {i}: finite slots")
         if i < N_SYM_CHECK:
-            y_s, v_s, ss_p = ss_p.execute_slots(y_p, n_valid=cnt_p, backend="xla")
+            y_s, v_s, ss_p = ss_p.execute_slots(y, n_valid=cnt, backend="xla")
             plain.append((y_s, v_s))
-    require(int(ms.arbitrary.phase) == int(ms_p.arbitrary.phase), "carried u32 phase")
-    print(f"[main-path] MsResamp counts equal the plain route and the host replay over "
-          f"{N_BLOCKS} blocks ({int(outs[0][1])}..{int(outs[-1][1])} per block), carried phase "
-          f"{int(ms.arbitrary.phase)} equal")
+    print(f"[main-path] MsResamp on resamp_u32_apply: counts equal the plain version and the "
+          f"host replay over {N_BLOCKS} blocks ({int(outs[0][1])}..{int(outs[-1][1])} per "
+          f"block), carried phase and window exact; largest |y - float64| {worst:.3e} of the "
+          f"rms (limit {RESAMP_TOL}), the plain version's own {plain_gap:.3e}")
     got = [torch.cat([o[j] for o in outs[:N_SYM_CHECK]], 1) for j in (2, 3)]
     want = [torch.cat([p[j] for p in plain], 1) for j in (0, 1)]
     require(sym_same(f"[main-path] Symsync K3 vs the XLA-form scan over {N_SYM_CHECK} blocks",

@@ -22,7 +22,8 @@ DEV = "cpu"
 WRAPPERS = {"agc_scan_apply": "agc", "fused_chain_apply": "chain", "fused_chain_apply_c64": "chain",
             "fused_channelizer_apply": "channelizer", "iir_chunked_apply": "iir",
             "iir_scan_apply": "iir", "mix_down_apply": "mix", "qam_eq_scan_apply": "qam",
-            "symsync_fused_apply": "symscan", "symsync_scan_apply": "symscan"}
+            "resamp_u32_apply": "resamp", "symsync_fused_apply": "symscan",
+            "symsync_scan_apply": "symscan"}
 QAM_STAGES = ("yagi.agc.run", "yagi.symsync.run", "yagi.qamrx.eq", "yagi.qamrx.state")
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ._conv import causal_conv_valid, multi_branch_conv
-from .firpfb import branch_dots
+from ..kernels.resamp import branch_dots
 
 # Farrow design: T taps, polynomial order K, fit band [0, _BAND] cycles/sample
 _T = 12

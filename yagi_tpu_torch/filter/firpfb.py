@@ -19,7 +19,7 @@ from ..errors import ConfigError
 from .. import design
 from ._conv import causal_conv_valid, multi_branch_conv, np_taps, result_dtype
 
-__all__ = ["FirPfbFilter", "branch_dots", "pfb_decompose"]
+__all__ = ["FirPfbFilter", "pfb_decompose"]
 
 
 def pfb_decompose(h: np.ndarray, num_filters: int) -> np.ndarray:
@@ -33,19 +33,6 @@ def pfb_decompose(h: np.ndarray, num_filters: int) -> np.ndarray:
     return np.stack(
         [h[i : i + sub_len * num_filters : num_filters] for i in range(num_filters)]
     )
-
-
-def branch_dots(xa: torch.Tensor, branches: torch.Tensor, starts: torch.Tensor,
-                branch: torch.Tensor) -> torch.Tensor:
-    """One PFB output per (start, branch) pair: [..., len(starts)] with
-    y[..., c] = Σ_l xa[..., starts[c] + l] · branches[branch[c], L−1−l], a
-    frame gather and one contraction (the resamplers' data-dependent
-    emissions, resamp.rs:141-154)."""
-    L = branches.shape[1]
-    dt = result_dtype(xa.dtype, branches.dtype)
-    frames = xa[..., starts[:, None] + torch.arange(L, device=xa.device)]  # [..., c, L]
-    hb = branches[branch].flip(-1)  # [c, L] oldest..newest
-    return torch.einsum("...cl,cl->...c", frames.to(dt), hb.to(dt))
 
 
 @struct.state

@@ -10,8 +10,10 @@ arbitrary → halfbands; decimation runs halfbands → arbitrary
 data-dependent sample count threads through the halfband chain as a 0-d
 tensor (the valid-prefix convention), and the decimation branch's carry of
 ungrouped samples is placed and taken with device-side indices, so a stream
-of blocks never waits on the host. ``execute`` is the host-compacting
-convenience wrapper.
+of blocks never waits on the host. A decimation with no halfband stage
+groups samples by 1 and never carries one: its block goes to the arbitrary
+stage as it is (one kernel launch on the card). ``execute`` is the
+host-compacting convenience wrapper.
 
 With ``arbitrary_interp="farrow"`` an interpolating MsResamp's arbitrary
 stage (``Resamp.execute_block``) takes its values from the prototype FIR and
@@ -142,6 +144,16 @@ class MsResamp:
             y1, k, arb = self.arbitrary.execute_block(x)
             y2, k2, hb = self.halfband.execute_block_n(y1, k)
             return y2, k2, self.replace(arbitrary=arb, halfband=hb)
+
+        if self.num_halfband_stages == 0:
+            # groups of 2^0 = 1 leave no carry: the arbitrary stage takes the
+            # block as it is, at the capacity of the carry path's buffer
+            cap = self.out_capacity(n)
+            if n == 0:  # as the carry path: zeros, a count of 0, the schedule's mark cleared
+                return (*self.arbitrary._empty(x, cap),
+                        self.replace(arbitrary=self.arbitrary.replace(exact_sched=None)))
+            y, k, arb = self.arbitrary.execute_block_n(x, n, out_capacity=cap)
+            return y, k, self.replace(arbitrary=arb)
 
         # decimation: carry + input into one valid-prefix buffer, grouped into
         # multiples of 2^k for the halfband chain, then the arbitrary stage

@@ -9,9 +9,11 @@ Closed form: output m has the 64-bit accumulated phase P_m = phase0 + m·step
 and is emitted while consuming input n_m = P_m >> 24 through branch
 (P_m & 0xffffff) >> (24 − bits). torch's int64 holds P_m exactly, so the
 schedule, the count and the carried phase equal the reference's u32
-semantics. Outputs are a frame gather plus one batched contraction, or, while
-the schedule is provably periodic with phase 0 at block edges, one banded
-matmul (filter/_sched.py).
+semantics. Outputs come from ``kernels/resamp.py::resamp_u32_apply``: one
+launch of ``csrc/resamp.cu`` on the card, which forms each output from the
+schedule on chip, and on the CPU its plain version, a frame gather plus one
+batched contraction; or, while the schedule is provably periodic with phase 0
+at block edges, one banded matmul (filter/_sched.py).
 
 With ``interp="farrow"`` the values come from the prototype FIR and a
 designed Farrow interpolator at the exact u32 times
@@ -25,6 +27,7 @@ a fixed-capacity buffer plus the exact count.
 from __future__ import annotations
 
 import math
+import operator
 
 import numpy as np
 import torch
@@ -34,12 +37,13 @@ from .._src.device import resolve_device
 from .._src.struct import U32
 from .._src.window import carry
 from ..errors import ConfigError
-from .. import design, trace
+from .. import design
 from ..math.special import nextpow2
 from ..nco.osc import _rotate_down
 from ._farrow_resamp import farrow_resample_values
+from ..kernels.resamp import resamp_u32_apply, u32_schedule
 from ._sched import sched_banded_matmul, sched_matmul_ok, u32_static_schedule
-from .firpfb import branch_dots, pfb_decompose
+from .firpfb import pfb_decompose
 
 __all__ = ["Resamp"]
 
@@ -263,43 +267,13 @@ class Resamp:
             return s
         return None
 
-    def _schedule(self, out_capacity: int, consumed):
-        """The u32 emission schedule of a block that consumes ``consumed``
-        inputs (an int or a 0-d device tensor): (n_m source indices, branch,
-        low 32 phase bits, valid, num_output, new_phase), each [cap] or 0-d."""
-        # one extra index so lo[num_output] is always in range (phase carry)
-        m_idx = torch.arange(out_capacity + 1, dtype=torch.int64, device=self.phase.device)
-        acc = self.phase + m_idx * self.step  # exact 64-bit phase0 + m·step
-        lo_full = acc & U32
-        n_m = (acc >> 24)[:out_capacity]  # source sample index
-        lo = lo_full[:out_capacity]
-        branch = (lo >> (24 - self.bits)) & (self.npfb - 1)
-        valid = n_m < consumed
-        num_output = valid.sum()
-        # phase' = (phase + num_output·step) - consumed·2^24 (mod 2^32),
-        # resamp.rs:149-151; a gather, not lo_full[num_output], which would
-        # read the count back to the host
-        lo_out = lo_full.gather(0, num_output.reshape(1))[0]
-        new_phase = (lo_out - ((consumed & 0xFF) << 24)) & U32
-        return n_m, branch, lo, valid, num_output, new_phase
-
-    def _u32_path(self, xa, n: int, out_capacity: int, consumed=None):
-        """General u32 schedule over a buffer of n input samples, of which
-        the first ``consumed`` (default n) are consumed: (y unmasked, valid,
-        num_output, new_phase)."""
-        consumed = n if consumed is None else consumed
-        n_m, branch, _, valid, num_output, new_phase = self._schedule(out_capacity, consumed)
-        return self._gather_dots(xa, n_m.clamp(0, n - 1), branch), valid, num_output, new_phase
-
-    def _gather_dots(self, xa, starts, branch):
-        """The u32 schedule's outputs by :func:`branch_dots` (frame m =
-        xa[..., s_m : s_m + L]), counted whether tracing is on or off, on the
-        host: ``resamp.calls`` and ``resamp.frame_bytes``, the bytes of the
-        frames [..., cap, L] the gather writes to device memory."""
-        trace.count("resamp.calls")
-        trace.count("resamp.frame_bytes",
-                    math.prod(xa.shape[:-1]) * starts.shape[0] * self.sub_len * xa.element_size())
-        return branch_dots(xa, self.branches, starts, branch)
+    def _u32(self, x, n_valid, out_capacity: int):
+        """The u32 PFB gather over block ``x`` of which the first ``n_valid``
+        are consumed: ``resamp_u32_apply`` (one kernel launch on the card, its
+        plain torch version on the CPU) → (y zero past the count, count,
+        new_phase, new_window)."""
+        return resamp_u32_apply(x, self.window, self.branches, self.phase, self.step, n_valid,
+                                out_capacity=out_capacity)
 
     def _empty(self, x, out_capacity: int):
         """An empty block's result: out_capacity zeros and a count of 0."""
@@ -321,22 +295,22 @@ class Resamp:
             out_capacity = self.out_capacity(n)
         if n == 0:
             return (*self._empty(x, out_capacity), self)
-        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        new_window = carry(self.window, xa)
-
-        fast = self._static_fast(xa, n, out_capacity)
-        if fast is not None:
-            y, n_out = fast
-            count = torch.full((), n_out, dtype=torch.int64, device=x.device)
-            return y, count, self.replace(window=new_window)
-
-        n_m, branch, lo, valid, num_output, new_phase = self._schedule(out_capacity, n)
-        if self.interp == "farrow" and self.step_cert is not None:
+        farrow = self.interp == "farrow" and self.step_cert is not None
+        if self.exact_sched is not None or farrow:
+            xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
+            new_window = carry(self.window, xa)
+            fast = self._static_fast(xa, n, out_capacity)
+            if fast is not None:
+                y, n_out = fast
+                count = torch.full((), n_out, dtype=torch.int64, device=x.device)
+                return y, count, self.replace(window=new_window)
+        if farrow:
+            n_m, branch, lo, valid, num_output, new_phase = u32_schedule(
+                self.phase, self.step, self.bits, out_capacity, n)
             y = farrow_resample_values(xa, self.branches, self.step_cert, n, n_m, branch, lo,
                                        valid, band=round(min(0.42, 1.4 * self.fc), 3))
         else:
-            y = self._gather_dots(xa, n_m.clamp(0, n - 1), branch)
-            y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
+            y, num_output, new_phase, new_window = self._u32(x, n, out_capacity)
         return y, num_output, self.replace(
             phase=new_phase,
             window=new_window,
@@ -353,30 +327,23 @@ class Resamp:
     def execute_block_n(self, x, n_valid, out_capacity: int | None = None):
         """Valid-prefix variant of :meth:`execute_block`: only the first
         ``n_valid`` samples of the fixed-capacity buffer ``x`` [..., cap] are
-        consumed (x is masked past them). ``n_valid`` is an int or a 0-d
-        integer tensor on x's device; it is never read back to the host.
+        consumed (x is masked past them). ``n_valid`` is an int in [0, cap] or
+        a 0-d integer tensor on x's device; it is never read back to the host.
 
         The u32 phase advances by exactly the emissions a sequential run
         over those samples would make (resamp.rs:141-154), the PFB window
         lands at the valid end, and ``exact_sched`` is cleared. Always the
-        u32 frame gather, for either ``interp``, as in yagi_tpu. Returns
+        u32 PFB gather (``resamp_u32_apply``), for either ``interp``, as in
+        yagi_tpu. Returns
         (y, num_output, state) with y zero beyond num_output.
         """
-        cap = x.shape[-1]
-        dev = x.device
-        n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
         if out_capacity is None:
-            out_capacity = self.out_capacity(cap)
-        L = self.sub_len
-        zero = torch.zeros((), dtype=x.dtype, device=dev)
-        x = torch.where(torch.arange(cap, device=dev) < n_valid, x, zero)
-        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        y, valid, num_output, new_phase = self._u32_path(xa, cap, out_capacity, n_valid)
-        y = torch.where(valid, y, zero)
-        # the L samples ending at the last valid one; the old window if none
-        start = (n_valid - 1).clamp(0, cap - 1)
-        sliced = xa[..., start + torch.arange(L, device=dev)]
-        new_window = torch.where(n_valid > 0, sliced, self.window.to(x.dtype))
+            out_capacity = self.out_capacity(x.shape[-1])
+        if isinstance(n_valid, torch.Tensor):
+            n_valid = n_valid.to(device=x.device, dtype=torch.int64)
+        else:
+            n_valid = operator.index(n_valid)
+        y, num_output, new_phase, new_window = self._u32(x, n_valid, out_capacity)
         return y, num_output, self.replace(phase=new_phase, window=new_window, exact_sched=None)
 
     def execute_block_mix_down(self, x, osc, out_capacity: int | None = None):
@@ -391,20 +358,21 @@ class Resamp:
             out_capacity = self.out_capacity(n)
         if n == 0:  # an empty block: zeros, a count of 0, both states stand
             return (*self._empty(x, out_capacity), self, osc)
-        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        new_window = carry(self.window, xa)
-        zero = torch.zeros((), dtype=xa.dtype, device=xa.device)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if self.exact_sched is not None:
+            xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
+            fast = self._static_fast(xa, n, out_capacity)
+            if fast is not None:
+                yf, n_out = fast
+                m_valid = torch.arange(out_capacity, device=x.device) < n_out
+                yf = torch.where(m_valid,
+                                 _rotate_down(yf, osc._phase_ramp(out_capacity), osc.mode), zero)
+                count = torch.full((), n_out, dtype=torch.int64, device=x.device)
+                return (yf, count, self.replace(window=carry(self.window, xa)),
+                        osc._advance(n_out))
 
-        fast = self._static_fast(xa, n, out_capacity)
-        if fast is not None:
-            yf, n_out = fast
-            m_valid = torch.arange(out_capacity, device=x.device) < n_out
-            yf = torch.where(m_valid, _rotate_down(yf, osc._phase_ramp(out_capacity), osc.mode),
-                             zero)
-            count = torch.full((), n_out, dtype=torch.int64, device=x.device)
-            return yf, count, self.replace(window=new_window), osc._advance(n_out)
-
-        y, valid, num_output, new_phase = self._u32_path(xa, n, out_capacity)
+        y, num_output, new_phase, new_window = self._u32(x, n, out_capacity)
+        valid = torch.arange(out_capacity, device=x.device) < num_output
         y = torch.where(valid, _rotate_down(y, osc._phase_ramp(out_capacity), osc.mode), zero)
         return (
             y,

@@ -21,7 +21,8 @@ from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
 from ._sched import sched_banded_matmul, sched_matmul_ok
-from .firpfb import branch_dots, pfb_decompose
+from ..kernels.resamp import branch_dots
+from .firpfb import pfb_decompose
 
 __all__ = ["Rresamp"]
 

@@ -15,6 +15,7 @@ from .iir import (  # noqa: F401
     iir_scan_reference,
 )
 from .mix import mix_down_apply, mix_down_reference  # noqa: F401
+from .resamp import resamp_u32_apply, resamp_u32_reference  # noqa: F401
 from .symscan import (  # noqa: F401
     branch_outputs,
     symsync_fused_apply,

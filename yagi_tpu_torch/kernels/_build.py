@@ -65,6 +65,9 @@ _SIGNATURES = {
     # mask, the 10 new state arrays, C, S, M, h_len, k_eq, the device int64
     # the kernel adds its rounds to, stream
     "yagi_qam_eq_scan_counted": [_P] * 29 + [_I] * 5 + [_P, _P],
+    # x, window, branches, phase, step, n_valid, y, window_out, count,
+    # new_phase, C, n, cap, L, npfb, nv, stream
+    "yagi_resamp_u32": [_P] * 10 + [_I] * 6 + [_P],
     # x, b, a, scale, v_in, y, v_out, scratch, C, T, m, sos, cx, cc, inst, stream
     "yagi_iir_scan": [_P] * 8 + [_I] * 7 + [_P],
     # x, b, a, scale, v_in, y, v_out, C, T, m, nst, cx, cc, inst, stream

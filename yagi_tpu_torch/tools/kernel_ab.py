@@ -12,7 +12,7 @@ v1's sources sit in a directory of their own, taken from the commit to
 compare against, for example::
 
     mkdir -p build/ab_v1
-    for f in agc.cu chain.cu channelizer.cu iir.cu iir.cuh nco.cuh qam.cu symscan.cu \
+    for f in agc.cu chain.cu channelizer.cu iir.cu iir.cuh nco.cuh qam.cu resamp.cu symscan.cu \
              symscan.cuh; do
         git show <commit>:yagi_tpu_torch/csrc/$f > build/ab_v1/$f
     done
@@ -48,6 +48,13 @@ directory of its own, taken as v1. The shapes and constructors are those of
 :mod:`.paths`, which ``chip_smoke.py`` uses too. Prints one line per
 measurement and, last, one JSON object, which ``--out`` also receives.
 
+One more case, ``resamp_u32 config[1]``, holds the u32 PFB resampler's kernel
+(``csrc/resamp.cu``), v2's and v1's where v1 has one, against its torch path
+(``kernels.resamp.resamp_u32_reference``) at config[1]'s block, 1024 × 4096:
+the count, phase and window exact, y within 1e-6 of the rms; then times them
+by graph replay in turns, plain, v1, v2, v2, v1, plain (``--only resamp``
+builds no other case's inputs).
+
 Where the package's library has K2's FM instance (``yagi_channelizer_fm``),
 one more case holds it, and v1's where v1 has one, against its plain version
 on that library, K2's plain instance and the torch discriminator
@@ -76,6 +83,7 @@ from ..kernels.agc import agc_scan_apply
 from ..kernels.chain import fused_chain_apply, fused_chain_apply_c64
 from ..kernels.channelizer import fused_channelizer_apply
 from ..kernels.qam import qam_eq_scan_apply
+from ..kernels.resamp import resamp_u32_apply, resamp_u32_reference
 from ..kernels.symscan import branch_outputs, symsync_fused_apply, symsync_scan_apply
 from ..kernels.iir import iir_chunked_apply, iir_scan_apply
 from .paths import (C0, C1, C2, C3, CHAIN, M4, T0, T1, T2, T3, T4, chzfm_calls,
@@ -103,6 +111,8 @@ SIGNATURES = {
 TURNS = ("v1", "v2", "v2", "v1")
 FM_CASE = "channelizer fm epilogue config[4]"  # the FM instance against its plain version
 FM_TOL = 1e-6  # |fm − plain|: two float32 ulps of |fm| ≤ 5
+RESAMP_CASE = "resamp_u32 config[1]"  # the resampler's kernel against its torch path
+RESAMP_TOL = 1e-6  # max |y − plain| over the plain output's rms: float32 sums in two orders
 CHAIN_TURNS = ("v1", "v2", "twostage", "twostage", "v2", "v1")
 
 
@@ -225,6 +235,8 @@ def cases(device, only=()):
     versions in turns): each call runs one kernel launch on a fixed input.
     With ``only`` naming IIR cases alone, the other paths' inputs are not
     built."""
+    if only and all(w.startswith("resamp") for w in only):
+        return []  # RESAMP_CASE alone, which resamp_case builds
     iir = iir_cases(device, np.random.default_rng(6))
     if only and all(w.startswith("iir") for w in only):
         return iir
@@ -316,6 +328,59 @@ def fm_epilogue_case(device, libs) -> dict:
             "mean_ms": {v: sum(ts) / len(ts) for v, ts in per.items()}}
 
 
+def resamp_case(device, libs) -> dict:
+    """The u32 PFB resampler's kernel of v2, and of v1 where v1 has one,
+    against its torch path (``resamp_u32_reference``, the frame gather and
+    contraction) at config[1]'s block, 1024 × 4096 complex64 in four input
+    sets (134 MB), from its state at create: the count, the phase and the
+    window exact, y within RESAMP_TOL of the rms and 0 past the count; then
+    timed by graph replay in turns, plain, v1, v2, v2, v1, plain."""
+    ms = make_msresamp(C1, device)
+    rs, cap = ms.arbitrary, ms.out_capacity(T1)
+    rng = np.random.default_rng(7)
+    nv = torch.tensor(T1, device=device)  # a device count: the torch path captures
+    sets = [(complex_block(rng, (C1, T1), device), complex_block(rng, (C1, rs.sub_len), device))
+            for _ in range(4)]
+
+    def calls(fn):
+        return [lambda s=s: fn(*s, rs.branches, rs.phase, rs.step, nv, out_capacity=cap)
+                for s in sets]
+
+    kernel, plain = calls(resamp_u32_apply), calls(resamp_u32_reference)
+    versions = [v for v in ("v1", "v2") if serves(libs[v], "yagi_resamp_u32")]
+    want = [p() for p in plain]
+    gaps = {}
+    for v in versions:
+        with using(libs[v]):
+            got = [k() for k in kernel]
+        gap = 0.0
+        for g, w in zip(got, want):
+            c = int(w[1])
+            exact = (int(g[1]) == c and int(g[2]) == int(w[2])
+                     and torch.equal(torch.view_as_real(g[3]), torch.view_as_real(w[3])))
+            if not exact or torch.view_as_real(g[0])[:, c:].view(torch.int32).any():
+                raise SystemExit(f"kernel_ab: {RESAMP_CASE}: {v}'s count, phase, window or "
+                                 "zeros differ from the plain version's")
+            rms = w[0][:, :c].abs().square().mean().sqrt()
+            gap = max(gap, float((g[0] - w[0]).abs().max() / rms))
+        gaps[v] = gap
+        if gap > RESAMP_TOL:
+            raise SystemExit(f"kernel_ab: {RESAMP_CASE}: {v}'s y differs from the plain's by "
+                             f"{gap} of the rms")
+    turns = ("plain", *versions, *versions[::-1], "plain")
+    times = []
+    for v in turns:
+        with using(libs["v2" if v == "plain" else v]):
+            times.append(graph_ms((plain if v == "plain" else kernel) * 5, reps=REPS))
+    per = {v: [t for o, t in zip(turns, times) if o == v] for v in ("plain", *versions)}
+    shape = f"C={C1}, n={T1}, cap={cap}, L={rs.sub_len}, npfb={rs.npfb}"
+    print(f"[ab] {RESAMP_CASE} ({shape}): count, phase and window exact, largest |y − plain| "
+          f"over the rms {gaps}; ms per call in turns "
+          + ", ".join(f"{o} {t:.4f}" for o, t in zip(turns, times)))
+    return {"shape": shape, "y_gap": gaps, "ms": per,
+            "mean_ms": {v: sum(ts) / len(ts) for v, ts in per.items()}}
+
+
 def serves(lib, entry: str) -> bool:
     """Whether a library has the entry point (for K1: any of its forms)."""
     names = (("yagi_chain_planar", "yagi_chain_twostage")
@@ -349,8 +414,8 @@ def agrees(got, want, tol):
 
 
 def build_log_lines(log: str) -> list[str]:
-    keep = ("qam_eq_scan", "symsync_", "agc_scan", "chain_", "channelizer", "iir_", "registers",
-            "spill")
+    keep = ("qam_eq_scan", "symsync_", "agc_scan", "chain_", "channelizer", "iir_", "resamp_",
+            "registers", "spill")
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
 
@@ -408,6 +473,8 @@ def main(argv=None) -> None:
             raise SystemExit(f"kernel_ab: {name}: a version differs from v1: {same}")
     if (not only or any(w in FM_CASE for w in only)) and serves(libs["v2"], "yagi_channelizer_fm"):
         result["cases"][FM_CASE] = fm_epilogue_case(device, libs)
+    if not only or any(w in RESAMP_CASE for w in only):
+        result["cases"][RESAMP_CASE] = resamp_case(device, libs)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

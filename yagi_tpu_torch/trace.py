@@ -34,7 +34,7 @@ Every name starts with ``yagi.``:
   state); ``yagi.symrx.step`` (``ResampSymsyncRx.step``, ``step_full``)
   over ``yagi.symrx.resamp`` (the whole ``MsResamp.execute_block``),
   ``yagi.symsync.run`` and ``yagi.symrx.state`` (the new state);
-- kernel wrappers (the ten registered by :func:`kernel`):
+- kernel wrappers (the eleven registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
   the kernels' library;
@@ -51,9 +51,10 @@ the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
 hands to the kernel's register instance), ``symsync_fused.slots`` (the C·n·E
 slots ``symsync_fused_apply`` hands to K3), ``channelizer.fm_epilogue`` (the
 launches of K2's FM instance, the channelizer with the discriminator in its
-epilogue), ``resamp.calls`` and ``resamp.frame_bytes`` (``Resamp``'s calls
-of its u32 frame gather, and the bytes of the frames [..., cap, L] each
-writes to device memory: C·cap·L·itemsize), and each registered kernel
+epilogue), ``resamp.calls`` (the calls of ``resamp_u32_apply``, the u32
+PFB resampler, on either route) and ``resamp.frame_bytes`` (the bytes of the
+frames [..., cap, L] its plain version's gather writes to device memory,
+C·cap·L·itemsize; the kernel writes none), and each registered kernel
 wrapper's launches, in its ``launches`` attribute, which :func:`launches`
 reads. A kernel can count on the device too, into a :func:`device_counter`:
 ``qam_eq_scan.rounds`` (the rounds that instance ran, summed over channels),
