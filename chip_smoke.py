@@ -179,9 +179,9 @@ Fifteen phases:
    (2^24 samples); each kernel by CUDA-graph replay, each plain
    version by graph replay (eager calls for the plain loops: the symsync
    scans, the AGC and the eq/carrier loop), K4's direct instance (its first
-   version) in turns with its staged one, the plain iir_scan_reference by
-   one eager call at config[2]'s shape, and the config[2] step (the
-   benchmark's cells time the config[0], [1], [3] and [4] entries).
+   version) in turns with its staged one, and the plain iir_scan_reference
+   by one eager call at config[2]'s shape (the benchmark's cells time the
+   config[0] to [4] entries).
 
 Prints one line per check, the seconds spent by stretch of phases, a JSON
 line of per-kernel results (with each kernel's bound at its path's shape:
@@ -502,7 +502,6 @@ QAM_FALSE_LOCK_MAX = 0.005
 # integrator SOS), a block split below 1e-5.
 IIR_TF_TOL, IIR_SOS_TOL, IIR_SPLIT_TOL = 2e-5, 1e-4, 1e-5
 N_FM_SEQ = 4  # config[2] blocks on the sequential route (iir_scan)
-N_FM_STEPS = 20  # eager config[2] steps timed
 # iir_scan's checks: (form, taps (TF) or sections (SOS), type, C, T). Every
 # instance runs: TF lengths 1, 2, 3 (orders 0, 1, 2, specialised) in each
 # signal type, 4 to 9 (the generic register instance, 9 its largest), 10
@@ -3861,8 +3860,8 @@ def phase_frames(device, card: str) -> None:
 def phase_timing_config2(device, card: str) -> dict:
     """iir_chunked, iir_scan and iir_chunked_reference by graph replay at
     config[2]'s de-emphasis ([C2, T2] float32, TF [α], [1, −(1 − α)]),
-    iir_scan_reference by one eager call at the same shape, then the eager
-    config[2] step; returns {name: (kernel ms, plain ms)}."""
+    iir_scan_reference by one eager call at the same shape; returns {name:
+    (kernel ms, plain ms)}."""
     rng = np.random.default_rng(SEED + 41)
     f = make_fmstereo(1, device).deemph_l
     # N_ROT input sets (134 MB) so the 50 MB L2 cannot hold the input
@@ -3879,23 +3878,6 @@ def phase_timing_config2(device, card: str) -> dict:
           f"({p1:.4f}, {p2:.4f}), by graph replay; iir_scan_reference {ps_ms:.2f} ms (one eager "
           f"call after one); the de-emphasis at [{C2}, {T2}] float32")
 
-    blocks = [fm_block(rng, (C2, T2), device) for _ in range(N_ROT)]
-
-    def step_msps(iters: int, warmup: int, plain_: bool) -> float:
-        state = [fm_chain(device), 0]
-
-        def step():
-            x = blocks[state[1] % N_ROT]
-            state[0] = state[0]._step(x, plain=plain_)[3]
-            state[1] += 1
-
-        return C2 * T2 / (cuda_ms(step, iters, warmup) * 1e-3) / 1e6
-
-    f_msps = step_msps(N_FM_STEPS, 3, False)
-    p_msps = step_msps(4, 1, True)
-    print(f"[timing] {card}: config[2] step FmStereoRx.step {f_msps:.1f} Msps ({N_FM_STEPS} eager "
-          f"steps over {N_ROT} blocks), de-emphasis on iir_chunked_reference {p_msps:.1f} Msps (4 "
-          f"eager steps) (input complex Msamples/s, [{C2}, {T2}] blocks)")
     return {"iir_scan": (s_ms, ps_ms), "iir_chunked": (c_ms, p_ms)}
 
 

@@ -14,6 +14,14 @@ f_p = 19 kHz / fs). The pilot's analytic signal comes from a complex-tap FIR
 (kaiser lowpass mixed to +f_p), and the 38 kHz subcarrier is its normalized
 square. The four FIRs are banded matmuls (``filter/_conv.py``); the two
 de-emphasis IIRs run the ``iir_chunked`` kernel, once each per block.
+
+Spans (``trace.py``): ``yagi.fmrx.step`` over ``yagi.fmrx.demod`` (the
+discriminator), ``yagi.fmrx.pilot`` (the pilot's bandpass and the 38 kHz
+subcarrier), ``yagi.fmrx.fir`` (the delay and the two audio lowpasses),
+``yagi.fmrx.deemph`` (the two IIR blocks) and ``yagi.fmrx.state`` (the new
+state); ``yagi.fmrx.create``, timed whether tracing is on or off. The
+counter ``fmrx.steps`` counts the calls of :meth:`FmStereoRx.step`, on or
+off, for the per-step share of the FIRs' counters.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._src import struct
 from .._src.device import resolve_device
 from ..design import fir_design_kaiser
@@ -51,6 +60,7 @@ class FmStereoRx:
     deemph_r: IirFilter = struct.field()
 
     @classmethod
+    @trace.spanned("yagi.fmrx.create", always=True)
     def create(
         cls,
         kf: float = 0.5,
@@ -96,8 +106,10 @@ class FmStereoRx:
             deemph_r=mk_deemph(),
         )
 
+    @trace.spanned("yagi.fmrx.step")
     def step(self, iq) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, "FmStereoRx"]:
         """Decode one IQ block [..., T] → (left, right, pilot_level, new state)."""
+        trace.count("fmrx.steps")
         iq = torch.as_tensor(iq, device=self.demod.r_prime.device)
         return self._step(iq, plain=False)
 
@@ -106,29 +118,36 @@ class FmStereoRx:
     def _step(self, iq, plain: bool):
         """:meth:`step`, the de-emphasis through ``iir_chunked``, or with
         ``plain`` through its plain version on any device (the oracle)."""
-        m, demod = self.demod.demodulate(iq)
+        with trace.span("yagi.fmrx.demod"):
+            m, demod = self.demod.demodulate(iq)
 
-        # analytic pilot (delay D) and delay-matched composite
-        z, pilot_bp = self.pilot_bp.execute_block(m.to(torch.complex64))
-        m_d, align = self.align.execute_block(m)
-        mag = z.abs()
-        unit = z / torch.clamp(mag, min=1e-9)
-        carrier2 = unit * unit  # e^{+j2θ}, phase-exact 38 kHz subcarrier
+        # analytic pilot (delay D)
+        with trace.span("yagi.fmrx.pilot"):
+            z, pilot_bp = self.pilot_bp.execute_block(m.to(torch.complex64))
+            mag = z.abs()
+            unit = z / torch.clamp(mag, min=1e-9)
+            carrier2 = unit * unit  # e^{+j2θ}, phase-exact 38 kHz subcarrier
+            pilot_level = mag.mean(dim=-1) * 2.0
 
-        mono, mono_lp = self.mono_lp.execute_block(m_d)
-        d, diff_lp = self.diff_lp.execute_block(m_d.to(torch.complex64) * carrier2.conj())
-        stereo = 2.0 * d.real
+        # delay-matched composite, then the sum and difference channels
+        with trace.span("yagi.fmrx.fir"):
+            m_d, align = self.align.execute_block(m)
+            mono, mono_lp = self.mono_lp.execute_block(m_d)
+            d, diff_lp = self.diff_lp.execute_block(m_d.to(torch.complex64) * carrier2.conj())
+            stereo = 2.0 * d.real
 
-        left, deemph_l = self.deemph_l._run(mono + stereo, plain)
-        right, deemph_r = self.deemph_r._run(mono - stereo, plain)
-        pilot_level = mag.mean(dim=-1) * 2.0
+        with trace.span("yagi.fmrx.deemph"):
+            left, deemph_l = self.deemph_l._run(mono + stereo, plain)
+            right, deemph_r = self.deemph_r._run(mono - stereo, plain)
 
-        return left, right, pilot_level, self.replace(
-            demod=demod,
-            align=align,
-            mono_lp=mono_lp,
-            diff_lp=diff_lp,
-            pilot_bp=pilot_bp,
-            deemph_l=deemph_l,
-            deemph_r=deemph_r,
-        )
+        with trace.span("yagi.fmrx.state"):
+            new = self.replace(
+                demod=demod,
+                align=align,
+                mono_lp=mono_lp,
+                diff_lp=diff_lp,
+                pilot_bp=pilot_bp,
+                deemph_l=deemph_l,
+                deemph_r=deemph_r,
+            )
+        return left, right, pilot_level, new

@@ -6,13 +6,24 @@ matrix, for one filter (:func:`causal_conv_valid`, with a stride for the
 decimators) or a bank of them (:func:`multi_branch_conv`). Plain torch; no
 kernel of its own. yagi_tpu's TPU-only forms (``multi_branch_conv_tm``,
 ``banded_branch_matrix``) are not ported.
+
+Each banded matmul counts, whether tracing is on or off (``trace.py``):
+``conv.frame_bytes`` (the frames [B, nb, K] it writes),
+``conv.macs`` (the multiply-adds the matmul runs, B·nb·K·cols) and
+``conv.tap_macs`` (those the outputs' taps need, B·n_out·L a filter), a
+complex product as 4 real ones. A complex signal through real taps is two
+real matmuls, each counted.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import trace
 
 _ROW = 128  # output samples per banded-matmul row
 
@@ -37,9 +48,11 @@ def _band_frames(xa: torch.Tensor, L: int):
     return torch.cat([x3[:, d : d + nb] for d in range(nband)], dim=-1), n_out
 
 
+@functools.lru_cache(maxsize=64)
 def _band_index(K: int, L: int, device):
     """k[u, t] = t + L − 1 − u, the tap of window position u for output lane
-    t, and where it lies in [0, L)."""
+    t, and where it lies in [0, L): made once for each (K, L, device), so a
+    call adds no device op for it. Read only."""
     ar = torch.arange(K, device=device)  # K ≥ _ROW
     k = ar[None, :_ROW] + (L - 1) - ar[:K, None]
     return k.clamp(0, L - 1), (k >= 0) & (k < L)
@@ -60,6 +73,23 @@ def causal_conv_valid(xa: torch.Tensor, h: torch.Tensor, stride: int = 1) -> tor
                              causal_conv_valid(xa.imag, h, stride))
     if stride > 1:
         return _strided(xa, h, stride)
+    return _banded(xa, h, h.shape[0])
+
+
+def _count(f: torch.Tensor, cols: int, needed: int) -> None:
+    """The counters of one banded matmul: the frames ``f`` [B, nb, K], the
+    multiply-adds of ``f`` @ [K, cols], and the ``needed`` ones of its
+    outputs' taps; a complex product counts as 4 real."""
+    B, nb, K = f.shape
+    real = 4 if f.is_complex() else 1
+    trace.count("conv.frame_bytes", f.numel() * f.element_size())
+    trace.count("conv.macs", real * B * nb * K * cols)
+    trace.count("conv.tap_macs", real * needed)
+
+
+def _banded(xa: torch.Tensor, h: torch.Tensor, taps: int) -> torch.Tensor:
+    """:func:`causal_conv_valid` at stride 1, as one banded matmul; ``taps``
+    of h's L are the filter's (the rest pad a phase of :func:`_strided`)."""
     dtype = result_dtype(xa.dtype, h.dtype)
     xa = xa.to(dtype)
     h = h.to(dtype)
@@ -68,10 +98,10 @@ def causal_conv_valid(xa: torch.Tensor, h: torch.Tensor, stride: int = 1) -> tor
     if xa.shape[-1] < L:  # an empty block
         return xa.new_zeros(batch_shape + (0,))
     f, n_out = _band_frames(xa, L)  # [B, nb, K]
-    # built on the device: no host round trip per block
     k, valid = _band_index(f.shape[-1], L, h.device)
-    g = torch.where(valid, h[k], torch.zeros((), dtype=dtype, device=h.device))
+    g = torch.where(valid, h[k], 0)  # gathered on the device: no host round trip per block
     y = f @ g  # [B, nb, 128]
+    _count(f, _ROW, f.shape[0] * n_out * taps)
     return y.reshape(batch_shape + (-1,))[..., :n_out]
 
 
@@ -93,7 +123,7 @@ def _strided(xa: torch.Tensor, h: torch.Tensor, D: int) -> torch.Tensor:
         idx = torch.from_numpy(np.clip(taps, 0, L - 1)).to(h.device)
         keep = torch.from_numpy(taps >= 0).to(h.device)
         g = torch.where(keep, h[idx], torch.zeros((), dtype=h.dtype, device=h.device))
-        yc = causal_conv_valid(xr[..., c], g)
+        yc = _banded(xr[..., c], g, int((taps >= 0).sum()))
         y = yc if y is None else y + yc
     return y
 
@@ -120,8 +150,9 @@ def multi_branch_conv(xa: torch.Tensor, branches: torch.Tensor) -> torch.Tensor:
         return xa.new_zeros(batch_shape + (M, 0))
     f, n_out = _band_frames(xa, L)
     k, valid = _band_index(f.shape[-1], L, br.device)
-    g = torch.where(valid[..., None], br.T[k], torch.zeros((), dtype=dtype, device=br.device))
+    g = torch.where(valid[..., None], br.T[k], 0)
     y = f @ g.reshape(f.shape[-1], _ROW * M)  # [B, nb, 128·M]
+    _count(f, _ROW * M, f.shape[0] * n_out * L * M)
     y = y.reshape(batch_shape + (-1, M))[..., :n_out, :]
     return y.transpose(-1, -2)
 

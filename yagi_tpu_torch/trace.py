@@ -34,6 +34,11 @@ Every name starts with ``yagi.``:
   state); ``yagi.symrx.step`` (``ResampSymsyncRx.step``, ``step_full``)
   over ``yagi.symrx.resamp`` (the whole ``MsResamp.execute_block``),
   ``yagi.symsync.run`` and ``yagi.symrx.state`` (the new state);
+  ``yagi.fmrx.step`` (``FmStereoRx.step``) over ``yagi.fmrx.demod`` (the
+  discriminator), ``yagi.fmrx.pilot`` (the pilot's bandpass FIR and the
+  subcarrier), ``yagi.fmrx.fir`` (the delay and the two audio FIRs),
+  ``yagi.fmrx.deemph`` (the two de-emphasis blocks, over their
+  ``yagi.kernel.iir_chunked_apply``) and ``yagi.fmrx.state`` (the new state);
 - kernel wrappers (the eleven registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
@@ -41,7 +46,8 @@ Every name starts with ``yagi.``:
 - set-up: ``yagi.library`` (the kernels' library found, built or loaded,
   and bound: its first use), ``yagi.rxchain.create`` over
   ``yagi.rxchain.taps`` (the compact taps' round trip to host numpy),
-  ``yagi.qamrx.create``, ``yagi.chzfm.create``, ``yagi.symrx.create``. These are timed whether
+  ``yagi.qamrx.create``, ``yagi.chzfm.create``, ``yagi.symrx.create``,
+  ``yagi.fmrx.create``. These are timed whether
   tracing is on or off (``always=True``): each runs once for an object or a
   process, and two clock reads are nothing beside the designs and builds
   they time.
@@ -54,9 +60,16 @@ launches of K2's FM instance, the channelizer with the discriminator in its
 epilogue), ``resamp.calls`` (the calls of ``resamp_u32_apply``, the u32
 PFB resampler, on either route) and ``resamp.frame_bytes`` (the bytes of the
 frames [..., cap, L] its plain version's gather writes to device memory,
-C·cap·L·itemsize; the kernel writes none), and each registered kernel
-wrapper's launches, in its ``launches`` attribute, which :func:`launches`
-reads. A kernel can count on the device too, into a :func:`device_counter`:
+C·cap·L·itemsize; the kernel writes none), the banded-matmul FIRs'
+(``filter/_conv.py``: ``causal_conv_valid``, its strided form and
+``multi_branch_conv``, each real half of a complex signal through real taps
+alone) ``conv.frame_bytes`` (the frames [B, nb, K] a call
+writes, B·nb·K·itemsize), ``conv.macs`` (the multiply-adds its matmul runs,
+B·nb·128·K a filter) and ``conv.tap_macs`` (those the filter needs,
+B·n_out·L), complex products counted as 4 real, ``fmrx.steps`` (the calls
+of ``FmStereoRx.step``, over which a step's share of those is read), and
+each registered kernel wrapper's launches, in its ``launches`` attribute,
+which :func:`launches` reads. A kernel can count on the device too, into a :func:`device_counter`:
 ``qam_eq_scan.rounds`` (the rounds that instance ran, summed over channels),
 ``symsync_fused.chain_slots`` (the slots K3 ran its chain for, summed over
 channels).
