@@ -27,11 +27,12 @@ Six paths of the port, yagi_tpu_torch, each at its real size:
   per block; besides the noise blocks, an impaired 16-QAM signal decoded
   in every channel;
 * BASELINE config[2]: the FM stereo receiver FmStereoRx (Freqdem, kf 0.5 →
-  four 129-tap FIRs as banded matmuls → pilot-tone stereo matrix → two
-  first-order de-emphasis IIRs, alpha 0.05) over 512 channels, blocks of
-  2^14 complex samples (bench.py's draw, seed 3): kernel iir_chunked
-  (csrc/iir.cu, body csrc/iir.cuh) twice a block; its sequential form
-  iir_scan serves every filter that is not parallelize()d;
+  four 129-tap FIRs → pilot-tone stereo matrix → two first-order
+  de-emphasis IIRs, alpha 0.05) over 512 channels, blocks of 2^14 complex
+  samples (bench.py's draw, seed 3): kernel fir_block (csrc/fir.cu, the
+  direct-form FIR of every FirFilter block) four times a block and kernel
+  iir_chunked (csrc/iir.cu, body csrc/iir.cuh) twice; iir_chunked's
+  sequential form iir_scan serves every filter that is not parallelize()d;
 * the distributed layer yagi_tpu_torch.parallel over NCCL, one rank a card
   (in this process at world size 1 on a one-card machine, one spawned
   process a card on more): config[4] at full width streamed through
@@ -73,7 +74,8 @@ Fifteen phases:
 2. build: the CUDA kernels, compiled with nvcc from this checkout;
 3. default device: an entry point called with no device builds on the card;
 4. kernel vs plain: each kernel against its plain torch version on the same
-   CUDA tensors, at a small shape and at its path's shape (K3 and K4 also
+   CUDA tensors, at a small shape and at its path's shape (fir_block at
+   config[2]'s four filters, and a block cut in two bit for bit; K3 and K4 also
    at tap counts that are not a multiple of 4, y and the state compared as
    their bits; K3's chain-slot counter against its valid mask, and its skip
    share printed; qam_eq_scan also on ties
@@ -242,6 +244,7 @@ from yagi_tpu_torch.filter import (  # noqa: E402
     Resamp2,
     Symsync,
 )
+from yagi_tpu_torch.kernels.fir import fir_block_apply, fir_block_reference  # noqa: E402
 from yagi_tpu_torch.kernels.iir import (  # noqa: E402
     chunked_fits,
     chunked_instance,
@@ -501,6 +504,11 @@ QAM_FALSE_LOCK_MAX = 0.005
 # max |a| below 2e-5 (TF, first order included) or 1e-4 (Butterworth and
 # integrator SOS), a block split below 1e-5.
 IIR_TF_TOL, IIR_SOS_TOL, IIR_SPLIT_TOL = 2e-5, 1e-4, 1e-5
+# fir_block against its plain version (the banded matmul, cuBLAS, TF32 off):
+# L float32 products summed in two orders, over the plain output's largest
+# magnitude; the chain's pilot level, a mean of 2^14 magnitudes, over its own
+FIR_TOL, FM_LEVEL_TOL = 1e-5, 1e-6
+FIR_SPLIT = 1000  # where the block-split check cuts a config[2] block
 N_FM_SEQ = 4  # config[2] blocks on the sequential route (iir_scan)
 # iir_scan's checks: (form, taps (TF) or sections (SOS), type, C, T). Every
 # instance runs: TF lengths 1, 2, 3 (orders 0, 1, 2, specialised) in each
@@ -1929,6 +1937,88 @@ def phase_kernel_vs_plain_iir(device) -> dict:
     return out
 
 
+def fir_sets(device) -> dict:
+    """config[2]'s four FIRs (``FmStereoRx``'s pilot bandpass, delay, sum
+    and difference lowpasses at [C2, T2]), each with N_ROT (block, window)
+    pairs of random samples of its signal type."""
+    rng = np.random.default_rng(SEED + 42)
+    rx = make_fmstereo(C2, device)
+    out = {}
+    for name in ("pilot_bp", "align", "mono_lp", "diff_lp"):
+        f = getattr(rx, name)
+
+        def draw(shape, cx=f.window.is_complex()):
+            x = planes(rng, shape, device)
+            return torch.complex(x, planes(rng, shape, device)) if cx else x
+
+        out[name] = (f, [(draw((C2, T2)), draw((C2, f.h_len))) for _ in range(N_ROT)])
+    return out
+
+
+def phase_kernel_vs_plain_fir(device) -> float:
+    """fir_block against fir_block_reference (the banded matmul) at config[2]'s
+    four FIRs within FIR_TOL of the plain output's largest magnitude, one
+    launch each; a FirFilter block cut at FIR_SPLIT bit for bit against the
+    whole block. Returns the largest error."""
+    worst = 0.0
+    for name, (f, sets) in fir_sets(device).items():
+        x, w = sets[0]
+        torch.cuda.synchronize()
+        reset_counts()
+        y = fir_block_apply(x, w, f.h, f.scale)
+        torch.cuda.synchronize()
+        launched = read_counts()["fir_block_apply"]
+        want = fir_block_reference(x, w, f.h, f.scale)
+        err = rel_max(want, y)
+        g = f.replace(window=w)
+        y1, g1 = g.execute_block(x[:, :FIR_SPLIT])
+        y2, g2 = g1.execute_block(x[:, FIR_SPLIT:])
+        whole, gw = g.execute_block(x)
+        split = torch.equal(torch.cat([y1, y2], -1), whole) and torch.equal(g2.window, gw.window)
+        print(f"[kernel-vs-plain] fir_block {name}: [{C2}, {T2}] {x.dtype} through {f.h_len} "
+              f"{f.h.dtype} taps, {launched} launch: max |a - b| / max |a| {err:.3e} (< {FIR_TOL}); "
+              f"{FIR_SPLIT} + {T2 - FIR_SPLIT} bit-identical to the whole block {split}")
+        require(err < FIR_TOL and launched == 1 and split and bool(torch.isfinite(y).all()),
+                f"fir_block vs plain, {name}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_timing_fir(device, card: str) -> tuple[float, float, float]:
+    """A config[2] step's four FIRs by graph replay over N_ROT input sets (the
+    50 MB L2 cannot hold them): fir_block, its plain version (frames, cuBLAS
+    gemms, scale), and cuBLAS's banded gemms alone on frames made before
+    (the library yardstick, which the port never calls); ms a step each."""
+    from yagi_tpu_torch.filter import _conv
+
+    sets = fir_sets(device)
+    kernel = [lambda f=f, s=s: fir_block_apply(s[0], s[1], f.h, f.scale)
+              for f, ss in sets.values() for s in ss]
+    plain = [lambda f=f, s=s: fir_block_reference(s[0], s[1], f.h, f.scale)
+             for f, ss in sets.values() for s in ss]
+    gemms = []
+    for f, ss in sets.values():
+        for x, w in ss:
+            xa = torch.cat([w[..., 1:], x], -1)
+            parts = ([xa.real.contiguous(), xa.imag.contiguous()]
+                     if xa.is_complex() and not f.h.is_complex() else [xa])
+            for part in parts:  # what _conv._banded hands to the gemm
+                dt = torch.promote_types(part.dtype, f.h.dtype)
+                fr, _ = _conv._band_frames(part.to(dt), f.h_len)
+                k, valid = _conv._band_index(fr.shape[-1], f.h_len, f.h.device)
+                g = torch.where(valid, f.h.to(dt)[k], 0)
+                gemms.append(lambda fr=fr, g=g: fr @ g)
+    per_step = [len(c) / N_ROT for c in (kernel, plain, gemms)]
+    p1, k1, l1, l2, k2, p2 = (graph_ms(c) * n for c, n in zip(
+        (plain, kernel, gemms, gemms, kernel, plain),
+        (per_step[1], per_step[0], per_step[2], per_step[2], per_step[0], per_step[1])))
+    k_ms, p_ms, l_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+    print(f"[timing] {card}: fir_block {k_ms:.4f} ms a config[2] step ({k1:.4f}, {k2:.4f}; four "
+          f"launches), plain (banded matmul) {p_ms:.4f} ({p1:.4f}, {p2:.4f}), cuBLAS's banded "
+          f"gemms alone {l_ms:.4f} ({l1:.4f}, {l2:.4f}), by graph replay at [{C2}, {T2}], 129 taps")
+    return k_ms, p_ms, l_ms
+
+
 def fm_chain(device, parallel: bool = True) -> FmStereoRx:
     """config[2]'s chain; with ``parallel`` False its de-emphasis filters run
     the sequential recurrence (iir_scan)."""
@@ -1955,27 +2045,34 @@ def phase_main_path_config2(device) -> dict:
     counts = read_counts()
     print(f"[main-path] FmStereoRx.step: {N_BLOCKS} blocks of [{C2}, {T2}] complex64, kernel "
           f"launches {counts}")
-    require(all(v == (2 * N_BLOCKS if k == "iir_chunked_apply" else 0) for k, v in counts.items()),
-            f"launches {counts}: want {2 * N_BLOCKS} of iir_chunked_apply, no other")
-    launches = {"iir_chunked": counts["iir_chunked_apply"]}
+    want_n = {"iir_chunked_apply": 2 * N_BLOCKS, "fir_block_apply": 4 * N_BLOCKS}
+    require(all(v == want_n.get(k, 0) for k, v in counts.items()),
+            f"launches {counts}: want {want_n}, no other")
+    launches = {"iir_chunked": counts["iir_chunked_apply"], "fir_block": counts["fir_block_apply"]}
 
     plain = fm_chain(device)
-    worst = [0.0, 0.0]
+    worst = [0.0, 0.0, 0.0]
     for i, (x, (left, right, level)) in enumerate(zip(blocks, outs)):
         lp, rp, pp, plain = plain._step(x, plain=True)
         require(tuple(left.shape) == tuple(right.shape) == (C2, T2) and tuple(level.shape) == (C2,)
                 and left.dtype == right.dtype == level.dtype == torch.float32, f"block {i}: shapes")
         require(bool(torch.isfinite(left).all() & torch.isfinite(right).all()), f"block {i}: finite")
-        errs = [rel_max(lp, left), rel_max(rp, right)]
-        require(max(errs) < IIR_TF_TOL and torch.equal(level, pp),
-                f"block {i}: vs the plain chain {errs}, pilot level equal {torch.equal(level, pp)}")
+        errs = [rel_max(lp, left), rel_max(rp, right), rel_max(pp, level)]
+        require(max(errs[:2]) < IIR_TF_TOL and errs[2] < FM_LEVEL_TOL,
+                f"block {i}: vs the plain chain {errs}")
         worst = [max(w, e) for w, e in zip(worst, errs)]
+    # the FIRs' windows: copies of the composite (pilot, delay) and of its
+    # delay (sum, exact on both routes: one unit tap), and of the mix, which
+    # the pilot's two routes round apart
     state_errs = [rel_max(getattr(plain, f).v, getattr(rx, f).v) for f in ("deemph_l", "deemph_r")]
-    other = [d for d in state_diff(rx, plain) if not d.startswith("deemph_")]
-    print(f"[main-path] FmStereoRx vs the chain with the de-emphasis on iir_chunked_reference over "
-          f"{N_BLOCKS} blocks: max |a - b| / max |a| L {worst[0]:.3e}, R {worst[1]:.3e} (< "
-          f"{IIR_TF_TOL}), pilot_level bit-identical; de-emphasis states {state_errs[0]:.3e}, "
-          f"{state_errs[1]:.3e}; other state fields that differ {other}; pilot level "
+    state_errs.append(rel_max(plain.diff_lp.window, rx.diff_lp.window))
+    other = [d for d in state_diff(rx, plain)
+             if not d.startswith("deemph_") and not d.startswith("diff_lp.window")]
+    print(f"[main-path] FmStereoRx vs the chain with its FIRs and de-emphasis on their plain "
+          f"versions over {N_BLOCKS} blocks: max |a - b| / max |a| L {worst[0]:.3e}, R "
+          f"{worst[1]:.3e} (< {IIR_TF_TOL}), pilot level {worst[2]:.3e} (< {FM_LEVEL_TOL}); "
+          f"de-emphasis states {state_errs[0]:.3e}, {state_errs[1]:.3e}, the difference's window "
+          f"{state_errs[2]:.3e}; other state fields that differ {other}; pilot level "
           f"{outs[-1][2].mean().item():.4f} (mean)")
     require(max(state_errs) < IIR_TF_TOL and not other, "carried state vs the plain chain")
 
@@ -1992,8 +2089,10 @@ def phase_main_path_config2(device) -> dict:
     errs = [max(rel_max(o[j], so[j]) for o, so in zip(outs, s_outs)) for j in (0, 1)]
     print(f"[main-path] FmStereoRx, de-emphasis sequential: {N_FM_SEQ} blocks, kernel launches "
           f"{counts}; vs the chunked route max |a - b| / max |a| L {errs[0]:.3e}, R {errs[1]:.3e}")
-    require(counts["iir_scan_apply"] == 2 * N_FM_SEQ and counts["iir_chunked_apply"] == 0,
-            f"launches {counts}: want {2 * N_FM_SEQ} of iir_scan_apply")
+    require(counts["iir_scan_apply"] == 2 * N_FM_SEQ and counts["iir_chunked_apply"] == 0
+            and counts["fir_block_apply"] == 4 * N_FM_SEQ,
+            f"launches {counts}: want {2 * N_FM_SEQ} of iir_scan_apply, {4 * N_FM_SEQ} of "
+            "fir_block_apply")
     require(max(errs) < IIR_TF_TOL, "sequential route vs the chunked one")
 
     # one 2T block equals two T blocks, the chain and a 5th-order Butterworth
@@ -2891,8 +2990,10 @@ def phase_modems(device, card: str) -> None:
             (_, m), st, counts = modem_run(name, make, step, mod_blocks(audio), ("f", "f"),
                                            AM_TOL, card)
             am_launches[name] = counts["iir_chunked_apply"]
+            fir = nb if st.hilb is not None else 0  # the SSB types' Hilbert FIR, fir_block
             require(counts["iir_chunked_apply"] == (0 if suppressed else nb)
-                    and sum(counts.values()) == counts["iir_chunked_apply"],
+                    and counts["fir_block_apply"] == fir
+                    and sum(counts.values()) == counts["iir_chunked_apply"] + fir,
                     f"{name}: launches {counts}")
             lag = st.delay
             e = m[:, AM_SETTLE:] - audio[:, AM_SETTLE - lag: audio.shape[1] - lag]
@@ -3835,7 +3936,7 @@ def frames_checkpoint(device, card: str) -> None:
           f"objects saved mid-stream on the card, restored into fresh card objects: outputs "
           f"and every leaf bit-identical; kernel launches over these runs {launched}")
     for k in ("fused_chain_apply_c64", "fused_channelizer_apply", "symsync_fused_apply",
-              "agc_scan_apply", "qam_eq_scan_apply", "iir_scan_apply"):
+              "agc_scan_apply", "qam_eq_scan_apply", "iir_scan_apply", "fir_block_apply"):
         require(launched.get(k, 0) > 0, f"checkpoint: {k} never launched")
 
 
@@ -3904,6 +4005,12 @@ def kernel_work(device, sym_emitted: float) -> dict:
     S, h, m = 2 * T3, rx.eq.h_len, rx.table.shape[0]
     eq_state = nbytes(*rx.eq_scan_args()[4].values())
     iir = (C2 * T2 * 4 * 2 + C2 * 4 * 2 + 3 * 4, C2 * T2 * 3)
+    L2 = make_fmstereo(1, device).align.h_len
+    fir = [0, 0]  # config[2]'s four FIRs a step, each at its least form (the pilot's real input)
+    for xc, hc in ((False, True), (False, False), (False, False), (True, False)):
+        sx, sy, sh = 8 if xc else 4, 8 if xc or hc else 4, 8 if hc else 4
+        fir[0] += C2 * (T2 + L2 - 1) * sx + C2 * T2 * sy + L2 * sh
+        fir[1] += 2 * C2 * T2 * L2 * (2 if xc or hc else 1)
     chain = (4 * C * T * 2 * (1 + fused.p) + nbytes(fused.taps, fused.hist_r, fused.hist_i),
              C * T * (4 * CHAIN["n_taps"] + fused.p * (4 * pfb1 + 8)))
     return {
@@ -3930,6 +4037,9 @@ def kernel_work(device, sym_emitted: float) -> dict:
         # out, b0, a1, the scale; per sample v0 = x − a1·v1 and y = b0·v0
         "iir_scan": iir,
         "iir_chunked": iir,  # the same function
+        # the block in with its window's L − 1 samples, the output, the taps;
+        # 2·L·r flops an output, r the real multiply-adds a tap
+        "fir_block": tuple(fir),
     }
 
 
@@ -3970,6 +4080,7 @@ def main() -> None:
     launches.update(phase_main_path_config3(device))
     phase_signal_config3(device)
     errs.update(phase_kernel_vs_plain_iir(device))
+    errs["fir_block"] = phase_kernel_vs_plain_fir(device)
     launches.update(phase_main_path_config2(device))
     phase_signal_config2(device)
     mark("kernel-vs-plain, main paths, signal")
@@ -3997,6 +4108,8 @@ def main() -> None:
         **phase_timing_config3(device, smi, {k: v[1] for k, v in qam.items()}),
         **phase_timing_config2(device, smi),
     }
+    k_ms, p_ms, library_ms = phase_timing_fir(device, smi)
+    times["fir_block"] = (k_ms, p_ms)
     sources = {
         "chain_fp32": ("yagi_tpu_torch/csrc/chain.cu", "yagi_tpu/kernels/chain.py:87"),
         # the same source's interleaved instance, FusedRxChain.step's
@@ -4011,6 +4124,8 @@ def main() -> None:
         "qam_eq_scan": ("yagi_tpu_torch/csrc/qam.cu", "yagi_tpu/chains/qam.py:173"),
         "iir_scan": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/iirfilt.py:317"),
         "iir_chunked": ("yagi_tpu_torch/csrc/iir.cu", "yagi_tpu/filter/_linrec.py:49"),
+        # no pallas_call: the banded matmul in plain XLA (a step's four filters)
+        "fir_block": ("yagi_tpu_torch/csrc/fir.cu", "yagi_tpu/filter/_conv.py:32"),
     }
     mark("timing")
     print("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
@@ -4021,7 +4136,8 @@ def main() -> None:
           f"({b3[1]}); at config[1]: {bounds['symsync_fused'][0]:.4f} ms")
     # no single PyTorch call computes any of these functions: FIR ⊛ PFB with
     # a u32 NCO, PFB + DFT, a u32-exact mix, loops that feed their
-    # decisions back, and an IIR recurrence (PERF.md §6)
+    # decisions back, and an IIR recurrence (PERF.md §6); fir_block's
+    # yardstick is cuBLAS's banded gemms (a config[2] step's, frames made)
     # K4's first version stays in its source as the direct instance (for rows
     # too long to stage), so its time is taken in this run too, as v1_ms
     print(json.dumps({"kernels": [{
@@ -4035,7 +4151,7 @@ def main() -> None:
         "plain_ms": times[k][1],
         "bound_ms": bounds[k][0],
         "bound_by": bounds[k][1],
-        "library_ms": None,
+        "library_ms": library_ms if k == "fir_block" else None,
         **({"v1_ms": times[k][2]} if len(times[k]) > 2 else {}),
     } for k, (src, replaces) in sources.items()]}))
     print(f"card: {smi}")

@@ -60,6 +60,11 @@ def _same_state(t, j, atol=ATOL):
         jv = jl[name]
         if isinstance(tv, torch.Tensor):
             jv = np.asarray(jv)
+            if name == "pilot_bp.window" and not tv.is_complex():
+                # the port carries the real composite as float32, yagi_tpu as
+                # complex64 with no imaginary part
+                assert not jv.imag.any(), name
+                jv = jv.real
             assert tv.shape == jv.shape and tv.numpy().dtype == jv.dtype, name
             np.testing.assert_allclose(tv.numpy(), jv, atol=atol, rtol=0, err_msg=name)
         else:

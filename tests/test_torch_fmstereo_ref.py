@@ -254,7 +254,12 @@ def test_spans_nest_and_create_is_timed_with_tracing_off():
     assert step["ns"] - step["self_ns"] == sum(spans[n]["ns"] for n in CHILDREN)
     deemph, iir = spans["yagi.fmrx.deemph"], spans["yagi.kernel.iir_chunked_apply"]
     assert iir["count"] == 2 and deemph["ns"] - deemph["self_ns"] == iir["ns"]
-    for n in ("yagi.fmrx.demod", "yagi.fmrx.pilot", "yagi.fmrx.fir", "yagi.fmrx.state"):
+    # the pilot's FIR and the other three: the wrapper's span inside theirs
+    pilot, fir = spans["yagi.fmrx.pilot"], spans["yagi.fmrx.fir"]
+    wrapper = spans["yagi.kernel.fir_block_apply"]
+    assert wrapper["count"] == 4
+    assert pilot["ns"] - pilot["self_ns"] + fir["ns"] - fir["self_ns"] == wrapper["ns"]
+    for n in ("yagi.fmrx.demod", "yagi.fmrx.state"):
         assert spans[n]["self_ns"] == spans[n]["ns"]
 
 

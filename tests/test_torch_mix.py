@@ -97,8 +97,8 @@ def test_rejects_bad_input(bad):
 
 
 # ------------------------------------------------------------ build recipe
-_SOURCES = ["agc.cu", "chain.cu", "channelizer.cu", "iir.cu", "mix.cu", "qam.cu", "resamp.cu",
-            "symscan.cu"]
+_SOURCES = ["agc.cu", "chain.cu", "channelizer.cu", "fir.cu", "iir.cu", "mix.cu", "qam.cu",
+            "resamp.cu", "symscan.cu"]
 
 
 @pytest.mark.parametrize("name", _SOURCES)

@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 DEV = "cpu"
 # each kernel wrapper, by the module of yagi_tpu_torch.kernels that holds it
 WRAPPERS = {"agc_scan_apply": "agc", "fused_chain_apply": "chain", "fused_chain_apply_c64": "chain",
-            "fused_channelizer_apply": "channelizer", "iir_chunked_apply": "iir",
+            "fused_channelizer_apply": "channelizer", "fir_block_apply": "fir",
+            "iir_chunked_apply": "iir",
             "iir_scan_apply": "iir", "mix_down_apply": "mix", "qam_eq_scan_apply": "qam",
             "resamp_u32_apply": "resamp", "symsync_fused_apply": "symscan",
             "symsync_scan_apply": "symscan"}

@@ -12,8 +12,9 @@ de-emphasis IIR + pilot-tone stereo separation"):
 All frequencies are normalized to the composite sample rate (broadcast FM:
 f_p = 19 kHz / fs). The pilot's analytic signal comes from a complex-tap FIR
 (kaiser lowpass mixed to +f_p), and the 38 kHz subcarrier is its normalized
-square. The four FIRs are banded matmuls (``filter/_conv.py``); the two
-de-emphasis IIRs run the ``iir_chunked`` kernel, once each per block.
+square. The four FIRs run the direct-form ``fir_block`` kernel
+(``csrc/fir.cu``), once each per block; the two de-emphasis IIRs the
+``iir_chunked`` kernel, once each per block.
 
 Spans (``trace.py``): ``yagi.fmrx.step`` over ``yagi.fmrx.demod`` (the
 discriminator), ``yagi.fmrx.pilot`` (the pilot's bandpass and the 38 kHz
@@ -55,7 +56,7 @@ class FmStereoRx:
     align: FirFilter = struct.field()  # pure delay matching pilot_bp's group delay
     mono_lp: FirFilter = struct.field()  # audio lowpass for L+R
     diff_lp: FirFilter = struct.field()  # complex lowpass for (L-R) recovery
-    pilot_bp: FirFilter = struct.field()  # complex bandpass at f_pilot
+    pilot_bp: FirFilter = struct.field()  # complex bandpass at f_pilot; its window real
     deemph_l: IirFilter = struct.field()
     deemph_r: IirFilter = struct.field()
 
@@ -78,8 +79,11 @@ class FmStereoRx:
                                    dtype=torch.float32, device=device)
         diff_lp = FirFilter.create(h_audio.astype(np.float32), batch_shape=batch_shape,
                                    dtype=torch.complex64, device=device)
+        # the composite is real: the pilot's window holds it as float32, so
+        # its block runs real samples through complex taps (2 real
+        # multiply-adds a tap, not a complex product's 4)
         pilot_bp = FirFilter.create(_complex_bandpass(n_taps, 0.008, f_pilot),
-                                    batch_shape=batch_shape, dtype=torch.complex64,
+                                    batch_shape=batch_shape, dtype=torch.float32,
                                     device=device)
         # delay-match the composite to the pilot filter's group delay so the
         # regenerated 38 kHz subcarrier is phase-aligned with the composite
@@ -116,14 +120,15 @@ class FmStereoRx:
     __call__ = step
 
     def _step(self, iq, plain: bool):
-        """:meth:`step`, the de-emphasis through ``iir_chunked``, or with
-        ``plain`` through its plain version on any device (the oracle)."""
+        """:meth:`step`, the FIRs through ``fir_block`` and the de-emphasis
+        through ``iir_chunked``, or with ``plain`` through their plain
+        versions on any device (the oracle)."""
         with trace.span("yagi.fmrx.demod"):
             m, demod = self.demod.demodulate(iq)
 
         # analytic pilot (delay D)
         with trace.span("yagi.fmrx.pilot"):
-            z, pilot_bp = self.pilot_bp.execute_block(m.to(torch.complex64))
+            z, pilot_bp = self.pilot_bp._run(m, plain)
             mag = z.abs()
             unit = z / torch.clamp(mag, min=1e-9)
             carrier2 = unit * unit  # e^{+j2θ}, phase-exact 38 kHz subcarrier
@@ -131,9 +136,9 @@ class FmStereoRx:
 
         # delay-matched composite, then the sum and difference channels
         with trace.span("yagi.fmrx.fir"):
-            m_d, align = self.align.execute_block(m)
-            mono, mono_lp = self.mono_lp.execute_block(m_d)
-            d, diff_lp = self.diff_lp.execute_block(m_d.to(torch.complex64) * carrier2.conj())
+            m_d, align = self.align._run(m, plain)
+            mono, mono_lp = self.mono_lp._run(m_d, plain)
+            d, diff_lp = self.diff_lp._run(m_d.to(torch.complex64) * carrier2.conj(), plain)
             stereo = 2.0 * d.real
 
         with trace.span("yagi.fmrx.deemph"):

@@ -3,9 +3,16 @@
 Port of :mod:`yagi_tpu.filter._conv`: the reference's per-sample window·h
 dotprod (firfilt.rs:241-245) as one dense matmul against a banded tap
 matrix, for one filter (:func:`causal_conv_valid`, with a stride for the
-decimators) or a bank of them (:func:`multi_branch_conv`). Plain torch; no
-kernel of its own. yagi_tpu's TPU-only forms (``multi_branch_conv_tm``,
-``banded_branch_matrix``) are not ported.
+decimators) or a bank of them (:func:`multi_branch_conv`). Plain torch.
+``FirFilter``'s blocks run it on the CPU only, as the plain version of
+``kernels/fir.py::fir_block_apply``; on the card they run that kernel
+(``csrc/fir.cu``, direct form, no frames). Its other callers
+(``firdecim``, ``firpfb``, ``misc``, ``resamp2``, ``farrow``,
+``_farrow_resamp``, ``firhilb``, ``framing/`` ``bsync``, ``gmskframe`` and
+``msource``, ``modem/cpm``, ``parallel/stream``) run the banded matmul on
+every device. yagi_tpu's
+TPU-only forms (``multi_branch_conv_tm``, ``banded_branch_matrix``) are not
+ported.
 
 Each banded matmul counts, whether tracing is on or off (``trace.py``):
 ``conv.frame_bytes`` (the frames [B, nb, K] it writes),

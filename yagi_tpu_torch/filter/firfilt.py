@@ -1,9 +1,11 @@
 """Streaming finite impulse response filter.
 
 Port of :mod:`yagi_tpu.filter.firfilt` (reference: firfilt.rs). A whole
-block is filtered with one batched convolution over ``concat(history, x)``;
-the last L inputs are carried in ``window``, so consecutive blocks equal one
-long block.
+block is filtered in one call of ``kernels/fir.py::fir_block_apply`` over
+the block after the carried history: on the card the direct-form kernel
+``csrc/fir.cu``, on the CPU its plain version, the banded matmul of
+``_conv.py``. The last L inputs are carried in ``window``, so consecutive
+blocks equal one long block.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from .._src.device import resolve_device
 from .._src.window import carry
 from ..errors import ConfigError
 from .. import design
-from ._conv import causal_conv_valid, np_taps
+from ..kernels.fir import fir_block_apply, fir_block_reference
+from ._conv import np_taps
 
 __all__ = ["FirFilter"]
 
@@ -134,10 +137,24 @@ class FirFilter:
         y[..., n] = scale · Σ_k h[k] · x[..., n-k], history crossing block
         boundaries via the carried window.
         """
+        return self._run(x, plain=False)
+
+    def _run(self, x, plain: bool):
+        """The block through ``fir_block_apply``, or with ``plain`` through
+        its plain version on any device (a chain's oracle)."""
         x = torch.as_tensor(x, device=self.window.device)
-        xa = torch.cat([self.window[..., 1:].to(x.dtype), x], dim=-1)
-        y = causal_conv_valid(xa, self.h) * self.scale
-        return y, self.replace(window=carry(self.window, xa))
+        fn = fir_block_reference if plain else fir_block_apply
+        y = fn(x, self.window, self.h, self.scale)
+        return y, self.replace(window=self._carried(x))
+
+    def _carried(self, x: torch.Tensor) -> torch.Tensor:
+        """``carry(window, xa)`` without forming xa = (window[..., 1:], x):
+        the last L samples of the stream, in x's dtype; a copy, so the state
+        neither aliases nor keeps alive the caller's block."""
+        n, L = x.shape[-1], self.window.shape[-1]
+        if n >= L:
+            return x[..., n - L :].clone(memory_format=torch.contiguous_format)
+        return torch.cat([self.window[..., n:].to(x.dtype), x], dim=-1)
 
     __call__ = execute_block
 

@@ -8,6 +8,7 @@ from .channelizer import (  # noqa: F401
     fused_channelizer_apply,
     fused_channelizer_reference,
 )
+from .fir import fir_block_apply, fir_block_reference  # noqa: F401
 from .iir import (  # noqa: F401
     iir_chunked_apply,
     iir_chunked_reference,

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "yagi_iir_scan": [_P] * 8 + [_I] * 7 + [_P],
     # x, b, a, scale, v_in, y, v_out, C, T, m, nst, cx, cc, inst, stream
     "yagi_iir_chunked": [_P] * 7 + [_I] * 7 + [_P],
+    # x, window, h, scale, y, C, n, L, xc, hc, stream
+    "yagi_fir_block": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

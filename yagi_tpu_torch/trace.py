@@ -39,7 +39,7 @@ Every name starts with ``yagi.``:
   subcarrier), ``yagi.fmrx.fir`` (the delay and the two audio FIRs),
   ``yagi.fmrx.deemph`` (the two de-emphasis blocks, over their
   ``yagi.kernel.iir_chunked_apply``) and ``yagi.fmrx.state`` (the new state);
-- kernel wrappers (the eleven registered by :func:`kernel`):
+- kernel wrappers (the twelve registered by :func:`kernel`):
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
   the kernels' library;
@@ -60,13 +60,16 @@ launches of K2's FM instance, the channelizer with the discriminator in its
 epilogue), ``resamp.calls`` (the calls of ``resamp_u32_apply``, the u32
 PFB resampler, on either route) and ``resamp.frame_bytes`` (the bytes of the
 frames [..., cap, L] its plain version's gather writes to device memory,
-C·cap·L·itemsize; the kernel writes none), the banded-matmul FIRs'
-(``filter/_conv.py``: ``causal_conv_valid``, its strided form and
+C·cap·L·itemsize; the kernel writes none), the FIRs'
+``conv.frame_bytes``, ``conv.macs`` and ``conv.tap_macs``: on the banded
+matmul (``filter/_conv.py``: ``causal_conv_valid``, its strided form and
 ``multi_branch_conv``, each real half of a complex signal through real taps
-alone) ``conv.frame_bytes`` (the frames [B, nb, K] a call
-writes, B·nb·K·itemsize), ``conv.macs`` (the multiply-adds its matmul runs,
-B·nb·128·K a filter) and ``conv.tap_macs`` (those the filter needs,
-B·n_out·L), complex products counted as 4 real, ``fmrx.steps`` (the calls
+alone; ``fir_block_apply``'s plain version) the frames [B, nb, K] a call
+writes (B·nb·K·itemsize), the multiply-adds its matmul runs (B·nb·128·K a
+filter) and those the filter needs (B·n_out·L), complex products counted as
+4 real; on ``fir_block_apply``'s kernel (``csrc/fir.cu``, direct form) 0
+bytes of frames and B·n·L·r multiply-adds in both, r = 1, 2 or 4 the real
+multiply-adds a tap of its types; ``fmrx.steps`` (the calls
 of ``FmStereoRx.step``, over which a step's share of those is read), and
 each registered kernel wrapper's launches, in its ``launches`` attribute,
 which :func:`launches` reads. A kernel can count on the device too, into a :func:`device_counter`:
