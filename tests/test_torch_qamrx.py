@@ -375,12 +375,23 @@ def test_create_without_a_device_needs_the_card(monkeypatch):
 
 
 def test_resolve_device_picks_the_current_card(monkeypatch):
-    """None is the current CUDA device; an explicit device passes through."""
+    """None is the current CUDA device; an explicit device passes through;
+    each CUDA device's context is made (here a stand-in for the card's
+    init and synchronize) at its first resolve alone."""
+    from yagi_tpu_torch._src import device as device_mod
+
+    synced = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "init", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    monkeypatch.setattr(device_mod, "_opened", set())
     assert resolve_device(None) == torch.device("cuda", 1)
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cuda", 0)) == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert synced == [1, 0]
 
 
 # --------------------------------------------------- equalizers past 16 taps

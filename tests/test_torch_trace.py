@@ -3,17 +3,24 @@ one shared no-op and keeps nothing; on it keeps counts, times and self times
 by name, each span's time taken from its parent's self time on its own
 thread; set-up spans and counters record either way; the entries' outputs and
 state are the same with it on or off; nothing reaches a profiler's trace; the
-registry lists every kernel wrapper."""
+registry lists every kernel wrapper. The timeline: set-up intervals kept on
+or off and placed on the wall clock by the anchor, step intervals in a
+bounded buffer, each entry's first step spanned once a process and its later
+steps reading no clock, no device span on the CPU."""
 
+import collections
 import dataclasses
 import importlib
+import os
 import threading
+import time
 
 import pytest
 import torch
 
 from yagi_tpu_torch import trace
-from yagi_tpu_torch.chains import FusedRxChain, QamRx
+from yagi_tpu_torch._src import device as device_mod
+from yagi_tpu_torch.chains import ChannelizerFmRx, FmStereoRx, FusedRxChain, QamRx, ResampSymsyncRx
 
 torch.set_num_threads(1)
 
@@ -267,3 +274,194 @@ def test_step_profile_counts_overlapping_device_time_once():
     ops = [op(5, 12), op(0, 10), op(20, 21), op(12, 15), op(1, 2)]
     assert busy_us(ops) == 16
     assert busy_us([]) == 0
+
+
+def test_step_profile_names_each_idle_gap_by_the_innermost_span_over_half_of_it():
+    from yagi_tpu_torch.tools.step_profile import idle_gaps
+
+    ops = [(5, 12), (0, 10), (20, 21), (12, 15)]  # busy [0, 15] and [20, 21] of [0, 25]
+    spans = [("yagi.a.step", 0, 30), ("yagi.kernel.x", 14, 19), ("yagi.b", 15, 40),
+             ("yagi.short", 22, 23)]  # yagi.short covers a quarter of [21, 25]: too little
+    assert idle_gaps(ops, spans, 0, 25) == [("yagi.kernel.x", 5), ("yagi.b", 4)]
+    assert idle_gaps(ops, [], 0, 25) == [("outside", 5), ("outside", 4)]
+    assert idle_gaps([], spans, 2, 3) == [("yagi.a.step", 1)]
+
+
+def test_step_profile_puts_the_program_spans_on_the_profilers_clock():
+    """Each step's span, put on the profiler's clock by its trace start and
+    the timeline's anchor, lies inside the profiler's own range of that step
+    (within 0.2 ms, the clocks' reads; a wrong clock is off by years)."""
+    from yagi_tpu_torch.tools.step_profile import profiler_origin_ns
+
+    rx = QamRx.create(batch_shape=(2,), device=DEV)
+    x = _block(2, 32, 3)
+    trace.enable()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with torch.profiler.record_function("mark"):
+                rx.step_masked(x)
+    tl = trace.snapshot()["timeline"]
+    origin, _ = profiler_origin_ns(prof, tl["anchor"])
+    marks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == "mark")
+    steps = [((a - origin) / 1e3, (b - origin) / 1e3) for n, a, b in tl["steps"]
+             if n == "yagi.qamrx.step"]
+    assert len(marks) == len(steps) == 3
+    for (ma, mb), (a, b) in zip(marks, steps):
+        assert ma - 200 <= a < b <= mb + 200
+
+
+def _planes(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((2, n), generator=g)
+
+
+# each entry: its create at a tiny size on the CPU, and one step returning the new state
+ENTRIES = {
+    "rxchain": (lambda **kw: FusedRxChain.create(batch_shape=(2,), **kw),
+                lambda o: o.step(_block(2, 256, 1))[-1]),
+    "qamrx": (lambda **kw: QamRx.create(batch_shape=(2,), **kw),
+              lambda o: o.step_masked(_block(2, 32, 1))[-1]),
+    "chzfm": (lambda **kw: ChannelizerFmRx.create(**kw), lambda o: o.step(*_planes(16384, 1))[-1]),
+    "symrx": (lambda **kw: ResampSymsyncRx.create(2, **kw), lambda o: o.step(_block(2, 256, 1))[-1]),
+    "fmrx": (lambda **kw: FmStereoRx.create(batch_shape=(2,), **kw),
+             lambda o: o.step(_block(2, 256, 1))[-1]),
+}
+
+
+@pytest.fixture
+def fresh_firsts(monkeypatch):
+    """A process in which no entry has stepped yet."""
+    monkeypatch.setattr(trace, "_firsts", set())
+
+
+def _process_start_ns() -> int:
+    """This process's start on the wall clock, from ``/proc`` (10-ms ticks)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    return time.time_ns() - time.clock_gettime_ns(time.CLOCK_BOOTTIME) + \
+        ticks * 10**9 // os.sysconf("SC_CLK_TCK")
+
+
+def test_the_timeline_keeps_set_up_intervals_in_order_with_tracing_off():
+    FusedRxChain.create(batch_shape=(2,), device=DEV)
+    QamRx.create(batch_shape=(2,), device=DEV)
+    tl = trace.snapshot()["timeline"]
+    assert [n for n, _, _ in tl["setup"]] == ["yagi.rxchain.create", "yagi.rxchain.taps",
+                                              "yagi.qamrx.create"]
+    (_, c0, c1), (_, t0, t1), (_, q0, q1) = tl["setup"]
+    assert c0 <= t0 <= t1 <= c1 <= q0 <= q1  # the taps inside create, then the next create
+    assert tl["steps"] == [] and tl["dropped"] == 0  # no step span while tracing is off
+    anchor = tl["anchor"]
+    lo, hi = _process_start_ns() - 20_000_000, time.time_ns()  # the /proc start has 10-ms ticks
+    for _, a, b in tl["setup"]:
+        assert lo <= anchor["wall_ns"] + (a - anchor["clock_ns"]) <= \
+            anchor["wall_ns"] + (b - anchor["clock_ns"]) <= hi
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_first_step_is_taken_once_per_entry_per_process(entry, fresh_firsts):
+    create, step = ENTRIES[entry]
+    obj = step(step(create(device=DEV)))
+    snap = trace.snapshot()
+    first = f"yagi.{entry}.first_step"
+    assert snap["spans"][first]["count"] == 1
+    setup = snap["timeline"]["setup"]
+    assert [n for n, _, _ in setup].count(first) == 1
+    made = next(iv for iv in setup if iv[0] == f"yagi.{entry}.create")
+    taken = next(iv for iv in setup if iv[0] == first)
+    assert made[2] <= taken[1]  # the first step came after create
+    assert f"yagi.{entry}.step" not in snap["spans"]  # tracing off: the set-up span alone
+    trace.enable()
+    step(obj)  # a later step with tracing on: its span, no second first step
+    spans = trace.snapshot()["spans"]
+    assert spans[first]["count"] == 1 and spans[f"yagi.{entry}.step"]["count"] == 1
+
+
+def test_rxchains_two_steps_share_one_first_step(fresh_firsts):
+    chain = FusedRxChain.create(batch_shape=(2,), device=DEV)
+    chain.step_planar(torch.zeros((2, 256)), torch.zeros((2, 256)))
+    chain.step(_block(2, 256, 2))
+    assert trace.snapshot()["spans"]["yagi.rxchain.first_step"]["count"] == 1
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_a_later_step_with_tracing_off_reads_no_clock_and_keeps_nothing(entry, fresh_firsts,
+                                                                       monkeypatch):
+    create, step = ENTRIES[entry]
+    obj = step(create(device=DEV))
+    before = trace.snapshot()
+
+    def refused(*args):
+        raise AssertionError("a later step with tracing off read the clock or made a span")
+
+    monkeypatch.setattr(trace, "_clock", refused)
+    monkeypatch.setattr(trace, "_Span", refused)
+    step(obj)
+    after = trace.snapshot()
+    assert after["timeline"] == before["timeline"] and after["spans"] == before["spans"]
+
+
+def test_the_step_buffer_keeps_its_bound_and_counts_its_drops(monkeypatch):
+    assert trace._steps.maxlen == trace.STEP_INTERVALS == 65_536
+    monkeypatch.setattr(trace, "_steps", collections.deque(maxlen=4))
+    trace.enable()
+    for i in range(10):
+        with trace.span(f"yagi.s{i}"):
+            pass
+    with trace.span("yagi.made", always=True):
+        pass
+    snap = trace.snapshot()
+    tl = snap["timeline"]
+    assert [n for n, _, _ in tl["steps"]] == ["yagi.s6", "yagi.s7", "yagi.s8", "yagi.s9"]
+    assert tl["dropped"] == 6
+    assert [n for n, _, _ in tl["setup"]] == ["yagi.made"]  # set-up spans are not in the buffer
+    assert snap["spans"]["yagi.s0"]["count"] == 1  # the totals keep what the buffer dropped
+    trace.reset()
+    tl = trace.snapshot()["timeline"]
+    assert tl["steps"] == [] and tl["setup"] == [] and tl["dropped"] == 0
+
+
+def test_resolve_device_opens_no_span_on_the_cpu():
+    for dev in ("cpu", torch.device("cpu")):
+        assert device_mod.resolve_device(dev) == torch.device("cpu")
+    snap = trace.snapshot()
+    assert "yagi.device" not in snap["spans"] and snap["timeline"]["setup"] == []
+
+
+def test_a_factorys_device_resolves_before_its_span(monkeypatch):
+    """``resolves_device``: the device (here a fake card's first use) is
+    resolved, and its span closed, before the factory's set-up span opens,
+    whether the device is given by name or by position."""
+    opened = []
+
+    def fake_open(index):
+        with trace.span("yagi.device", always=True):
+            opened.append(index)
+
+    monkeypatch.setattr(device_mod, "_open", fake_open)
+
+    @device_mod.resolves_device
+    @trace.spanned("yagi.fake.create", always=True)
+    def create(n, device=None):
+        return n, device
+
+    assert create(3, device="cuda:1") == (3, torch.device("cuda", 1))
+    assert create(4, "cuda:1") == (4, torch.device("cuda", 1))
+    assert opened == [1, 1]
+    names = [n for n, _, _ in trace.snapshot()["timeline"]["setup"]]
+    assert names == ["yagi.device", "yagi.fake.create"] * 2
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_each_entrys_create_resolves_its_device_outside_its_span(entry, monkeypatch):
+    seen = []
+    resolve = device_mod.resolve_device
+
+    def spy(device=None):
+        seen.append([s.name for s in trace._stack()])
+        return resolve(device)
+
+    monkeypatch.setattr(device_mod, "resolve_device", spy)
+    ENTRIES[entry][0](device=DEV)
+    assert seen[0] == []  # the first resolve: no span open, the create's neither

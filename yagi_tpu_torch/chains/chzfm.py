@@ -25,7 +25,7 @@ import torch
 
 from .. import trace
 from .._src import struct
-from .._src.device import resolve_device
+from .._src.device import resolves_device
 from ..errors import ConfigError
 from ..kernels.channelizer import fused_channelizer_apply
 from ..multichannel import FusedChannelizer
@@ -42,10 +42,10 @@ class ChannelizerFmRx:
     r_prime: torch.Tensor = struct.field()  # [64] complex64: each channel's last output
 
     @classmethod
+    @resolves_device
     @trace.spanned("yagi.chzfm.create", always=True)
     def create(cls, num_channels: int = 64, m: int = 4, as_: float = 60.0, kf: float = 0.1,
                device=None) -> "ChannelizerFmRx":
-        device = resolve_device(device)
         if kf <= 0.0:
             raise ConfigError(f"modulation factor {kf:.4e} must be greater than 0")
         chz = FusedChannelizer.create_kaiser(num_channels, m, as_, device=device)
@@ -57,7 +57,7 @@ class ChannelizerFmRx:
         """Freqdem's float32 scale 1/(2π·kf) (freqdem.rs:41)."""
         return float(np.float32(1.0 / (2.0 * np.pi * self.kf)))
 
-    @trace.spanned("yagi.chzfm.step")
+    @trace.spanned("yagi.chzfm.step", first="yagi.chzfm.first_step")
     def step(self, xr, xi):
         """One block of the wideband stream as planar float32 planes xr, xi
         [N] (N = 64·T, a multiple of 16,384) → ``(yr, yi, fm, state)``: the

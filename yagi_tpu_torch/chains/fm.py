@@ -32,7 +32,7 @@ import torch
 
 from .. import trace
 from .._src import struct
-from .._src.device import resolve_device
+from .._src.device import resolves_device
 from ..design import fir_design_kaiser
 from ..filter import FirFilter, IirFilter
 from ..modem import Freqdem
@@ -61,6 +61,7 @@ class FmStereoRx:
     deemph_r: IirFilter = struct.field()
 
     @classmethod
+    @resolves_device
     @trace.spanned("yagi.fmrx.create", always=True)
     def create(
         cls,
@@ -72,7 +73,6 @@ class FmStereoRx:
         batch_shape: tuple = (),
         device=None,
     ) -> "FmStereoRx":
-        device = resolve_device(device)
         demod = Freqdem.create(kf, batch_shape=batch_shape, device=device)
         h_audio = fir_design_kaiser(n_taps, f_audio, 60.0, 0.0) * (2 * f_audio)
         mono_lp = FirFilter.create(h_audio.astype(np.float32), batch_shape=batch_shape,
@@ -110,7 +110,7 @@ class FmStereoRx:
             deemph_r=mk_deemph(),
         )
 
-    @trace.spanned("yagi.fmrx.step")
+    @trace.spanned("yagi.fmrx.step", first="yagi.fmrx.first_step")
     def step(self, iq) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, "FmStereoRx"]:
         """Decode one IQ block [..., T] → (left, right, pilot_level, new state)."""
         trace.count("fmrx.steps")

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .._src import struct
-from .._src.device import resolve_device
+from .._src.device import resolves_device
 from .._src.struct import U32
 from .. import design, trace
 from ..errors import ConfigError
@@ -61,6 +61,7 @@ class FusedRxChain:
             object.__setattr__(self, "taps", taps)
 
     @classmethod
+    @resolves_device
     @trace.spanned("yagi.rxchain.create", always=True)
     def create(
         cls,
@@ -76,7 +77,6 @@ class FusedRxChain:
         precision: str = "highest",
         device=None,
     ) -> "FusedRxChain":
-        device = resolve_device(device)
         p = int(round(rate))
         if p != rate or p < 1:
             raise ConfigError("FusedRxChain requires an integer rate")
@@ -113,7 +113,7 @@ class FusedRxChain:
         return h_fir, pfb_decompose(h_pfb[: n - 1], npfb)
 
     # ------------------------------------------------------------- streaming
-    @trace.spanned("yagi.rxchain.step")
+    @trace.spanned("yagi.rxchain.step", first="yagi.rxchain.first_step")
     def step_planar(self, xr, xi):
         """Planar block step: returns (yr, yi, num_valid, new_chain).
 
@@ -134,7 +134,7 @@ class FusedRxChain:
             theta=(self.theta + (xr.shape[-1] * self.p) * self.d_theta) & U32,
         )
 
-    @trace.spanned("yagi.rxchain.step")
+    @trace.spanned("yagi.rxchain.step", first="yagi.rxchain.first_step")
     def step(self, x):
         """Complex step: x complex64 [C, T] → (y complex64 [C, T·P], T·P,
         state), the kernel reading and writing interleaved samples, with the

@@ -28,7 +28,7 @@ import torch
 
 from .. import trace
 from .._src import struct
-from .._src.device import resolve_device
+from .._src.device import resolves_device
 from ..agc import Agc
 from ..design import FirFilterShape
 from ..equalization import Eqlms
@@ -65,12 +65,12 @@ class QamRx:
     slots: int = struct.static_field(default=2)
 
     @classmethod
+    @resolves_device
     @trace.spanned("yagi.qamrx.create", always=True)
     def create(cls, ftype: str = "rrcos", k: int = 2, m: int = 7, beta: float = 0.3,
                scheme: str = "qam16", eq_len: int = 7, eq_bw: float = 0.02,
                pll_bw: float = 0.02, batch_shape: tuple = (), slots: int = 2,
                device=None) -> "QamRx":
-        device = resolve_device(device)
         if k < 2:
             raise ConfigError("samples/symbol must be at least 2")
         if not 0.0 < beta <= 1.0:
@@ -177,7 +177,7 @@ class QamRx:
                      evm_count=vec(self.evm_count))
         return self.table, vec(self.eq.mu), vec(self.alpha), vec(self.beta), state
 
-    @trace.spanned("yagi.qamrx.step")
+    @trace.spanned("yagi.qamrx.step", first="yagi.qamrx.first_step")
     def _step_masked(self, x, plain: bool):
         """:meth:`step_masked` through the kernels, or with ``plain`` through
         every stage's plain version on any device: ``agc_scan_reference``,

@@ -22,7 +22,7 @@ import torch
 
 from .. import trace
 from .._src import struct
-from .._src.device import resolve_device
+from .._src.device import resolves_device
 from ..errors import ConfigError
 from ..filter import MsResamp, Symsync
 
@@ -37,6 +37,7 @@ class ResampSymsyncRx:
     sync: Symsync = struct.field()
 
     @classmethod
+    @resolves_device
     @trace.spanned("yagi.symrx.create", always=True)
     def create(cls, channels: int, rate: float = 2.0 / 2.0663, as_: float = 60.0,
                ftype: str = "rrcos", k: int = 2, m: int = 7, beta: float = 0.3,
@@ -45,7 +46,6 @@ class ResampSymsyncRx:
         """``channels`` streams: the resampler at ``rate`` (``as_`` dB) and a
         ``npfb``-branch root-Nyquist synchronizer (``ftype``, k, m, β) with
         loop bandwidth ``lf_bw``, emitting ``k_out`` samples a symbol."""
-        device = resolve_device(device)
         if channels < 1:
             raise ConfigError(f"number of channels ({channels}) must be at least 1")
         resamp = MsResamp.create(rate, as_=as_, batch_shape=(channels,),
@@ -54,7 +54,7 @@ class ResampSymsyncRx:
                                        batch_shape=(channels,), device=device)
         return cls(resamp=resamp, sync=sync.set_lf_bw(lf_bw).set_output_rate(k_out))
 
-    @trace.spanned("yagi.symrx.step")
+    @trace.spanned("yagi.symrx.step", first="yagi.symrx.first_step")
     def step_full(self, x):
         """:meth:`step`, and the resampler's output with its count:
         ``(y, valid, r, count, state)``, r [C, cap_r] zero past ``count``, a

@@ -6,9 +6,12 @@ For each path, 3 warm-up steps and then ``--steps`` eager steps with the
 state carried, over four random blocks from a seed: the device time per step
 between CUDA events, the host's time to enqueue a step, then a
 ``torch.profiler`` table of device time by kernel over 5 more steps, then
-the program's own span totals a step (:mod:`yagi_tpu_torch.trace`: count,
-host ms and self ms of each span) over ``--steps`` more steps with its
-tracing on and no profiler.
+5 more steps profiled with the program's tracing on, its span intervals put
+on the profiler's clock and each idle stretch of the device named by the
+innermost program span that covers at least half of it (``outside`` where
+none does: the tool's loop), then the program's own span totals a step
+(:mod:`yagi_tpu_torch.trace`: count, host ms and self ms of each span) over
+``--steps`` more steps with its tracing on and no profiler.
 
 * ``0``, config[0]: ``FusedRxChain.step``, 16 channels × 2^17 complex samples;
 * ``4``, config[4]: ``ChannelizerFmRx.step`` (K2's FM instance at M = 64,
@@ -54,8 +57,12 @@ copies, fills in the profiler's trace) and the device's idle share: one
 minus the union of the device operations' intervals (operations that
 overlap count once) over the profiled window's wall time.
 
-``--configs`` picks some of them (default all but ``l4``, ``mod`` and
-``frame``), for example ``4,1p``.
+* ``cost``: the host cost of the program's tracing, ns a call: a span site
+  with tracing off, an entry's later step's check of its first step, a span
+  with tracing on (its interval kept, the buffer full).
+
+``--configs`` picks some of them (default all but ``l4``, ``mod``, ``frame``
+and ``cost``), for example ``4,1p``.
 
 The shapes and constructors are those of :mod:`.paths`, which
 ``chip_smoke.py`` uses too.
@@ -71,6 +78,7 @@ checkout's root::
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import time
 
@@ -78,7 +86,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from yagi_tpu_torch import trace
 from yagi_tpu_torch.tools import paths
@@ -306,6 +314,142 @@ def busy_us(events) -> float:
     return total
 
 
+STEP_MARK = "step_profile.step"  # the profiler's own range around each step of the traced pass
+# steps run under the profiler before the traced pass's window: the first
+# launches after it starts wait on its set-up (3.4 ms in config[1]'s first)
+PRIME_STEPS = 2
+
+
+def profiler_origin_ns(prof, anchor: dict) -> tuple[int, str]:
+    """The profiler's trace start (its events' zero) on the program's span
+    clock, and the clock the profiler read it on: ``wall`` (put on the span
+    clock through the timeline's ``anchor``) or ``monotonic`` (the span
+    clock itself), whichever the start lies nearer to now."""
+    start = prof.profiler.kineto_results.trace_start_ns()
+    if abs(time.time_ns() - start) < abs(time.perf_counter_ns() - start):
+        return start - (anchor["wall_ns"] - anchor["clock_ns"]), "wall"
+    return start, "monotonic"
+
+
+def idle_gaps(ops: list, spans: list, lo: float, hi: float) -> list[tuple[str, float]]:
+    """Each stretch of ``[lo, hi]`` that no device op ``(start, end)``
+    covers, named by the innermost (shortest) program span ``(name, start,
+    end)`` that covers at least half of it, else ``outside``; all in µs on
+    one clock, longest first."""
+    gaps, at = [], lo
+    for a, b in sorted(ops):
+        if a > at:
+            gaps.append((at, min(a, hi)))
+        at = max(at, b)
+        if at >= hi:
+            break
+    if at < hi:
+        gaps.append((at, hi))
+    out = []
+    for a, b in gaps:
+        if b <= a:
+            continue
+        covering = [(e - s, n) for n, s, e in spans if min(b, e) - max(a, s) >= 0.5 * (b - a)]
+        out.append((min(covering)[1] if covering else "outside", b - a))
+    return sorted(out, key=lambda g: -g[1])
+
+
+def program_gaps(name: str, step, steps: int = 5) -> None:
+    """Profile ``steps`` steps with the program's tracing on, after
+    :data:`PRIME_STEPS` under the profiler and drained, put its span
+    intervals on the profiler's clock, check them against the profiler's own
+    range of each step, and print the device's idle stretches by the program
+    span they fall in."""
+    trace.reset()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIME_STEPS):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(steps):
+                with record_function(STEP_MARK):
+                    step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter_ns()
+    finally:
+        trace.enable(False)
+    tl = trace.snapshot()["timeline"]
+    origin, clock = profiler_origin_ns(prof, tl["anchor"])
+
+    def us(ns: int) -> float:
+        return (ns - origin) / 1e3
+
+    spans = [(n, us(a), us(b)) for n, a, b in tl["steps"]]
+    marks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == STEP_MARK and e.device_type == DeviceType.CPU)
+    leads = []  # µs from each step's profiler range to the first program span in it
+    for a, b in marks:
+        inside = [s for _, s, e in spans if a <= s and e <= b]
+        if inside:
+            leads.append(min(inside) - a)
+    lead = f"median lead {statistics.median(leads):.1f} µs" if leads else "no span inside"
+    print(f"[gaps] {name}: trace start on the {clock} clock; {len(leads)} of {len(marks)} "
+          f"profiled steps hold the program's spans, {lead}")
+    ops = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    lo, hi = us(t0), us(t1)
+    gaps = idle_gaps(ops, spans, lo, hi)
+    idle = sum(g for _, g in gaps)
+    print(f"[gaps] {name}: idle {100 * idle / (hi - lo):.1f}% of {(hi - lo) / steps / 1e3:.4f} ms "
+          f"a step with tracing on, {len(gaps)} stretches")
+    by = {}
+    for label, g in gaps:
+        n, total = by.get(label, (0, 0.0))
+        by[label] = (n + 1, total + g)
+    for label, (n, total) in sorted(by.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[gaps]   {label}: {n} stretches, {total / steps:.1f} µs a step "
+              f"({100 * total / idle:.1f}% of idle)")
+
+
+def span_cost(n: int = 200_000, repeats: int = 5) -> None:
+    """Print the host ns a call of the program's tracing costs (the median of
+    ``repeats`` timings of ``n`` calls each, less a plain call's)."""
+    def plain():
+        return None
+
+    off = trace.spanned("yagi.cost.off")(plain)
+    later = trace.spanned("yagi.cost.step", first="yagi.cost.first_step")(plain)
+    on = trace.spanned("yagi.cost.on")(plain)
+    later()  # takes its first step
+
+    def ns(fn) -> float:
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                fn()
+            times.append((time.perf_counter_ns() - t0) / n)
+        return statistics.median(times)
+
+    def with_span():
+        with trace.span("yagi.cost.with"):
+            pass
+
+    trace.reset()
+    base = ns(plain)
+    row = {"a span site, tracing off": ns(off) - base,
+           "a later step's first-step check, tracing off": ns(later) - ns(off),
+           "a with-span, tracing off": ns(with_span) - base}
+    trace.enable()
+    try:
+        row["a span, tracing on, its interval kept"] = ns(on) - base
+        row["a with-span, tracing on, its interval kept"] = ns(with_span) - base
+    finally:
+        trace.enable(False)
+    dropped = trace.snapshot()["timeline"]["dropped"]
+    trace.reset()
+    for what, v in row.items():
+        print(f"[cost] {what}: {v:.1f} ns")
+    print(f"[cost] the step buffer ({trace.STEP_INTERVALS} intervals) dropped {dropped}")
+
+
 def program_spans(step, steps: int) -> None:
     """Print the program's span totals a step over ``steps`` steps with its
     tracing on."""
@@ -350,6 +494,7 @@ def measure(name: str, step, steps: int) -> None:
     print(f"[step] {name}: {len(dev) / 5:.0f} device ops per step, device busy "
           f"{busy / 5e3:.4f} ms of {wall_us / 5e3:.4f} ms a step (idle "
           f"{100 * (1 - busy / wall_us):.1f}%)")
+    program_gaps(name, step)
     program_spans(step, steps)
 
 
@@ -384,6 +529,9 @@ def main(argv=None) -> None:
         if key == "l4":
             for name, step in filter_steps(device):
                 measure(name, step, args.steps)
+            continue
+        if key == "cost":
+            span_cost()
             continue
         if key == "mod":
             for name, step, steps in modem_steps(device):

@@ -2,8 +2,9 @@
 
 Off by default, and then a span site costs one flag check: no clock read, no
 allocation, no torch call. ``enable()`` turns it on for the process; from
-then on every span adds its time on the host clock (``time.perf_counter_ns``)
-to running totals by name, and :func:`snapshot` returns them as plain numbers::
+then on every span adds its time on the host clock (``time.perf_counter_ns``,
+CLOCK_MONOTONIC on Linux) to running totals by name, and :func:`snapshot`
+returns them as plain numbers::
 
     from yagi_tpu_torch import trace
 
@@ -14,9 +15,17 @@ to running totals by name, and :func:`snapshot` returns them as plain numbers::
 
 A span's self time is its time less the time of the spans opened inside it
 on the same thread (each thread keeps its own stack of open spans). Spans
-keep totals on the host clock only: they open no profiler range and add no
-device operation, host-device sync or tensor allocation, so a profiler's
+keep their times on the host clock only: they open no profiler range and add
+no device operation, host-device sync or tensor allocation, so a profiler's
 trace reads the same with tracing on or off.
+
+Each timed span is also kept as an interval ``(name, start_ns, end_ns)`` on
+that clock, the process's timeline: the set-up spans (below) always, a
+handful a process; the others only while tracing is on, the newest
+:data:`STEP_INTERVALS` of them, those pushed out counted as dropped. The
+module's import takes one anchor, ``time.time_ns()`` beside
+``time.perf_counter_ns()``, which puts the intervals on the wall clock (the
+one a process's start time in ``/proc`` is read on) or on a profiler's.
 
 Every name starts with ``yagi.``:
 
@@ -43,14 +52,21 @@ Every name starts with ``yagi.``:
   ``yagi.kernel.<wrapper>`` around the checks, routing and allocations, over
   ``yagi.kernel.<wrapper>.launch`` around the stream fetch and the call into
   the kernels' library;
-- set-up: ``yagi.library`` (the kernels' library found, built or loaded,
-  and bound: its first use), ``yagi.rxchain.create`` over
+- set-up: ``yagi.device`` (``_src/device.py::resolve_device``: the first
+  resolve of a CUDA device in the process, which makes the card's context;
+  none on the CPU), ``yagi.library`` (the kernels' library found, built or
+  loaded, and bound: its first use), ``yagi.rxchain.create`` over
   ``yagi.rxchain.taps`` (the compact taps' round trip to host numpy),
   ``yagi.qamrx.create``, ``yagi.chzfm.create``, ``yagi.symrx.create``,
-  ``yagi.fmrx.create``. These are timed whether
-  tracing is on or off (``always=True``): each runs once for an object or a
-  process, and two clock reads are nothing beside the designs and builds
-  they time.
+  ``yagi.fmrx.create`` (each entry's device resolved before its span opens),
+  and ``yagi.<entry>.first_step`` over the entry's first step in the process
+  (``rxchain``, ``qamrx``, ``chzfm``, ``symrx``, ``fmrx``: each kernel's
+  first launch, the caching allocator's first segments, the library's first
+  use if ``create`` did not make it). These are timed whether tracing is on
+  or off (``always=True``, ``first=``): each runs once for an object or a
+  process, and two clock reads are nothing beside the designs, builds and
+  first launches they time. A later step pays one set lookup for its
+  ``first``, and no clock read.
 
 Counters count whether tracing is on or off: ``library.builds`` (nvcc runs of
 the kernels' library), ``qam_eq_scan.slots`` (the slots ``qam_eq_scan_apply``
@@ -81,18 +97,26 @@ channels).
 
 from __future__ import annotations
 
+import collections
 import functools
 import threading
 import time
 
-__all__ = ["PREFIX", "count", "device_counter", "enable", "kernel", "launches", "reset",
-           "snapshot", "span", "spanned"]
+__all__ = ["PREFIX", "STEP_INTERVALS", "count", "device_counter", "enable", "kernel",
+           "launches", "reset", "snapshot", "span", "spanned"]
 
 PREFIX = "yagi."
+STEP_INTERVALS = 65_536  # the newest intervals of spans other than set-up's that are kept
 
 _on = False
 _clock = time.perf_counter_ns
+_ANCHOR = (time.time_ns(), time.perf_counter_ns())  # (wall ns, clock ns) at one moment
 _spans: dict[str, list[int]] = {}  # name -> [count, ns, self ns]
+_setup: list[tuple[str, int, int]] = []  # the set-up spans' intervals, in closing order
+_steps: collections.deque = collections.deque(maxlen=STEP_INTERVALS)  # the others'
+_dropped = 0  # intervals pushed out of _steps
+_firsts: set[str] = set()  # the ``first`` spans this process has taken
+_first_lock = threading.Lock()
 _counters: dict[str, int] = {}
 _device_counters: dict[str, dict] = {}  # name -> {device: int64 tensor of one element}
 _local = threading.local()  # .stack: this thread's open spans, innermost last
@@ -123,10 +147,11 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("name", "t0", "child_ns", "stack")
+    __slots__ = ("name", "setup", "t0", "child_ns", "stack")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, setup: bool = False):
         self.name = name
+        self.setup = setup
 
     def __enter__(self):
         self.child_ns = 0
@@ -136,7 +161,15 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        ns = _clock() - self.t0
+        global _dropped
+        t1 = _clock()
+        ns = t1 - self.t0
+        if self.setup:
+            _setup.append((self.name, self.t0, t1))
+        else:
+            if len(_steps) == _steps.maxlen:
+                _dropped += 1
+            _steps.append((self.name, self.t0, t1))
         stack = self.stack
         stack.pop()
         if stack:
@@ -157,9 +190,14 @@ def enable(on: bool = True) -> None:
 
 
 def reset() -> None:
-    """Clear the span totals and the counters, the device's too (not the
-    kernels' launches)."""
+    """Clear the span totals, the timeline and the counters, the device's
+    too (not the kernels' launches, nor which ``first`` spans were taken:
+    each stays the process's first)."""
+    global _dropped
     _spans.clear()
+    _setup.clear()
+    _steps.clear()
+    _dropped = 0
     _counters.clear()
     for per in _device_counters.values():
         for t in per.values():
@@ -169,20 +207,44 @@ def reset() -> None:
 def span(name: str, always: bool = False):
     """A context manager that adds the time inside it to span ``name``
     while tracing is on, or with ``always`` (set-up work) in any case."""
-    return _Span(name) if _on or always else _OFF
+    return _Span(name, always) if _on or always else _OFF
 
 
-def spanned(name: str, always: bool = False):
-    """Decorator: each call of the function runs inside ``span(name, always)``."""
+def _take(first: str) -> bool:
+    """Whether this call takes ``first``: true once a process."""
+    with _first_lock:
+        if first in _firsts:
+            return False
+        _firsts.add(first)
+        return True
+
+
+def spanned(name: str, always: bool = False, first: str | None = None):
+    """Decorator: each call of the function runs inside ``span(name, always)``;
+    with ``first``, the process's first call of any function that names it
+    also runs inside the set-up span ``first``, around the other."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             if not (_on or always):
                 return fn(*args, **kwargs)
-            with _Span(name):
+            with _Span(name, always):
                 return fn(*args, **kwargs)
 
-        return call
+        if first is None:
+            return call
+
+        @functools.wraps(fn)
+        def call_first(*args, **kwargs):
+            if first not in _firsts and _take(first):
+                with _Span(first, True):
+                    return call(*args, **kwargs)
+            if not (_on or always):
+                return fn(*args, **kwargs)
+            with _Span(name, always):
+                return fn(*args, **kwargs)
+
+        return call_first
 
     return wrap
 
@@ -226,13 +288,20 @@ def launches() -> dict[str, int]:
 def snapshot() -> dict:
     """The totals so far as plain numbers: ``spans`` (name -> count, ns,
     self_ns), ``counters`` (the device counters summed over devices, read
-    here: a sync of each device that has one) and ``launches`` (name ->
-    count)."""
+    here: a sync of each device that has one), ``launches`` (name -> count)
+    and ``timeline``: ``anchor`` (``wall_ns`` and ``clock_ns`` read at one
+    moment), ``setup`` and ``steps`` (intervals ``(name, start_ns, end_ns)``
+    on the spans' clock, each list by start) and ``dropped`` (step intervals
+    pushed out of the bounded buffer)."""
     counters = dict(_counters)
     for name, per in _device_counters.items():
         counters[name] = counters.get(name, 0) + sum(int(t.item()) for t in per.values())
+    by_start = functools.partial(sorted, key=lambda iv: iv[1])
     return {
         "spans": {n: {"count": c, "ns": ns, "self_ns": s} for n, (c, ns, s) in _spans.items()},
         "counters": counters,
         "launches": launches(),
+        "timeline": {"anchor": {"wall_ns": _ANCHOR[0], "clock_ns": _ANCHOR[1]},
+                     "setup": by_start(_setup), "steps": by_start(_steps),
+                     "dropped": _dropped},
     }
